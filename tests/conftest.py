@@ -7,3 +7,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without a "
+        "card (run on the GPU machine with --noconftest, see README.md)")
