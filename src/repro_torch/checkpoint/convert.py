@@ -5,8 +5,10 @@ params)`` gives: nested dicts of numpy arrays, with each packed weight an
 object carrying ``qw``, ``scale``, ``bits``, ``group_size`` and ``shape``
 (the JAX ``QuantizedTensor`` with numpy children, or a plain dict of those
 keys). It returns the port's params under the same key paths, scan-stacked
-"stack/p0" included. Packed bytes are taken as they are, so a tree packed
-by either package runs in the other.
+"stack/p0" included, and the per-block (unstacked) trees of the
+quantization pipeline alike. Packed bytes are taken as they are, and
+``act_bits`` (8: the W8A8 path) is carried across, so a tree packed by
+either package runs in the other.
 """
 from __future__ import annotations
 
@@ -34,16 +36,23 @@ def params_from_numpy(tree, device="cuda"):
 
     def conv(node):
         if _is_packed(node):
-            if getattr(node, "act_bits", 0) or (
-                    isinstance(node, dict) and node.get("act_bits", 0)):
+            act_bits = (node.get("act_bits", 0) if isinstance(node, dict)
+                        else getattr(node, "act_bits", 0))
+            if act_bits not in (0, 8):
                 raise NotImplementedError(
-                    "W8A8 (act_bits) weights are not ported yet")
+                    f"act_bits={act_bits}: only the per-token int8 path "
+                    "(8) is ported")
+            qw = np.array(_field(node, "qw"), np.uint8)
+            # leading (layer) dims from the codes: a JAX tree stacked by
+            # the pipeline keeps each layer's (K, N) as its static shape
+            shape = qw.shape[:-2] + tuple(
+                int(d) for d in _field(node, "shape")[-2:])
             return QuantizedTensor(
-                torch.from_numpy(np.array(_field(node, "qw"), np.uint8)).to(dev),
+                torch.from_numpy(qw).to(dev),
                 torch.from_numpy(np.array(_field(node, "scale"),
                                           np.float32)).to(dev),
                 int(_field(node, "bits")), int(_field(node, "group_size")),
-                tuple(int(d) for d in _field(node, "shape")))
+                tuple(shape), int(act_bits))
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         return torch.from_numpy(np.array(node)).to(dev)

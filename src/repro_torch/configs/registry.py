@@ -25,6 +25,10 @@ def _load(name: str, attr: str) -> ModelConfig:
     return cfg
 
 
+def list_archs() -> list[str]:
+    return sorted(_MODULES)
+
+
 def get_config(name: str) -> ModelConfig:
     return _load(name, "CONFIG")
 

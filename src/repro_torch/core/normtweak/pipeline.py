@@ -1,0 +1,193 @@
+"""Norm-Tweaking PTQ pipeline — the paper's Algorithm 1 (port of
+``repro.core.normtweak.pipeline``, decoder-only LMs).
+
+Layer-by-layer over the model:
+  1. the quantized stream qX feeds every layer (lines 4-7);
+  2. the float output fOut_l is computed with float weights (line 8), from
+     the float model's own stream ("fstream") or from qX ("qstream");
+  3. the layer's linears are quantized (GPTQ/RTN/SmoothQuant, line 9) from
+     the inputs each linear sees on qX (taps);
+  4. Adam updates ONLY the norm parameters against the channel-wise
+     distribution loss for ``iters`` passes over the calibration set in
+     sample-batch chunks (lines 11-15), with the depth-increasing LR of
+     Eq. 3. The JAX package runs this loop as one jitted ``lax.scan``; here
+     it is a Python loop over the same chunks in the same order
+     (chunks 0..C-1, ``iters`` times), one backward pass each;
+  5. qX advances through the final quantized layer.
+
+Packed linears run the port's kernels in every forward here — the
+dequant matmul, or the W8A8 matmul when ``act_bits == 8`` — and the tweak
+differentiates through them (models/linear.py says how). Set
+``tweak=False`` for the plain quantizer baseline.
+
+Beside the JAX package's per-layer loss and LR, ``stats`` records each
+layer's seconds in its forwards (float stream, taps, advance), in
+quantization and in the tweak, synchronising the card around each phase.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.normtweak.losses import LOSSES
+from repro_torch.core.normtweak.schedule import layer_lr
+from repro_torch.core.quant.blockquant import quantize_block
+from repro_torch.models.blocks import apply_block
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.norms import is_norm_path
+from repro_torch.models.transformer import _embed, get_block, num_blocks
+from repro_torch.optim.adam import adam_init, adam_update
+from repro_torch.utils.tree import (tree_map, tree_merge, tree_partition,
+                                    tree_stack)
+
+
+@dataclasses.dataclass(frozen=True)
+class NTConfig:
+    method: str = "gptq"          # gptq | rtn | smoothquant
+    bits: int = 4
+    group_size: int = -1          # -1 = per-channel; 64 for W2 (paper)
+    act_bits: int = 0             # 8 for SmoothQuant W4A8
+    tweak: bool = True            # False => plain PTQ baseline
+    iters: int = 1                # passes over the calibration set (Table 6)
+    lr0: float = 1e-5
+    lr_scale: float = 10.0        # Eq. 3 depth scaling
+    loss: str = "dist"            # dist | mse | kl (Table 9)
+    target: str = "fstream"       # fstream: fOut_l from the float model's own
+                                  # activations (Fig. 1's objective); qstream:
+                                  # float layer applied to the quantized
+                                  # stream (a literal Algorithm-1 line-8 read)
+    sample_batch: int = 8         # calibration samples per tweak step
+    damp: float = 0.01
+    actorder: bool = False
+    alpha: float = 0.5            # SmoothQuant migration strength
+
+
+def _sync(x: torch.Tensor) -> None:
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+
+
+def _tweak_update(cfg, loss_name, norms, rest, opt_state, x, fout,
+                  positions, lr):
+    """One Adam step on the norm params for one sample-batch chunk. Only
+    the norm leaves require gradients."""
+    leaves = []
+
+    def track(t):
+        t = t.detach().requires_grad_(True)
+        leaves.append(t)
+        return t
+
+    tracked = tree_map(track, norms)
+    qout = apply_block(cfg, tree_merge(tracked, rest), x,
+                       positions=positions)
+    loss = LOSSES[loss_name](fout, qout)
+    grads = iter(torch.autograd.grad(loss, leaves))
+    grad_tree = tree_map(lambda _: next(grads), tracked)
+    new_norms, new_state = adam_update(grad_tree, opt_state, norms, lr=lr)
+    return new_norms, new_state, loss.detach()
+
+
+def tweak_block(cfg: ModelConfig, qbp: dict, qx: torch.Tensor,
+                fout: torch.Tensor, positions: torch.Tensor, nt: NTConfig,
+                lr: float):
+    """Lines 11-15 for one quantized block: ``nt.iters`` passes of Adam over
+    the sample-batch chunks of (qx, fout). Returns (block with tweaked
+    norms, the last chunk's loss)."""
+    norms, rest = tree_partition(qbp, is_norm_path)
+    opt_state = adam_init(norms)
+    n = qx.shape[0]
+    sb = max(1, min(nt.sample_batch, n))
+    last_loss = torch.zeros((), device=qx.device)
+    for _ in range(nt.iters):                                    # line 11
+        for s0 in range(0, n, sb):
+            norms, opt_state, last_loss = _tweak_update(
+                cfg, nt.loss, norms, rest, opt_state, qx[s0:s0 + sb],
+                fout[s0:s0 + sb], positions[s0:s0 + sb], lr)
+    return tree_merge(norms, rest), last_loss
+
+
+def tweak_layers(cfg: ModelConfig, blocks: list, x0: torch.Tensor,
+                 nt: NTConfig, *, layer_offset: int = 0,
+                 total_layers: Optional[int] = None,
+                 log: Optional[Callable[[str], None]] = None):
+    """Core loop over an ordered list of blocks. Returns (qblocks, qX,
+    stats). x0: (n_samples, seq, d) activations entering the first
+    block."""
+    total_layers = total_layers or len(blocks)
+    n, s, _ = x0.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x0.device)[None].expand(n, s)
+    qx = x0
+    fx = x0  # float stream (used when nt.target == "fstream")
+    qblocks = []
+    stats = {"layer_loss": [], "layer_lr": [], "layer_forward_s": [],
+             "layer_quant_s": [], "layer_tweak_s": []}
+
+    def block_apply_full(bp, x, taps=None):
+        with torch.no_grad():
+            return apply_block(cfg, bp, x, positions=positions, taps=taps)
+
+    for li, bp in enumerate(blocks):
+        gi = layer_offset + li
+        _sync(x0)
+        t0 = time.perf_counter()
+        if nt.target == "fstream":
+            fx = block_apply_full(bp, fx)                       # float stream
+            fout = fx
+        else:
+            fout = block_apply_full(bp, qx)                     # line 8
+        taps: dict = {}
+        block_apply_full(bp, qx, taps=taps)                     # capture X
+        _sync(x0)
+        t1 = time.perf_counter()
+        qbp = quantize_block(bp, taps, method=nt.method, bits=nt.bits,
+                             group_size=nt.group_size, act_bits=nt.act_bits,
+                             alpha=nt.alpha, damp=nt.damp,
+                             actorder=nt.actorder)              # lines 9-10
+        del taps
+        _sync(x0)
+        t2 = time.perf_counter()
+        if nt.tweak:
+            lr = layer_lr(nt.lr0, nt.lr_scale, gi, total_layers)  # Eq. 3
+            qbp, last_loss = tweak_block(cfg, qbp, qx, fout, positions, nt,
+                                         lr)
+            stats["layer_loss"].append(float(last_loss))
+            stats["layer_lr"].append(lr)
+        _sync(x0)
+        t3 = time.perf_counter()
+        qblocks.append(qbp)
+        qx = block_apply_full(qbp, qx)                          # line 6
+        _sync(x0)
+        stats["layer_forward_s"].append(t1 - t0 + time.perf_counter() - t3)
+        stats["layer_quant_s"].append(t2 - t1)
+        stats["layer_tweak_s"].append(t3 - t2)
+        if log:
+            log(f"layer {gi + 1}/{total_layers} done "
+                f"({'tweaked' if nt.tweak else 'quantized'})")
+    return qblocks, qx, stats
+
+
+def _restack(cfg: ModelConfig, params: dict, qblocks: list) -> dict:
+    out = dict(params)
+    pl = len(cfg.pattern)
+    out["stack"] = {f"p{j}": tree_stack([qblocks[r * pl + j]
+                                         for r in range(cfg.n_repeats)])
+                    for j in range(pl)}
+    return out
+
+
+def norm_tweak_ptq(cfg: ModelConfig, params: dict,
+                   calib_tokens: torch.Tensor, nt: NTConfig,
+                   log: Optional[Callable[[str], None]] = None):
+    """Quantize a decoder-only LM with Norm-Tweaking. Returns (qparams,
+    stats). calib_tokens: (n_samples, token_length) on the params' device
+    — the paper uses 128 x 2048 self-generated samples (see
+    core/calibration)."""
+    x0 = _embed(params, calib_tokens)
+    blocks = [get_block(cfg, params, i) for i in range(num_blocks(cfg))]
+    qblocks, _, stats = tweak_layers(cfg, blocks, x0, nt, log=log)
+    return _restack(cfg, params, qblocks), stats

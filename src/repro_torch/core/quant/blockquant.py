@@ -1,9 +1,20 @@
-"""Walk a param tree's linears (the part of ``repro.core.quant.blockquant``
-the deploy transform needs; the calibrated per-block drivers come with GPTQ
-in a later slice)."""
+"""Per-block quantization driver (port of ``repro.core.quant.blockquant``):
+walks a block's linear leaves, resolves the calibration activations
+captured for each (taps), and applies RTN / GPTQ / SmoothQuant. The dense
+decoder's blocks only: AWQ and the MoE expert paths come with the MoE
+slice.
+"""
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, Optional
+
+from repro_torch.core.quant.gptq import gptq_quantize, hessian_from_inputs
+from repro_torch.core.quant.rtn import rtn_quantize
+from repro_torch.core.quant.smoothquant import (fold_into_norm,
+                                                scale_weight_rows,
+                                                smooth_scales)
+from repro_torch.core.quant.types import QuantizedTensor
+from repro_torch.utils.tree import tree_get, tree_set
 
 
 def iter_linears(block: dict, prefix: str = "",
@@ -19,3 +30,95 @@ def iter_linears(block: dict, prefix: str = "",
             yield prefix + k, v
         else:
             yield from iter_linears(v, prefix + k + "/", max_ndim)
+
+
+def tap_key_for(path: str) -> str:
+    """Map a linear param path to its calibration-tap key."""
+    if path.endswith("experts/wi") or path.endswith("experts/wg"):
+        return path.rsplit("/", 1)[0]                 # .../experts
+    if path.endswith("experts/wo"):
+        return path.rsplit("/", 1)[0] + "_out"        # .../experts_out
+    return path
+
+
+# norm feeding each linear group (for SmoothQuant folding): the JAX
+# package's table as it is. Every row whose norm and any of whose linears
+# exist is applied in turn, so the MLA row ("attn/wq", "attn/wdkv") also
+# matches a GQA block through its wq: ln1 is smoothed twice there, and wk,
+# wv keep only the first factor — not an exact transform for them. The
+# port reproduces the reference (ROADMAP.md, queue 3 caveats).
+_SMOOTH_GROUPS = [
+    ("ln1", ["attn/wq", "attn/wk", "attn/wv"]),
+    ("ln1", ["attn/wq", "attn/wdkv"]),                # MLA
+    ("ln1", ["mamba/in_proj"]),
+    ("lnx", ["xattn/wq"]),
+    ("ln2", ["mlp/wi", "mlp/wg"]),
+    ("ln2", ["moe/shared/wi", "moe/shared/wg"]),
+]
+
+
+def _exists(block: dict, path: str) -> bool:
+    node = block
+    for k in path.split("/"):
+        if not isinstance(node, dict) or k not in node:
+            return False
+        node = node[k]
+    return True
+
+
+def smooth_block(block: dict, taps: dict, alpha: float = 0.5) -> dict:
+    """Fold SmoothQuant scales into norms + weights (exact float
+    transform)."""
+    for norm_path, lin_paths in _SMOOTH_GROUPS:
+        lins = [p for p in lin_paths if _exists(block, p)]
+        if not lins or not _exists(block, norm_path):
+            continue
+        x = taps.get(tap_key_for(lins[0]))
+        if x is None:
+            continue
+        amax = x.reshape(-1, x.shape[-1]).abs().amax(dim=0)
+        s = smooth_scales(amax, [tree_get(block, p)["w"] for p in lins],
+                          alpha)
+        block = tree_set(block, norm_path, fold_into_norm(
+            tree_get(block, norm_path), s))
+        for p in lins:
+            lin = dict(tree_get(block, p))
+            lin["w"] = scale_weight_rows(lin["w"], s)
+            block = tree_set(block, p, lin)
+    return block
+
+
+def quantize_block(block: dict, taps: Optional[dict], *,
+                   method: str = "gptq", bits: int = 4,
+                   group_size: int = -1, act_bits: int = 0,
+                   alpha: float = 0.5, damp: float = 0.01,
+                   actorder: bool = False,
+                   skip_substrings: tuple = ("router",)) -> dict:
+    """Quantize every linear in the block. Returns a new block tree."""
+    if method not in ("gptq", "rtn", "smoothquant"):
+        raise NotImplementedError(f"method {method!r} is not ported yet")
+    if method == "smoothquant":
+        if taps is None:
+            raise ValueError("SmoothQuant needs calibration taps")
+        block = smooth_block(block, taps, alpha)
+
+    for path, lin in list(iter_linears(block)):
+        if any(s in path for s in skip_substrings):
+            continue
+        w = lin["w"]
+        if isinstance(w, QuantizedTensor):
+            continue
+        if method == "gptq":
+            if taps is None:
+                raise ValueError("GPTQ needs calibration taps")
+            h = hessian_from_inputs(taps[tap_key_for(path)])
+            qt, _ = gptq_quantize(w, h, bits=bits, group_size=group_size,
+                                  damp=damp, actorder=actorder,
+                                  act_bits=act_bits)
+        else:  # rtn | smoothquant (weights via RTN after folding)
+            qt = rtn_quantize(w, bits=bits, group_size=group_size,
+                              act_bits=act_bits)
+        new_lin = dict(lin)
+        new_lin["w"] = qt
+        block = tree_set(block, path, new_lin)
+    return block

@@ -10,21 +10,9 @@ from repro_torch.core.quant.blockquant import iter_linears
 from repro_torch.core.quant.types import quantize_stacked
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.utils.tree import tree_set
 
 _SKIP = ("embed", "lm_head", "pos", "router", "conv")
-
-
-def _tree_set(tree: dict, path: str, value) -> dict:
-    keys = path.split("/")
-
-    def rec(node, i):
-        if i == len(keys):
-            return value
-        new = dict(node)
-        new[keys[i]] = rec(node[keys[i]], i + 1)
-        return new
-
-    return rec(tree, 0)
 
 
 def quantize_params_for_serving(cfg: ModelConfig, params: dict,
@@ -53,7 +41,7 @@ def quantize_params_for_serving(cfg: ModelConfig, params: dict,
             gs = group_size
         new_lin = dict(lin)
         new_lin["w"] = quantize_stacked(w, bits, gs)
-        params = _tree_set(params, path, new_lin)
+        params = tree_set(params, path, new_lin)
     return params
 
 

@@ -45,6 +45,7 @@ class QuantizedTensor:
     bits: int
     group_size: int      # -1 means one group over all of K
     shape: tuple         # original (K, N) or (L, K, N)
+    act_bits: int = 0    # 8: per-token int8 activations (the W8A8 kernel)
 
     @property
     def k(self) -> int:
@@ -57,11 +58,13 @@ class QuantizedTensor:
     def __getitem__(self, i: int) -> "QuantizedTensor":
         """Layer i of a scan-stacked tensor (views, no copy)."""
         return QuantizedTensor(self.qw[i], self.scale[i], self.bits,
-                               self.group_size, tuple(self.shape[1:]))
+                               self.group_size, tuple(self.shape[1:]),
+                               self.act_bits)
 
     def to(self, device) -> "QuantizedTensor":
         return QuantizedTensor(self.qw.to(device), self.scale.to(device),
-                               self.bits, self.group_size, self.shape)
+                               self.bits, self.group_size, self.shape,
+                               self.act_bits)
 
 
 def _group_count(k: int, group_size: int) -> int:
@@ -134,13 +137,13 @@ def unpack(qw: torch.Tensor, bits: int, k: int) -> torch.Tensor:
     return u[:k] - qmax
 
 
-def quantize(w: torch.Tensor, bits: int,
-             group_size: int = -1) -> QuantizedTensor:
+def quantize(w: torch.Tensor, bits: int, group_size: int = -1,
+             act_bits: int = 0) -> QuantizedTensor:
     """RTN-quantize a (K, N) weight to a packed QuantizedTensor."""
     scale = compute_scales(w, bits, group_size)
     q = quantize_values(w, scale, bits)
     return QuantizedTensor(pack(q, bits), scale, bits, group_size,
-                           tuple(w.shape))
+                           tuple(w.shape), act_bits)
 
 
 def dequantize(qt: QuantizedTensor) -> torch.Tensor:
@@ -154,12 +157,38 @@ def dequantize(qt: QuantizedTensor) -> torch.Tensor:
     return q * qt.scale[rows]
 
 
-def quantize_stacked(w: torch.Tensor, bits: int,
-                     group_size: int = -1) -> QuantizedTensor:
+def quantize_stacked(w: torch.Tensor, bits: int, group_size: int = -1,
+                     act_bits: int = 0) -> QuantizedTensor:
     """RTN-quantize weights with any leading batch dims (..., K, N)."""
     if w.ndim == 2:
-        return quantize(w, bits, group_size)
-    parts = [quantize_stacked(wi, bits, group_size) for wi in w]
+        return quantize(w, bits, group_size, act_bits)
+    return stack_quantized([quantize_stacked(wi, bits, group_size, act_bits)
+                            for wi in w])
+
+
+def stack_quantized(parts: list) -> QuantizedTensor:
+    """Stack same-layout packed tensors along a new leading dim (the
+    scan-stacked layer axis); ``act_bits`` and the layout are kept."""
+    p0 = parts[0]
+    if any((p.bits, p.group_size, p.shape, p.act_bits) !=
+           (p0.bits, p0.group_size, p0.shape, p0.act_bits) for p in parts):
+        raise ValueError("cannot stack packed tensors of different layouts")
     return QuantizedTensor(torch.stack([p.qw for p in parts]),
                            torch.stack([p.scale for p in parts]),
-                           bits, group_size, tuple(w.shape))
+                           p0.bits, p0.group_size,
+                           (len(parts),) + tuple(p0.shape), p0.act_bits)
+
+
+def quantize_activation(x: torch.Tensor, bits: int = 8):
+    """Dynamic symmetric per-token activation quantization.
+
+    Returns (q, scale): q int8 with the shape of x, scale f32 (..., 1) with
+    q * scale ~= x, |error| <= scale / 2 (each row's amax lands on the
+    grid). Rounds half to even like ``jnp.round``. q carries no gradient;
+    scale does, through the amax (to each row's largest |x|)."""
+    qmax = qmax_for_bits(bits)
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = amax.clamp_min(1e-10) / qmax
+    q = torch.round(xf / scale).clamp(-qmax, qmax).to(torch.int8)
+    return q, scale

@@ -7,9 +7,8 @@
 //   out[m, n] = sum_k bf16(x[m, k]) * bf16(q[k, n] * scale[g(k), n])
 //
 // accumulated in f32, where q comes from the K-packed offset-binary bytes
-// of core/quant/types.py: packed group r, value i holds K row r*vpg + i;
-// W3 groups are three bytes read as one little-endian 24-bit word; values
-// are stored as q + qmax; g(k) = 0 per-channel (G == 1), else k / (K / G).
+// of core/quant/types.py (read by packing.cuh), and g(k) = 0 per-channel
+// (G == 1), else k / (K / G).
 //
 // What bounds it on this card. Prefill (M = B*S rows, hundreds to
 // thousands) does 2*M*K*N operations on (K*N*bits/8) weight bytes and is
@@ -44,9 +43,12 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "packing.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using packing::packed_value;
 
 constexpr int BM = 64;
 constexpr int BN = 64;
@@ -58,25 +60,6 @@ constexpr int XS_LD = BK + 8;  // bf16 leading dims: multiples of 8, and
 constexpr int WS_LD = BN + 8;  // row offsets stay 32-byte aligned for WMMA
 constexpr int CS_LD = BN + 4;  // f32 leading dim: a multiple of 4
 
-// offset-binary value of K row k, column n, in the packed layout
-template <int BITS>
-__device__ __forceinline__ int packed_value(const uint8_t* __restrict__ qw,
-                                            int k, int n, int N) {
-  if (BITS == 8) {
-    return qw[(size_t)k * N + n];
-  } else if (BITS == 4) {
-    return (qw[(size_t)(k >> 1) * N + n] >> (4 * (k & 1))) & 0xF;
-  } else if (BITS == 2) {
-    return (qw[(size_t)(k >> 2) * N + n] >> (2 * (k & 3))) & 0x3;
-  } else {  // 3: 8 values in a 3-byte little-endian word
-    const size_t r = (size_t)(k >> 3) * 3;
-    const uint32_t word = (uint32_t)qw[r * N + n] |
-                          ((uint32_t)qw[(r + 1) * N + n] << 8) |
-                          ((uint32_t)qw[(r + 2) * N + n] << 16);
-    return (word >> (3 * (k & 7))) & 0x7;
-  }
-}
-
 // STEP_SCALE: every K step lies inside one scale group (G == 1, or K / G a
 // multiple of BK), so a thread's scale is one load per step
 template <int BITS, bool STEP_SCALE>
@@ -85,7 +68,7 @@ dequant_matmul_kernel(const float* __restrict__ x,
                       const uint8_t* __restrict__ qw,
                       const float* __restrict__ scale, float* __restrict__ out,
                       int M, int K, int N, int G, int k_per_split) {
-  constexpr int QMAX = (1 << (BITS - 1)) - 1;
+  constexpr int QMAX = packing::Layout<BITS>::QMAX;
   constexpr int XPT = BM * BK / THREADS;  // x elements per thread per step
   constexpr int WPT = BK * BN / THREADS;  // weight elements per thread
   __shared__ __align__(32) __nv_bfloat16 xs[BM * XS_LD];

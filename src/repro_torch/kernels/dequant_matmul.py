@@ -29,16 +29,23 @@ TARGET_BLOCKS = 1024
 MIN_STEPS_PER_SPLIT = 4
 
 
-def plan_splits(m: int, k: int, n: int) -> tuple[int, int]:
+def plan_splits(m: int, k: int, n: int,
+                group_rows: int | None = None) -> tuple[int, int]:
     """(splits, k_per_split): cut K across blocks when the output tiles
     alone are too few to fill the card (the decode shapes). k_per_split is
-    a whole number of K steps and no split is empty."""
+    a whole number of K steps and no split is empty. With ``group_rows``
+    (< K: grouped scales, which the W8A8 kernel sums apart) it is also a
+    whole number of scale groups."""
+    group_rows = k if group_rows is None else group_rows
+    unit = TILE_K if group_rows >= k else max(TILE_K, group_rows)
+    if unit % TILE_K:
+        unit *= 2                          # a group of 16 rows: two a step
     tiles = -(-m // TILE_M) * -(-n // TILE_N)
-    steps = -(-k // TILE_K)
+    units = -(-k // unit)
     splits = max(1, min(-(-TARGET_BLOCKS // tiles),
-                        steps // MIN_STEPS_PER_SPLIT))
-    per = -(-steps // splits)
-    return -(-steps // per), per * TILE_K
+                        units * unit // (TILE_K * MIN_STEPS_PER_SPLIT)))
+    per = -(-units // splits)
+    return -(-units // per), per * unit
 
 
 def _lib():

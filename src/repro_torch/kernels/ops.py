@@ -1,6 +1,7 @@
 """Public wrappers around the port's kernels.
 
-Port of ``repro.kernels.ops`` for the two kernels of the serving path.
+Port of ``repro.kernels.ops`` for the kernels ported so far: the dequant
+matmul, the W8A8 matmul and paged attention.
 Dispatch is by the device of the tensors: a CPU tensor runs the kernel's
 plain PyTorch version (``kernels/ref.py``); a CUDA tensor launches the
 hand-written CUDA kernel or raises. There is no fallback from one to the
@@ -16,19 +17,22 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.quant.types import QuantizedTensor
+from repro_torch.core.quant.types import QuantizedTensor, quantize_activation
 from repro_torch.kernels import dequant_matmul as _dq
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import w8a8_matmul as _w8
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel in this process."""
-    return {"dequant_matmul": _dq.launches, "paged_attention": _pa.launches}
+    return {"dequant_matmul": _dq.launches, "w8a8_matmul": _w8.launches,
+            "paged_attention": _pa.launches}
 
 
 def reset_launch_counts() -> None:
     _dq.launches = 0
+    _w8.launches = 0
     _pa.launches = 0
 
 
@@ -40,6 +44,21 @@ def dequant_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
                                       group_size=qt.group_size, k=qt.k)
     return _dq.dequant_matmul_cuda(x, qt.qw, qt.scale, bits=qt.bits,
                                    group_size=qt.group_size, k=qt.k)
+
+
+def w8a8_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """True A8 path: per-token int8 activation quantize, the int8 x int8
+    matmul (exact int32 per scale group), per-token rescale. x: (M, K) f32
+    -> (M, N) f32. The int8 codes carry no gradient, so gradients reach x
+    through the per-token scale only, as in the JAX package."""
+    xq, xs = quantize_activation(x, 8)
+    if xq.device.type == "cpu":
+        y = ref.w8a8_matmul_ref(xq, qt.qw, qt.scale, bits=qt.bits,
+                                group_size=qt.group_size, k=qt.k)
+    else:
+        y = _w8.w8a8_matmul_cuda(xq.contiguous(), qt.qw, qt.scale, bits=qt.bits,
+                                 group_size=qt.group_size, k=qt.k)
+    return y * xs
 
 
 def _paged_read(qg: torch.Tensor, k_pool, v_pool, block_table, kv_len,

@@ -11,7 +11,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.quant.types import QuantizedTensor, dequantize
+from repro_torch.core.quant.types import (QuantizedTensor, dequantize,
+                                          qmax_for_bits, unpack)
 
 NEG = -1e30
 
@@ -29,6 +30,31 @@ def dequant_matmul_ref(x: torch.Tensor, qw: torch.Tensor,
     w = dequantize(qt).to(torch.bfloat16).to(torch.float32)
     xb = x.to(torch.bfloat16).to(torch.float32)
     return torch.matmul(xb, w)
+
+
+def w8a8_matmul_ref(xq: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
+                    *, bits: int, group_size: int, k: int) -> torch.Tensor:
+    """Exact-integer W8A8 product (before the per-token activation rescale).
+    xq: (M, K) int8; qw: (packed_rows(K), N) uint8; scale: (G, N) f32.
+    Returns (M, N) f32.
+
+    Each scale group's sum of int8 x int8 products is taken exactly, in a
+    float type every device multiplies: f32 when no partial sum can reach
+    2^24 (then every partial sum, in any order, is an integer f32 holds;
+    W4 per-channel up to K = 18k), else f64. It is converted to f32 as the
+    kernel converts its int32 sum, rescaled by the group's scale and summed
+    over groups in f32. (f32 products must be full f32, not TF32:
+    ``device.resolve_device`` pins that.)"""
+    m = xq.shape[0]
+    n = qw.shape[1]
+    g = scale.shape[0]
+    exact = (torch.float32 if 127 * qmax_for_bits(bits) * (k // g) < 2 ** 24
+             else torch.float64)
+    q = unpack(qw, bits, k).to(exact)                        # (K, N)
+    acc = torch.einsum("mgk,gkn->mgn",
+                       xq.to(exact).reshape(m, g, k // g),
+                       q.reshape(g, k // g, n))
+    return (acc.to(torch.float32) * scale.to(torch.float32)[None]).sum(dim=1)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

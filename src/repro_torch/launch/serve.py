@@ -1,0 +1,224 @@
+"""Serving launcher: quantize (GPTQ/RTN/SmoothQuant ± Norm-Tweaking) and
+drive the continuous-batching engine with seeded traffic, reporting
+throughput and per-request latency percentiles (port of
+``repro.launch.serve``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+        --smoke --bits 4 --method gptq --requests 16 --rate 8.0
+
+runs on the card; ``--device cpu`` runs every kernel's plain version
+instead. ``--no-smoke`` runs the full-size config. The paper's pipeline
+(``build_params``): seeded float weights, 8 self-generated calibration
+samples of 32 tokens, then ``norm_tweak_ptq`` — ``--method smoothquant``
+is W4A8 (per-token int8 activations, the W8A8 kernel), ``--no-tweak``
+the plain quantizer. Traffic shapes come from serve/traffic.py
+(``--trace poisson|bursty|uniform``; ``--batch-frac`` labels that share of
+requests batch-class). ``--virtual-clock`` drives the run on the
+deterministic step clock instead of wall time.
+
+The JAX launcher's flags for features that later slices of the port
+bring (speculative decoding, tensor parallelism, preemption, faults,
+snapshots, prefix sharing, chunked prefill, deadlines, the static engine)
+are refused with the slice's name, never ignored.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.registry import list_archs
+from repro_torch.core.calibration.generator import generate_calibration
+from repro_torch.core.normtweak.pipeline import NTConfig, norm_tweak_ptq
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import init_lm
+from repro_torch.serve import traffic
+from repro_torch.serve.engine import ContinuousEngine
+
+# flag -> (its default, the later slice that brings it; ROADMAP.md queue 1)
+_LATER = {
+    "spec_decode": (False, "self-speculative decoding"),
+    "tp": (1, "multi-device serving"),
+    "preempt": (False, "overload and faults"),
+    "deadline": (None, "overload and faults"),
+    "faults": (None, "overload and faults"),
+    "snapshot_every": (0, "overload and faults"),
+    "prefix_share": (False, "chunked prefill and prefix sharing"),
+    "chunked_prefill": (0, "chunked prefill and prefix sharing"),
+}
+
+
+def tree_size_bytes(tree) -> int:
+    """Bytes of every tensor in a param tree (packed weights: codes and
+    scales)."""
+    if isinstance(tree, dict):
+        return sum(tree_size_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return tree_size_bytes({"qw": tree.qw, "scale": tree.scale})
+
+
+def build_params(cfg, args, device):
+    """Seeded float params, then (unless ``--method none``) self-generated
+    calibration and the norm-tweaking pipeline. Returns (params, stats:
+    the pipeline's per-layer record plus "calib_s", or None)."""
+    params = init_lm(cfg, seed=0, device=device)
+    print(f"{cfg.name}: float {tree_size_bytes(params) / 1e6:.1f} MB")
+    if args.method == "none":
+        return params, None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    t0 = time.perf_counter()
+    calib = generate_calibration(cfg, params, gen, n_samples=8,
+                                 token_length=32)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    nt = NTConfig(method=args.method, bits=args.bits,
+                  group_size=args.group_size, tweak=not args.no_tweak,
+                  lr0=1e-3, iters=1, sample_batch=4,
+                  act_bits=8 if args.method == "smoothquant" else 0)
+    params, stats = norm_tweak_ptq(cfg, params, calib, nt,
+                                   log=lambda s: print("  " + s))
+    stats["calib_s"] = calib_s
+    print(f"quantized: {tree_size_bytes(params) / 1e6:.1f} MB "
+          f"(W{args.bits}{'A8' if nt.act_bits else ''}"
+          f"{'+NT' if nt.tweak else ''}); calibration {calib_s:.2f} s, "
+          f"quantization {sum(stats['layer_quant_s']):.2f} s, tweak "
+          f"{sum(stats['layer_tweak_s']):.2f} s")
+    return params, stats
+
+
+def make_workload(cfg, args):
+    """Seeded trace from the traffic harness (serve/traffic.py)."""
+    return traffic.make_trace(
+        kind=args.trace, n=args.requests,
+        rate=args.rate if args.rate > 0 else 1e9,
+        seed=args.seed, vocab_size=cfg.vocab_size,
+        prompt_len=(args.prompt_len_min, args.prompt_len_max),
+        max_new=(args.max_new_min, args.max_new_max),
+        batch_frac=args.batch_frac,
+        burst_len=args.burst_len, idle_len=args.idle_len,
+        burst_rate_mult=args.burst_rate_mult,
+        shared_prefix=args.shared_prefix)
+
+
+def run_continuous(cfg, params, work, args, device):
+    """Warm the engine on every prefill bucket of the workload, reset its
+    counters, then replay the trace. Returns (engine, report)."""
+    plen_max = max(len(it.prompt) for it in work)
+    bucket_up = -(-plen_max // args.prefill_bucket) * args.prefill_bucket
+    eng = ContinuousEngine(cfg, params, n_slots=args.slots,
+                           max_len=bucket_up + args.max_new_max,
+                           page_size=args.page_size,
+                           prefill_bucket=args.prefill_bucket,
+                           seed=args.seed, device=device)
+    buckets = sorted({eng._bucket(len(it.prompt)) for it in work})
+    for b in buckets:
+        for mn in sorted({2, args.max_new_max}):
+            eng.submit(np.zeros(b, np.int64), max_new=mn)
+    eng.run(max_steps=10_000)
+    print(f"warmed {len(buckets)} prefill buckets: {buckets}")
+    eng.t = 0
+    eng.n_decode_steps = eng.n_prefills = eng.n_prefill_tokens = 0
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clock = None if args.virtual_clock else (
+        lambda: time.perf_counter() - t0)
+    report = traffic.replay(eng, work, clock=clock, max_steps=1_000_000)
+    dt = time.perf_counter() - t0
+    done = report["requests"]
+    total_tok = sum(len(r.tokens) for r in done)
+    print(f"continuous: {len(done)} requests, {total_tok} tokens in "
+          f"{dt:.2f}s ({total_tok / dt:.1f} tok/s; {eng.n_decode_steps} "
+          f"decode steps, {eng.n_prefills} prefills, "
+          f"{eng.n_prefill_tokens} prompt tokens)")
+    print(traffic.format_report(report,
+                                unit="steps" if args.virtual_clock else "s"))
+    print("request 0:", done[0].tokens)
+    return eng, report
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    choices=["tiny"] + list_archs())
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="use the reduced config of --arch (--no-smoke for "
+                         "full size)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels; default) or cpu (their plain "
+                         "versions)")
+    ap.add_argument("--method", default="gptq",
+                    choices=["gptq", "rtn", "smoothquant", "none"])
+    ap.add_argument("--bits", type=int, default=4)
+    ap.add_argument("--group-size", type=int, default=-1)
+    ap.add_argument("--no-tweak", action="store_true")
+    ap.add_argument("--engine", default="continuous",
+                    choices=["continuous", "static", "both"])
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--rate", type=float, default=8.0,
+                    help="arrival rate, req/s (0 = all at t=0)")
+    ap.add_argument("--trace", default="poisson",
+                    choices=["poisson", "bursty", "uniform"])
+    ap.add_argument("--batch-frac", type=float, default=0.5,
+                    help="fraction of requests labelled batch-class "
+                         "(deterministic stride, not sampled)")
+    ap.add_argument("--burst-len", type=float, default=4.0)
+    ap.add_argument("--idle-len", type=float, default=8.0)
+    ap.add_argument("--burst-rate-mult", type=float, default=8.0)
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend a common system prompt of this many "
+                         "tokens to every request")
+    ap.add_argument("--virtual-clock", action="store_true",
+                    help="drive the run on the deterministic step clock "
+                         "instead of wall time")
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--prefill-bucket", type=int, default=16)
+    ap.add_argument("--prompt-len-min", type=int, default=8)
+    ap.add_argument("--prompt-len-max", type=int, default=64)
+    ap.add_argument("--max-new-min", type=int, default=8)
+    ap.add_argument("--max-new-max", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0)
+    # the JAX launcher's flags of later slices (refused unless default)
+    ap.add_argument("--spec-decode", action="store_true")
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--preempt", action="store_true")
+    ap.add_argument("--deadline", type=float, default=None)
+    ap.add_argument("--faults", type=int, default=None, metavar="SEED")
+    ap.add_argument("--snapshot-every", type=int, default=0)
+    ap.add_argument("--prefix-share", action=argparse.BooleanOptionalAction,
+                    default=False)
+    ap.add_argument("--chunked-prefill", type=int, default=0)
+    args = ap.parse_args(argv)
+    for name, (default, later) in _LATER.items():
+        if getattr(args, name) != default:
+            raise SystemExit(
+                f"--{name.replace('_', '-')} is not ported yet: it comes "
+                f"with the {later} slice (ROADMAP.md, queue 1)")
+    if args.engine != "continuous":
+        raise SystemExit(f"--engine {args.engine}: the static-batch engine "
+                         "is not ported yet (a later slice; ROADMAP.md, "
+                         "queue 1)")
+    return args
+
+
+def main(argv=None):
+    """Run the launcher; returns (engine, report, pipeline stats)."""
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    params, stats = build_params(cfg, args, device)
+    work = make_workload(cfg, args)
+    eng, report = run_continuous(cfg, params, work, args, device)
+    return eng, report, stats
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,14 @@
 """GQA attention with a paged KV cache (port of ``repro.models.attention``).
 
-Three calls reach ``apply_attention`` in this slice:
+Four calls reach ``apply_attention``:
 
-  * no cache (``lm_forward``): causal self-attention over the sequence;
+  * no cache (``lm_forward``, the quantization pipeline): causal
+    self-attention over the sequence; ``taps`` then captures each
+    linear's input for calibration;
+  * contiguous cache (``init_kv_cache``: the calibration generator's
+    decode): the new K/V are written at ring slots ``position % size``,
+    then a one-token query attends over the whole cache, masked by the
+    cached positions;
   * fresh-prompt prefill (``paged`` holds "bt_rows"): the left-padded
     prompts' K/V are scattered into their slots' pages, and the prompt
     attends to itself (pad rows carry position -1, masked everywhere);
@@ -12,10 +18,11 @@ Three calls reach ``apply_attention`` in this slice:
 
 Page pools are f32 ``(P, page, KVH, hd)`` tensors, or int8 with
 ``(P, page, KVH)`` f32 scale pools when ``cfg.kv_cache_bits == 8``. The
-scatters write the pools IN PLACE (``index_put_``) — the JAX package
-returns new arrays instead; the engine hands each layer a view into the
-stacked pools, so the writes land in the engine's cache. RoPE is applied
-before cache insertion (post-rope keys are cached).
+scatters write the pools (and the contiguous cache) IN PLACE
+(``index_put_``) — the JAX package returns new arrays instead; the engine
+hands each layer a view into the stacked pools, so the writes land in the
+engine's cache. RoPE is applied before cache insertion (post-rope keys are
+cached).
 """
 from __future__ import annotations
 
@@ -85,6 +92,31 @@ def init_paged_kv_cache(cfg: ModelConfig, spec: PageSpec, device,
             "v_pool": torch.zeros(shape, dtype=torch.float32, device=device)}
 
 
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,
+                  n_layers: int, window: Optional[int] = None) -> dict:
+    """Contiguous caches for ``n_layers`` stacked attention blocks:
+    "k"/"v" (L, B, size, KVH, hd) (int8 with "k_scale"/"v_scale" when
+    ``cfg.kv_cache_bits == 8``), "pos" (L, B, size) absolute positions (-1
+    = empty) and "len" (L, B) fill counts. A sliding window caps the size
+    (a ring buffer)."""
+    size = min(max_len, window) if window else max_len
+    shape = (n_layers, batch, size, cfg.n_kv_heads, cfg.hd)
+    cache = {"pos": torch.full(shape[:3], -1, dtype=torch.int32,
+                               device=device),
+             "len": torch.zeros(shape[:2], dtype=torch.int32,
+                                device=device)}
+    if cfg.kv_cache_bits == 8:
+        for name in ("k", "v"):
+            cache[name] = torch.zeros(shape, dtype=torch.int8, device=device)
+            cache[name + "_scale"] = torch.zeros(
+                shape[:-1], dtype=torch.float32, device=device)
+    else:
+        for name in ("k", "v"):
+            cache[name] = torch.zeros(shape, dtype=torch.float32,
+                                      device=device)
+    return cache
+
+
 def _quant_kv(x: torch.Tensor):
     """x: (..., hd) -> (int8 values, (...) f32 per-(token, head) scales)."""
     xf = x.to(torch.float32)
@@ -109,6 +141,39 @@ def _write_pools(cache: dict, idx: tuple, k: torch.Tensor,
         cache["v_pool"].index_put_(idx, v.to(torch.float32))
 
 
+def _cache_write(cache: dict, k, v, positions) -> None:
+    """In-place write of S new entries at ring slots ``positions % size``
+    (only the last ``size`` when S exceeds the ring: older ones could never
+    be attended to)."""
+    b, s = positions.shape
+    size = cache["k"].shape[1]
+    if s > size:
+        k, v, positions = k[:, -size:], v[:, -size:], positions[:, -size:]
+        s = size
+    slots = (positions % size).to(torch.int64)
+    bidx = torch.arange(b, device=slots.device)[:, None].expand(b, s)
+    if "k_scale" in cache:
+        kq, ks = _quant_kv(k)
+        vq, vs = _quant_kv(v)
+        cache["k"].index_put_((bidx, slots), kq)
+        cache["v"].index_put_((bidx, slots), vq)
+        cache["k_scale"].index_put_((bidx, slots), ks)
+        cache["v_scale"].index_put_((bidx, slots), vs)
+    else:
+        cache["k"].index_put_((bidx, slots), k.to(torch.float32))
+        cache["v"].index_put_((bidx, slots), v.to(torch.float32))
+    cache["pos"].index_put_((bidx, slots), positions.to(torch.int32))
+    cache["len"] += s
+
+
+def _cached_kv(cache: dict):
+    """The whole contiguous cache as f32 (K, V), dequantized if int8."""
+    if "k_scale" in cache:
+        return (cache["k"].to(torch.float32) * cache["k_scale"][..., None],
+                cache["v"].to(torch.float32) * cache["v_scale"][..., None])
+    return cache["k"], cache["v"]
+
+
 def _paged_write_prefill(cache: dict, k, v, positions, bt) -> None:
     """Scatter a (B, S) batch of tokens at their block-table page slots;
     negative positions route to the scratch page."""
@@ -125,12 +190,18 @@ def _paged_write_decode(cache: dict, k, v, paged: dict) -> None:
 
 def apply_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                     positions: torch.Tensor, cache: Optional[dict] = None,
-                    paged: Optional[dict] = None) -> torch.Tensor:
+                    paged: Optional[dict] = None,
+                    taps: Optional[dict] = None,
+                    tap_prefix: str = "") -> torch.Tensor:
     """Returns the block's attention output (B, S, d_model); ``cache`` (a
-    layer's pools) is updated in place."""
+    layer's pools or contiguous cache) is updated in place. ``taps``
+    receives each linear's input under its param path."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     window = cfg.attn_window
+    if taps is not None:
+        for name in ("wq", "wk", "wv"):
+            taps[tap_prefix + name] = x
     q = dense(p["wq"], x).reshape(b, s, h, hd)
     q = apply_rope(q, positions, theta=cfg.rope_theta)
     k = dense(p["wk"], x).reshape(b, s, kvh, hd)
@@ -139,6 +210,18 @@ def apply_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     if cache is None:
         o = attention_core(q, k, v, q_pos=positions, kv_pos=positions,
                            window=window)
+    elif "pos" in cache:
+        _cache_write(cache, k, v, positions)
+        if s == 1:
+            # decode: attend over the whole (ring) cache
+            kc, vc = _cached_kv(cache)
+            o = attention_core(q, kc, vc, q_pos=positions,
+                               kv_pos=cache["pos"], window=window)
+        else:
+            # prefill: attend over the sequence itself (a ring may already
+            # have evicted positions that early queries need)
+            o = attention_core(q, k, v, q_pos=positions, kv_pos=positions,
+                               window=window)
     elif "block_table" in paged:
         if s != 1:
             raise ValueError("paged decode takes one token per slot")
@@ -155,4 +238,7 @@ def apply_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     else:
         raise ValueError("a paged cache needs 'block_table' (decode) or "
                          "'bt_rows' (prefill) indices")
-    return dense(p["wo"], o.reshape(b, s, h * hd))
+    o = o.reshape(b, s, h * hd)
+    if taps is not None:
+        taps[tap_prefix + "wo"] = o
+    return dense(p["wo"], o)

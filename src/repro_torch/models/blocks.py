@@ -21,11 +21,15 @@ def init_block(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
 
 def apply_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                 positions: torch.Tensor, cache: Optional[dict] = None,
-                paged: Optional[dict] = None) -> torch.Tensor:
-    """Pre-norm residual block; ``cache`` (this layer's pools) is updated
-    in place."""
+                paged: Optional[dict] = None, taps: Optional[dict] = None,
+                tap_prefix: str = "") -> torch.Tensor:
+    """Pre-norm residual block; ``cache`` (this layer's pools or contiguous
+    cache) is updated in place. ``taps`` (calibration) receives every
+    linear's input under the JAX package's keys ("attn/wq", ...,
+    "mlp/wo")."""
     h = apply_norm(cfg, p["ln1"], x)
     x = x + apply_attention(cfg, p["attn"], h, positions=positions,
-                            cache=cache, paged=paged)
+                            cache=cache, paged=paged, taps=taps,
+                            tap_prefix=tap_prefix + "attn/")
     h2 = apply_norm(cfg, p["ln2"], x)
-    return x + apply_mlp(cfg, p["mlp"], h2)
+    return x + apply_mlp(cfg, p["mlp"], h2, taps, tap_prefix + "mlp/")

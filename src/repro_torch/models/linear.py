@@ -3,30 +3,70 @@
 A linear's params are {"w": W} or {"w": W, "b": b}. W is a float (K, N)
 tensor or a packed ``QuantizedTensor``:
 
-  * float tensor     -> ``torch.matmul`` in f32 (left to the library, as
-    the JAX package leaves it to XLA);
-  * QuantizedTensor  -> ``kernels.ops.dequant_matmul``: the CUDA
-    dequant-matmul kernel on the card, its plain version on the CPU, for
-    bits {2, 3, 4, 8}.
+  * float tensor                 -> ``torch.matmul`` in f32 (left to the
+    library, as the JAX package leaves it to XLA);
+  * QuantizedTensor              -> ``kernels.ops.dequant_matmul``: the
+    CUDA dequant-matmul kernel on the card, its plain version on the CPU;
+  * QuantizedTensor, act_bits 8  -> ``kernels.ops.w8a8_matmul``: per-token
+    int8 activations, the CUDA int8 matmul kernel (its plain version on
+    the CPU), per-token rescale;
 
-The W8A8 branch of the JAX package (act_bits == 8) waits for a later
-slice.
+for bits {2, 3, 4, 8}. Other ``act_bits`` (the JAX package's legacy
+per-tensor fake-quant) are refused.
+
+Gradients. The norm-tweaking loss differentiates through packed linears.
+The dequant-matmul kernel has no derivative of its own, so it runs inside
+``_DequantMatmul``, whose backward is ``grad @ dequantize(W).T`` in f32 —
+what the JAX package's CPU path (an f32 einsum over the dequantized
+weight) differentiates; the kernel's bf16 rounding of x counts as the
+identity. Only a call that records a gradient goes through it: serving
+calls the kernel directly, without autograd's per-call bookkeeping. The W8A8 kernel needs no such wrapper: its operand is the int8
+codes, which carry no gradient, so its output is a constant of x and the
+gradient reaches x only through the per-token scale that rescales it (to
+each token's largest |x|), exactly as in the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quant.types import QuantizedTensor
+from repro_torch.core.quant.types import QuantizedTensor, dequantize
 from repro_torch.kernels import ops
+
+
+class _DequantMatmul(torch.autograd.Function):
+    """Forward: the dequant-matmul kernel; backward: plain f32 product."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+        ctx.qt = qt
+        return ops.dequant_matmul(x, qt)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return torch.matmul(grad, dequantize(ctx.qt).t()), None
+
+
+def _dense_quantized(w: QuantizedTensor, x: torch.Tensor) -> torch.Tensor:
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    if w.act_bits == 8:
+        y = ops.w8a8_matmul(x2, w)
+    elif w.act_bits == 0:
+        y = (_DequantMatmul.apply(x2, w)
+             if torch.is_grad_enabled() and x2.requires_grad
+             else ops.dequant_matmul(x2, w))
+    else:
+        raise NotImplementedError(
+            f"act_bits={w.act_bits}: only per-token int8 activations (8) "
+            "are ported")
+    return y.reshape(*lead, w.n)
 
 
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     """y = x @ w (+ b). x: (..., K) f32 -> (..., N) f32."""
     w = p["w"]
     if isinstance(w, QuantizedTensor):
-        lead = x.shape[:-1]
-        y = ops.dequant_matmul(x.reshape(-1, x.shape[-1]), w)
-        y = y.reshape(*lead, w.n)
+        y = _dense_quantized(w, x)
     else:
         y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
     if p.get("b") is not None:

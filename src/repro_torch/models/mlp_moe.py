@@ -2,6 +2,8 @@
 later slice)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -17,6 +19,15 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: int,
             "wg": init_dense(gen, d, d_ff, device)}
 
 
-def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              taps: Optional[dict] = None,
+              tap_prefix: str = "") -> torch.Tensor:
+    """SiLU-GLU MLP. ``taps`` (calibration) receives each linear's input
+    under its param path."""
+    if taps is not None:
+        taps[tap_prefix + "wi"] = x
+        taps[tap_prefix + "wg"] = x
     h = F.silu(dense(p["wg"], x)) * dense(p["wi"], x)
+    if taps is not None:
+        taps[tap_prefix + "wo"] = h
     return dense(p["wo"], h)

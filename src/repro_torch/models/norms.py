@@ -19,3 +19,12 @@ def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].to(torch.float32)
     return y.to(x.dtype)
+
+
+def is_norm_path(path: str) -> bool:
+    """True if this param path belongs to a tweakable normalization layer."""
+    parts = path.split("/")
+    return any(
+        seg.startswith("ln") or seg in ("gnorm", "qnorm", "kvnorm", "final_norm")
+        for seg in parts
+    )

@@ -4,7 +4,8 @@ Params keep the JAX package's key paths: "embed", "final_norm",
 "lm_head" (untied models only) and the scan-stacked "stack/p0" blocks,
 whose leaves carry a leading layer dim. The JAX package scans over that
 dim; here ``_run_stack`` is a Python loop that hands each layer a view of
-its params and cache.
+its params and cache. Per-layer access for the quantization pipeline goes
+through ``num_blocks`` / ``block_spec`` / ``get_block``.
 """
 from __future__ import annotations
 
@@ -14,25 +15,13 @@ import torch
 
 from repro_torch.core.quant.types import QuantizedTensor
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import init_paged_kv_cache
+from repro_torch.models.attention import init_kv_cache, init_paged_kv_cache
 from repro_torch.models.blocks import apply_block, init_block
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.linear import dense
 from repro_torch.models.norms import apply_norm, init_norm
 from repro_torch.serve.kvcache import PageSpec
-
-
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
-def tree_index(tree, i: int):
-    """Layer i of a scan-stacked tree (views, no copies)."""
-    if isinstance(tree, dict):
-        return {k: tree_index(v, i) for k, v in tree.items()}
-    return tree[i]           # tensors and QuantizedTensor alike
+from repro_torch.utils.tree import tree_index, tree_stack
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
@@ -51,7 +40,7 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         params["lm_head"] = {"w": torch.randn(
             (cfg.d_model, cfg.vocab_size), generator=gen, device=dev) * 0.02}
     params["stack"] = {
-        f"p{j}": _stack([init_block(cfg, gen, dev)
+        f"p{j}": tree_stack([init_block(cfg, gen, dev)
                          for _ in range(cfg.n_repeats)])
         for j in range(len(cfg.pattern))}
     return params
@@ -62,6 +51,31 @@ def init_cache(cfg: ModelConfig, spec: PageSpec, device) -> dict:
     return {"stack": {f"p{j}": init_paged_kv_cache(cfg, spec, device,
                                                    cfg.n_repeats)
                       for j in range(len(cfg.pattern))}}
+
+
+def init_contiguous_cache(cfg: ModelConfig, batch: int, max_len: int,
+                          device) -> dict:
+    """Stacked contiguous caches for ``lm_decode`` without pages (the
+    calibration generator; the JAX package's ``init_cache(cfg, batch,
+    max_len)``)."""
+    return {"stack": {f"p{j}": init_kv_cache(cfg, batch, max_len, device,
+                                             n_layers=cfg.n_repeats,
+                                             window=cfg.attn_window)
+                      for j in range(len(cfg.pattern))}}
+
+
+def num_blocks(cfg: ModelConfig) -> int:
+    return len(cfg.pattern) * cfg.n_repeats
+
+
+def block_spec(cfg: ModelConfig, i: int):
+    return cfg.pattern[i % len(cfg.pattern)]
+
+
+def get_block(cfg: ModelConfig, params: dict, i: int) -> dict:
+    """Block i's params (views into the stacked leaves)."""
+    j = i % len(cfg.pattern)
+    return tree_index(params["stack"][f"p{j}"], i // len(cfg.pattern))
 
 
 def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -118,14 +132,33 @@ def lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 def lm_decode(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
               cache: dict, positions: torch.Tensor,
-              paged: dict) -> torch.Tensor:
-    """One decode step over all slots. tokens, positions (S, 1); paged holds
-    the block tables, per-slot write targets and fill counts. Returns
-    logits (S, V)."""
+              paged: Optional[dict] = None) -> torch.Tensor:
+    """One decode step. tokens, positions (B, 1). With page pools, B is the
+    slot count and ``paged`` holds the block tables, per-slot write
+    targets and fill counts; without ``paged`` the cache is contiguous
+    (``init_contiguous_cache``). Returns logits (B, V)."""
     x = _embed(params, tokens)
     x = _run_stack(cfg, params, x, positions=positions, cache=cache,
                    paged=paged)
     return _head(cfg, params, x)[:, 0, :]
+
+
+def lm_loss(cfg: ModelConfig, params: dict, batch: dict):
+    """Next-token cross-entropy. batch: tokens, labels, optional mask.
+    Returns (loss, {"nll", "aux"}); no layer of the port has an auxiliary
+    loss, so aux is 0."""
+    logits = lm_forward(cfg, params, batch["tokens"])
+    labels = batch["labels"].to(torch.int64)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - ll
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.to(nll.dtype)
+    loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + aux, {"nll": loss, "aux": aux}
 
 
 def is_quantized(params: dict) -> bool:

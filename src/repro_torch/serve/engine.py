@@ -132,8 +132,14 @@ class ContinuousEngine:
         self.n_prefill_tokens = 0
 
     # ------------------------------------------------------------- intake
-    def submit(self, prompt, *, max_new: int = 32,
-               arrival: float = 0.0) -> Request:
+    def submit(self, prompt, *, max_new: int = 32, arrival: float = 0.0,
+               priority: int = 0,
+               deadline: Optional[float] = None) -> Request:
+        """Queue a request. ``priority`` labels its SLO class for the
+        traffic report; admission stays FIFO. Deadlines come with the
+        overload slice and are refused."""
+        if deadline is not None:
+            raise NotImplementedError("request deadlines are not ported yet")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size + max_new > self.spec.max_len:
             raise ValueError(
@@ -145,12 +151,13 @@ class ContinuousEngine:
                 f"request needs {need} pages but the pool only has "
                 f"{self.spec.n_pages - 1} allocatable pages")
         req = Request(rid=self._next_rid, prompt=prompt, max_new=max_new,
-                      arrival=arrival)
+                      arrival=arrival, priority=priority)
         self._next_rid += 1
         self.sched.submit(req)
         return req
 
     # ------------------------------------------------------------ serving
+    @torch.no_grad()
     def step(self, now: float = 0.0) -> bool:
         """One scheduler tick: admit, prefill the admitted prompts, then one
         block of decode steps. Returns False when there was nothing to do."""

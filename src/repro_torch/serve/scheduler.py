@@ -30,6 +30,8 @@ class Request:
     prompt: np.ndarray              # (L,) int32
     max_new: int
     arrival: float = 0.0
+    priority: int = 0               # SLO class label: 0 interactive, 1 batch
+    #                                 (admission is FIFO in this slice)
     tokens: list = dataclasses.field(default_factory=list)
     slot: int = -1
     done: bool = False

@@ -122,3 +122,79 @@ def test_engine_serves_through_the_kernels(gen):
                 # comparable prefix
                 assert float(top2[i, 0] - top2[i, 1]) <= 1e-3
                 break
+
+
+W8A8_SHAPES = [(8, 192, 576), (40, 576, 192), (1, 64, 160), (67, 160, 64),
+               (130, 256, 200), (5, 1024, 256), (8, 2048, 512)]
+
+
+W8A8_QUANTS = [(2, 32), (3, 32), (4, 16), (4, 64), (4, 128), (4, -1),
+               (8, -1), (3, -1), (2, -1)]
+# every shape with every (bits, group) whose group divides K
+W8A8_CASES = [(m, k, n, bits, group) for m, k, n in W8A8_SHAPES
+              for bits, group in W8A8_QUANTS if group == -1 or k % group == 0]
+
+
+@pytest.mark.parametrize("m,k,n,bits,group", W8A8_CASES)
+def test_w8a8_matmul_kernel_matches_plain(gen, m, k, n, bits, group):
+    from repro_torch.core.quant.types import quantize_activation, unpack
+    from repro_torch.kernels.w8a8_matmul import w8a8_matmul_cuda
+
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    qt = quantize(w, bits, group, act_bits=8)
+    xq, _ = quantize_activation(x)
+    kw = dict(bits=bits, group_size=group, k=k)
+    got = w8a8_matmul_cuda(xq, qt.qw, qt.scale, **kw)
+    want = ref.w8a8_matmul_ref(xq, qt.qw, qt.scale, **kw)
+    # both take each scale group's sum exactly (int32 / float64), convert
+    # it to f32 and rescale it the same way; they differ only in the
+    # order of the f32 sum over groups and K splits: 1e-5 of the largest
+    # sum of |group terms|
+    rows = torch.arange(k, device="cuda") // (k // qt.scale.shape[0])
+    wabs = unpack(qt.qw, bits, k).abs().double() * qt.scale[rows].double()
+    bound = float((xq.double().abs() @ wabs).max())
+    assert float((got - want).abs().max()) <= 1e-5 * bound
+
+
+def test_w8a8_matmul_refuses_what_it_cannot_take(gen):
+    from repro_torch.kernels.w8a8_matmul import w8a8_matmul_cuda
+
+    w = torch.randn((64, 32), generator=gen, device="cuda")
+    qt = quantize(w, 4, 8)                       # a group of 8 rows
+    xq = torch.zeros((2, 64), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        w8a8_matmul_cuda(xq, qt.qw, qt.scale, bits=4, group_size=8, k=64)
+    with pytest.raises(ValueError, match="int8"):
+        w8a8_matmul_cuda(xq.float(), qt.qw, qt.scale, bits=4, group_size=8,
+                         k=64)
+
+
+@pytest.mark.parametrize("act_bits", [0, 8])
+@pytest.mark.parametrize("bits,group", [(4, 32), (3, -1)])
+def test_packed_linear_backward_matches_plain(gen, act_bits, bits, group):
+    """The gradient of a packed linear through its kernel on the card
+    equals the gradient through the plain version on a CPU copy: kernel 1
+    backs off to grad @ dequantize(W).T; on A8 the gradient flows through
+    the per-token scale only, so the nonzero pattern (each row's argmax
+    channel) is the same on both."""
+    from repro_torch.models.linear import dense
+
+    k, n, m = 192, 576, 24
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    qt = quantize(w, bits, group, act_bits=act_bits)
+    x = torch.randn((2, m // 2, k), generator=gen, device="cuda")
+    dy = torch.randn((2, m // 2, n), generator=gen, device="cuda")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        xd = x.to(dev).requires_grad_(True)
+        y = dense({"w": qt.to(dev)}, xd)
+        (gx,) = torch.autograd.grad((y * dy.to(dev)).sum(), xd)
+        grads[dev] = gx.cpu()
+    got, want = grads["cuda"], grads["cpu"]
+    assert torch.equal(got != 0, want != 0)
+    if act_bits == 8:
+        assert int((want != 0).sum()) <= m * 2     # argmax channels only
+    # f32 products summed in another order on the two devices
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())

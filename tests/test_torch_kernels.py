@@ -18,6 +18,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.dequant_matmul import (TILE_K, dequant_matmul_cuda,
                                                 plan_splits)
 from repro_torch.kernels.paged_attention import paged_attention_cuda
+from repro_torch.kernels.w8a8_matmul import w8a8_matmul_cuda
 
 # (M, K, N): the llama3.2-1b linears' (K, N) pairs scaled to TINY
 # (d 192, d_ff 576) and to the llama3.2-1b SMOKE config (d 64, kv 32,
@@ -148,7 +149,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                              torch.zeros(2, 8, 1, 16),
                              torch.zeros(1, 1, dtype=torch.int32),
                              torch.zeros(1, dtype=torch.int32))
-    assert ops.launch_counts() == {"dequant_matmul": 0, "paged_attention": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        w8a8_matmul_cuda(torch.zeros((8, 64), dtype=torch.int8),
+                         torch.from_numpy(qw), torch.from_numpy(scale),
+                         bits=4, group_size=32, k=64)
+    assert ops.launch_counts() == {"dequant_matmul": 0, "w8a8_matmul": 0,
+                                   "paged_attention": 0}
 
 
 def test_paged_ref_matches_dequant_gather_oracle():
