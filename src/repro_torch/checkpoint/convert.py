@@ -6,7 +6,9 @@ object carrying ``qw``, ``scale``, ``bits``, ``group_size`` and ``shape``
 (the JAX ``QuantizedTensor`` with numpy children, or a plain dict of those
 keys). It returns the port's params under the same key paths, scan-stacked
 "stack/p0" included, and the per-block (unstacked) trees of the
-quantization pipeline alike. Packed bytes are taken as they are, and
+quantization pipeline alike; an MoE's router and float (E, K, N) expert
+stacks come across as tensors, its packed experts as (E, K, N) or
+layer-stacked (L, E, K, N) ``QuantizedTensor`` leaves. Packed bytes are taken as they are, and
 ``act_bits`` (8: the W8A8 path) is carried across, so a tree packed by
 either package runs in the other.
 """

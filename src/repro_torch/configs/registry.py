@@ -7,6 +7,7 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 
 _MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
 }
 
 # the JAX package's tiny paper-style LLaMa-family decoder (MHA, head_dim 48)

@@ -1,5 +1,5 @@
 """Norm-Tweaking PTQ pipeline — the paper's Algorithm 1 (port of
-``repro.core.normtweak.pipeline``, decoder-only LMs).
+``repro.core.normtweak.pipeline``, decoder-only LMs, dense or MoE).
 
 Layer-by-layer over the model:
   1. the quantized stream qX feeds every layer (lines 4-7);
@@ -16,8 +16,11 @@ Layer-by-layer over the model:
   5. qX advances through the final quantized layer.
 
 Packed linears run the port's kernels in every forward here — the
-dequant matmul, or the W8A8 matmul when ``act_bits == 8`` — and the tweak
-differentiates through them (models/linear.py says how). Set
+dequant matmul, or the W8A8 matmul when ``act_bits == 8``, and their
+expert-batched forms for an MoE block's experts — and the tweak
+differentiates through them (models/linear.py says how). An MoE block's
+calibration taps are its router input and (E, C, d) capacity buffers;
+every call here is unpaged, so no token is masked out of routing. Set
 ``tweak=False`` for the plain quantizer baseline.
 
 Beside the JAX package's per-layer loss and LR, ``stats`` records each
@@ -82,8 +85,10 @@ def _tweak_update(cfg, loss_name, norms, rest, opt_state, x, fout,
         return t
 
     tracked = tree_map(track, norms)
-    qout = apply_block(cfg, tree_merge(tracked, rest), x,
-                       positions=positions)
+    # the MoE aux loss is not part of the tweak's objective (as in the JAX
+    # package)
+    qout, _ = apply_block(cfg, tree_merge(tracked, rest), x,
+                          positions=positions)
     loss = LOSSES[loss_name](fout, qout)
     grads = iter(torch.autograd.grad(loss, leaves))
     grad_tree = tree_map(lambda _: next(grads), tracked)
@@ -129,7 +134,8 @@ def tweak_layers(cfg: ModelConfig, blocks: list, x0: torch.Tensor,
 
     def block_apply_full(bp, x, taps=None):
         with torch.no_grad():
-            return apply_block(cfg, bp, x, positions=positions, taps=taps)
+            return apply_block(cfg, bp, x, positions=positions,
+                               taps=taps)[0]
 
     for li, bp in enumerate(blocks):
         gi = layer_offset + li

@@ -1,14 +1,17 @@
 """Per-block quantization driver (port of ``repro.core.quant.blockquant``):
 walks a block's linear leaves, resolves the calibration activations
-captured for each (taps), and applies RTN / GPTQ / SmoothQuant. The dense
-decoder's blocks only: AWQ and the MoE expert paths come with the MoE
-slice.
+captured for each (taps), and applies RTN / GPTQ / SmoothQuant, to dense
+and MoE blocks alike. Routers stay float. AWQ is not ported yet.
 """
 from __future__ import annotations
 
 from typing import Iterator, Optional
 
-from repro_torch.core.quant.gptq import gptq_quantize, hessian_from_inputs
+import torch
+
+from repro_torch.core.quant.gptq import (gptq_quantize,
+                                         gptq_quantize_experts,
+                                         hessian_from_inputs)
 from repro_torch.core.quant.rtn import rtn_quantize
 from repro_torch.core.quant.smoothquant import (fold_into_norm,
                                                 scale_weight_rows,
@@ -85,6 +88,21 @@ def smooth_block(block: dict, taps: dict, alpha: float = 0.5) -> dict:
             lin = dict(tree_get(block, p))
             lin["w"] = scale_weight_rows(lin["w"], s)
             block = tree_set(block, p, lin)
+        # keep routing decisions identical: compensate the router to see
+        # the un-smoothed activations (router stays float). Only a row of
+        # the table above reaches here, so an MoE without shared experts
+        # (Mixtral) smooths no ln2 and scales neither router nor experts
+        if norm_path == "ln2" and _exists(block, "moe/router"):
+            router = dict(tree_get(block, "moe/router"))
+            router["w"] = scale_weight_rows(router["w"], s)
+            block = tree_set(block, "moe/router", router)
+        # routed experts share the ln2 input: scale their rows too
+        if norm_path == "ln2" and _exists(block, "moe/experts"):
+            for nm in ("wi", "wg"):
+                lin = dict(tree_get(block, f"moe/experts/{nm}"))
+                lin["w"] = (lin["w"].to(torch.float32)
+                            * s[None, :, None]).to(lin["w"].dtype)
+                block = tree_set(block, f"moe/experts/{nm}", lin)
     return block
 
 
@@ -111,10 +129,13 @@ def quantize_block(block: dict, taps: Optional[dict], *,
         if method == "gptq":
             if taps is None:
                 raise ValueError("GPTQ needs calibration taps")
-            h = hessian_from_inputs(taps[tap_key_for(path)])
-            qt, _ = gptq_quantize(w, h, bits=bits, group_size=group_size,
-                                  damp=damp, actorder=actorder,
-                                  act_bits=act_bits)
+            x = taps[tap_key_for(path)]
+            kw = dict(bits=bits, group_size=group_size, damp=damp,
+                      actorder=actorder, act_bits=act_bits)
+            if w.ndim == 3:   # experts: per-expert Hessians from (E, C, K)
+                qt, _ = gptq_quantize_experts(w, x, **kw)
+            else:
+                qt, _ = gptq_quantize(w, hessian_from_inputs(x), **kw)
         else:  # rtn | smoothquant (weights via RTN after folding)
             qt = rtn_quantize(w, bits=bits, group_size=group_size,
                               act_bits=act_bits)

@@ -1,8 +1,10 @@
 """Deployment transform: pack a float param tree to low-bit weights (RTN).
 
 Port of ``repro.core.quant.deploy``. Every quantizable linear — the
-scan-stacked (L, K, N) weights included — becomes a ``QuantizedTensor``
-whose bytes equal the JAX package's for the same float weights.
+scan-stacked (L, K, N) weights and (L, E, K, N) MoE experts included —
+becomes a ``QuantizedTensor`` whose bytes equal the JAX package's for the
+same float weights; experts pack to (L, E, packed_rows(K), N). Routers,
+embeddings and the LM head stay float.
 """
 from __future__ import annotations
 
@@ -17,19 +19,26 @@ _SKIP = ("embed", "lm_head", "pos", "router", "conv")
 
 def quantize_params_for_serving(cfg: ModelConfig, params: dict,
                                 bits: int = 0, group_size: int = 0,
-                                device="cuda") -> dict:
+                                act_bits: int = 0, device="cuda") -> dict:
     """Pack every quantizable linear for serving on ``device``.
 
     ``bits`` 0 takes ``cfg.serve_quant_bits`` (0 there too: nothing is
     packed); ``group_size`` 0 takes ``cfg.serve_quant_group`` and -1 means
     per-channel. A linear whose K is not a multiple of the group falls
-    back to per-channel scales, as in the JAX package. The input tree is
-    not modified."""
+    back to per-channel scales, as in the JAX package. ``act_bits`` 8 tags
+    every packed tensor for the per-token int8 activation path (the W8A8
+    kernels: RTN W4A8 / W8A8). The input tree is not modified."""
     dev = resolve_device(device)
     bits = bits or cfg.serve_quant_bits
     group_size = group_size or cfg.serve_quant_group
+    if act_bits not in (0, 8):
+        raise NotImplementedError(f"act_bits={act_bits}: only per-token "
+                                  "int8 activations (8) are ported")
     params = to_device(params, dev)
     if not bits:
+        if act_bits:
+            raise ValueError("act_bits needs bits (the A8 tag lives on "
+                             "packed weights)")
         return params
     for path, lin in list(iter_linears(params, max_ndim=4)):
         if any(s in path for s in _SKIP):
@@ -40,7 +49,7 @@ def quantize_params_for_serving(cfg: ModelConfig, params: dict,
         else:
             gs = group_size
         new_lin = dict(lin)
-        new_lin["w"] = quantize_stacked(w, bits, gs)
+        new_lin["w"] = quantize_stacked(w, bits, gs, act_bits)
         params = tree_set(params, path, new_lin)
     return params
 

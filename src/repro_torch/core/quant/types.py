@@ -118,23 +118,25 @@ def pack(q: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def unpack(qw: torch.Tensor, bits: int, k: int) -> torch.Tensor:
-    """Inverse of ``pack``: int32 q in [-qmax, qmax], (K, N)."""
+    """Inverse of ``pack``: int32 q in [-qmax, qmax], (..., K, N) from
+    (..., packed_rows(K), N) (leading dims: stacked layers or experts)."""
     qmax = qmax_for_bits(bits)
     bpg, vpg = pack_layout(bits)
-    b = qw.to(torch.int32)
+    lead, n = qw.shape[:-2], qw.shape[-1]
     if (bpg, vpg) == (1, 1):
-        return b[:k] - qmax
+        return qw[..., :k, :].to(torch.int32) - qmax
     if bpg == 1:
-        word = b
+        # fields of one byte: shift and mask in uint8, widen once
+        word = qw
     else:
-        grp = b.reshape(-1, bpg, qw.shape[1])
-        word = grp[:, 0, :]
+        grp = qw.to(torch.int32).reshape(*lead, -1, bpg, n)
+        word = grp[..., 0, :]
         for i in range(1, bpg):
-            word = word | (grp[:, i, :] << (8 * i))
+            word = word | (grp[..., i, :] << (8 * i))
     mask = (1 << bits) - 1
     parts = [(word >> (bits * i)) & mask for i in range(vpg)]
-    u = torch.stack(parts, dim=1).reshape(-1, qw.shape[1])
-    return u[:k] - qmax
+    u = torch.stack(parts, dim=-2).reshape(*lead, -1, n)
+    return u[..., :k, :].to(torch.int32) - qmax
 
 
 def quantize(w: torch.Tensor, bits: int, group_size: int = -1,
@@ -147,14 +149,16 @@ def quantize(w: torch.Tensor, bits: int, group_size: int = -1,
 
 
 def dequantize(qt: QuantizedTensor) -> torch.Tensor:
-    """(K, N) f32 weight of a 2-D QuantizedTensor."""
+    """(..., K, N) f32 weight of a QuantizedTensor (2-D, or stacked experts
+    or layers)."""
     k = qt.k
     q = unpack(qt.qw, qt.bits, k).to(torch.float32)
-    g = qt.scale.shape[0]
+    g = qt.scale.shape[-2]
     if g == 1:
         return q * qt.scale
-    rows = torch.arange(k, device=q.device) // (k // g)
-    return q * qt.scale[rows]
+    lead, n = q.shape[:-2], q.shape[-1]
+    return (q.reshape(*lead, g, k // g, n)
+            * qt.scale[..., :, None, :]).reshape(q.shape)
 
 
 def quantize_stacked(w: torch.Tensor, bits: int, group_size: int = -1,

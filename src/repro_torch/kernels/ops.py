@@ -1,7 +1,7 @@
 """Public wrappers around the port's kernels.
 
 Port of ``repro.kernels.ops`` for the kernels ported so far: the dequant
-matmul, the W8A8 matmul and paged attention.
+matmul, the W8A8 matmul, their expert-batched forms and paged attention.
 Dispatch is by the device of the tensors: a CPU tensor runs the kernel's
 plain PyTorch version (``kernels/ref.py``); a CUDA tensor launches the
 hand-written CUDA kernel or raises. There is no fallback from one to the
@@ -9,7 +9,9 @@ other.
 
 The wrappers own the layout glue the kernels do not: the GQA reshape of
 decode queries to (S, KVH, G, hd) and the m-major row order of multi-row
-reads. M needs no padding (the matmul kernel masks ragged edges).
+reads, and the per-token activation quantization of the A8 matmuls. M
+(or an expert's capacity C) needs no padding: the matmul kernels mask
+ragged edges.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import torch
 
 from repro_torch.core.quant.types import QuantizedTensor, quantize_activation
 from repro_torch.kernels import dequant_matmul as _dq
+from repro_torch.kernels import expert_dequant_matmul as _edq
+from repro_torch.kernels import expert_w8a8_matmul as _ew8
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import w8a8_matmul as _w8
@@ -27,13 +31,14 @@ from repro_torch.kernels import w8a8_matmul as _w8
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel in this process."""
     return {"dequant_matmul": _dq.launches, "w8a8_matmul": _w8.launches,
-            "paged_attention": _pa.launches}
+            "paged_attention": _pa.launches,
+            "expert_dequant_matmul": _edq.launches,
+            "expert_w8a8_matmul": _ew8.launches}
 
 
 def reset_launch_counts() -> None:
-    _dq.launches = 0
-    _w8.launches = 0
-    _pa.launches = 0
+    for mod in (_dq, _w8, _pa, _edq, _ew8):
+        mod.launches = 0
 
 
 def dequant_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -58,6 +63,38 @@ def w8a8_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     else:
         y = _w8.w8a8_matmul_cuda(xq.contiguous(), qt.qw, qt.scale, bits=qt.bits,
                                  group_size=qt.group_size, k=qt.k)
+    return y * xs
+
+
+def expert_dequant_matmul(x: torch.Tensor,
+                          qt: QuantizedTensor) -> torch.Tensor:
+    """Expert-batched x: (E, C, K) f32 @ packed (E, K, N) -> (E, C, N) f32,
+    all experts in one launch; the packed stack is read in place."""
+    x = x.to(torch.float32).contiguous()
+    if x.device.type == "cpu":
+        return ref.expert_dequant_matmul_ref(
+            x, qt.qw, qt.scale, bits=qt.bits, group_size=qt.group_size,
+            k=qt.k)
+    return _edq.expert_dequant_matmul_cuda(x, qt.qw, qt.scale, bits=qt.bits,
+                                           group_size=qt.group_size, k=qt.k)
+
+
+def expert_w8a8_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """Expert-batched true A8 path: per-token int8 quantization over the
+    flattened (E*C) rows of the capacity buffer, the int8 x int8 matmul of
+    every expert in one launch, per-token rescale. x: (E, C, K) f32 ->
+    (E, C, N) f32. An empty capacity row (amax 0) quantizes to zeros (its
+    scale is clamped, never 0) and comes out as zeros."""
+    e, c, k = x.shape
+    xq, xs = quantize_activation(x.reshape(e * c, k), 8)
+    xq, xs = xq.reshape(e, c, k), xs.reshape(e, c, 1)
+    if xq.device.type == "cpu":
+        y = ref.expert_w8a8_matmul_ref(xq, qt.qw, qt.scale, bits=qt.bits,
+                                       group_size=qt.group_size, k=qt.k)
+    else:
+        y = _ew8.expert_w8a8_matmul_cuda(xq.contiguous(), qt.qw, qt.scale,
+                                         bits=qt.bits,
+                                         group_size=qt.group_size, k=qt.k)
     return y * xs
 
 

@@ -32,6 +32,19 @@ def dequant_matmul_ref(x: torch.Tensor, qw: torch.Tensor,
     return torch.matmul(xb, w)
 
 
+def expert_dequant_matmul_ref(x: torch.Tensor, qw: torch.Tensor,
+                              scale: torch.Tensor, *, bits: int,
+                              group_size: int, k: int) -> torch.Tensor:
+    """Expert-batched ``dequant_matmul_ref``: x (E, C, K) f32 @ packed
+    (E, packed_rows(K), N) with scale (E, G, N) -> (E, C, N) f32, both
+    operands rounded to bf16 and the products summed in f32."""
+    e = x.shape[0]
+    qt = QuantizedTensor(qw, scale, bits, group_size, (e, k, qw.shape[-1]))
+    w = dequantize(qt).to(torch.bfloat16).to(torch.float32)
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    return torch.matmul(xb, w)
+
+
 def w8a8_matmul_ref(xq: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
                     *, bits: int, group_size: int, k: int) -> torch.Tensor:
     """Exact-integer W8A8 product (before the per-token activation rescale).
@@ -55,6 +68,18 @@ def w8a8_matmul_ref(xq: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
                        xq.to(exact).reshape(m, g, k // g),
                        q.reshape(g, k // g, n))
     return (acc.to(torch.float32) * scale.to(torch.float32)[None]).sum(dim=1)
+
+
+def expert_w8a8_matmul_ref(xq: torch.Tensor, qw: torch.Tensor,
+                           scale: torch.Tensor, *, bits: int,
+                           group_size: int, k: int) -> torch.Tensor:
+    """Expert-stacked W8A8 product (before the per-token rescale): xq
+    (E, C, K) int8 @ packed (E, packed_rows(K), N) with scale (E, G, N) ->
+    (E, C, N) f32, one ``w8a8_matmul_ref`` per expert."""
+    return torch.stack([
+        w8a8_matmul_ref(xq[i], qw[i], scale[i], bits=bits,
+                        group_size=group_size, k=k)
+        for i in range(xq.shape[0])])
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Transformer block: attention plus dense MLP (port of
+"""Transformer block: attention plus a dense MLP or an MoE (port of
 ``repro.models.blocks``)."""
 from __future__ import annotations
 
@@ -7,29 +7,52 @@ from typing import Optional
 import torch
 
 from repro_torch.models.attention import apply_attention, init_attention
-from repro_torch.models.config import ModelConfig
-from repro_torch.models.mlp_moe import apply_mlp, init_mlp
+from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.mlp_moe import apply_mlp, apply_moe, init_mlp, init_moe
 from repro_torch.models.norms import apply_norm, init_norm
 
 
-def init_block(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
-    return {"ln1": init_norm(cfg, cfg.d_model, device),
-            "attn": init_attention(cfg, gen, device),
-            "ln2": init_norm(cfg, cfg.d_model, device),
-            "mlp": init_mlp(cfg, gen, cfg.d_ff, device)}
+def init_block(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
+               device) -> dict:
+    p = {"ln1": init_norm(cfg, cfg.d_model, device),
+         "attn": init_attention(cfg, gen, device),
+         "ln2": init_norm(cfg, cfg.d_model, device)}
+    if spec.mlp == "moe":
+        p["moe"] = init_moe(cfg, gen, device)
+    else:
+        p["mlp"] = init_mlp(cfg, gen, cfg.d_ff, device)
+    return p
+
+
+def _moe_valid(paged: Optional[dict],
+               positions: torch.Tensor) -> Optional[torch.Tensor]:
+    """Which tokens may compete for expert capacity: paged serving carries
+    junk tokens that must not — left-padding in prefill (position -1) and
+    idle slots in decode (kv_len 0). Unpaged calls carry none (None)."""
+    if paged is None:
+        return None
+    if "bt_rows" in paged:                                    # prefill
+        return positions >= 0
+    return (paged["kv_len"] > 0)[:, None]                      # decode
 
 
 def apply_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                 positions: torch.Tensor, cache: Optional[dict] = None,
                 paged: Optional[dict] = None, taps: Optional[dict] = None,
-                tap_prefix: str = "") -> torch.Tensor:
+                tap_prefix: str = ""):
     """Pre-norm residual block; ``cache`` (this layer's pools or contiguous
     cache) is updated in place. ``taps`` (calibration) receives every
     linear's input under the JAX package's keys ("attn/wq", ...,
-    "mlp/wo")."""
+    "mlp/wo", "moe/router", "moe/experts", ...). Returns (x, aux): the
+    MoE's load-balancing loss, a plain 0.0 for a dense block (no device
+    op on the serving path)."""
     h = apply_norm(cfg, p["ln1"], x)
     x = x + apply_attention(cfg, p["attn"], h, positions=positions,
                             cache=cache, paged=paged, taps=taps,
                             tap_prefix=tap_prefix + "attn/")
     h2 = apply_norm(cfg, p["ln2"], x)
-    return x + apply_mlp(cfg, p["mlp"], h2, taps, tap_prefix + "mlp/")
+    if "moe" in p:
+        y, aux = apply_moe(cfg, p["moe"], h2, taps, tap_prefix + "moe/",
+                           valid=_moe_valid(paged, positions))
+        return x + y, aux
+    return x + apply_mlp(cfg, p["mlp"], h2, taps, tap_prefix + "mlp/"), 0.0

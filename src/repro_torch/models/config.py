@@ -1,9 +1,10 @@
 """Model configuration: the fields of ``repro.models.config`` this port reads.
 
 A plain-Python copy (the JAX module imports jax). It keeps the fields the
-serving slice uses, with the JAX package's names and defaults, and
-``validate`` refuses what the slice does not implement yet (MoE, MLA,
-Mamba, enc-dec, other norms or activations) instead of running it wrong.
+ported slices use, with the JAX package's names and defaults, and
+``validate`` refuses what the port does not implement yet (MLA, Mamba,
+enc-dec, other norms or activations, the shard_map MoE) instead of
+running it wrong.
 """
 from __future__ import annotations
 
@@ -16,7 +17,17 @@ class LayerSpec:
     """One layer of the repeating pattern."""
 
     kind: str = "attn"        # "attn" (the only kind ported so far)
-    mlp: str = "dense"        # "dense" (the only MLP ported so far)
+    mlp: str = "dense"        # "dense" | "moe"
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    n_shared: int = 0           # shared (always-on) experts, DeepSeek-style
+    d_ff_expert: int = 0        # per-expert hidden dim
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,11 +47,13 @@ class ModelConfig:
     rope: str = "full"
     rope_theta: float = 10000.0
     attn_window: Optional[int] = None
+    moe: Optional[MoEConfig] = None
     tie_embeddings: bool = False
     dtype: str = "float32"
     param_dtype: str = "float32"
     serve_quant_bits: int = 0
     serve_quant_group: int = 128
+    moe_impl: str = "spmd"      # spmd | shard_map (multi-device EP only)
     kv_cache_bits: int = 0      # 8: int8 KV pools with f32 scale pools
 
     @property
@@ -58,9 +71,16 @@ class ModelConfig:
             raise ValueError(f"{self.name}: n_heads {self.n_heads} is not a "
                              f"multiple of n_kv_heads {self.n_kv_heads}")
         unsupported = []
-        if any(s.kind != "attn" or s.mlp != "dense"
-               for s in self.all_layer_specs()):
-            unsupported.append("non-attention or MoE layers")
+        specs = self.all_layer_specs()
+        if any(s.kind != "attn" or s.mlp not in ("dense", "moe")
+               for s in specs):
+            unsupported.append("non-attention layers or MLPs")
+        if any(s.mlp == "moe" for s in specs) and self.moe is None:
+            raise ValueError(f"{self.name}: MoE layers need cfg.moe")
+        if self.moe_impl != "spmd":
+            # the explicit all-to-all path exists only on a multi-device
+            # mesh (ROADMAP.md queue 1, multi-device)
+            unsupported.append(f"moe_impl={self.moe_impl}")
         if self.norm != "rmsnorm":
             unsupported.append(f"norm={self.norm}")
         if self.act != "silu":

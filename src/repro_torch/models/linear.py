@@ -12,18 +12,25 @@ tensor or a packed ``QuantizedTensor``:
     the CPU), per-token rescale;
 
 for bits {2, 3, 4, 8}. Other ``act_bits`` (the JAX package's legacy
-per-tensor fake-quant) are refused.
+per-tensor fake-quant) are refused. ``dense_experts`` is the same for an
+MoE layer's stacked (E, K, N) experts over its (E, C, K) capacity buffer:
+a float stack goes to ``torch.matmul`` in f32, a packed one to the
+expert-batched kernels (all E experts in one launch), as
+``kernels.ops.expert_dequant_matmul`` or, with act_bits 8,
+``kernels.ops.expert_w8a8_matmul``.
 
 Gradients. The norm-tweaking loss differentiates through packed linears.
 The dequant-matmul kernel has no derivative of its own, so it runs inside
-``_DequantMatmul``, whose backward is ``grad @ dequantize(W).T`` in f32 —
-what the JAX package's CPU path (an f32 einsum over the dequantized
-weight) differentiates; the kernel's bf16 rounding of x counts as the
-identity. Only a call that records a gradient goes through it: serving
-calls the kernel directly, without autograd's per-call bookkeeping. The W8A8 kernel needs no such wrapper: its operand is the int8
-codes, which carry no gradient, so its output is a constant of x and the
-gradient reaches x only through the per-token scale that rescales it (to
-each token's largest |x|), exactly as in the JAX package.
+``_DequantMatmul``, whose backward is ``grad @ dequantize(W).T`` in f32
+(per expert for an expert stack) — what the JAX package's CPU path (an
+f32 einsum over the dequantized weight) differentiates; the kernel's bf16
+rounding of x counts as the identity. Only a call that records a gradient
+goes through it: serving calls the kernel directly, without autograd's
+per-call bookkeeping. The W8A8 kernels need no
+such wrapper: their operand is the int8 codes, which carry no gradient,
+so their output is a constant of x and the gradient reaches x only
+through the per-token scale that rescales it (to each token's largest
+|x|), exactly as in the JAX package.
 """
 from __future__ import annotations
 
@@ -34,16 +41,19 @@ from repro_torch.kernels import ops
 
 
 class _DequantMatmul(torch.autograd.Function):
-    """Forward: the dequant-matmul kernel; backward: plain f32 product."""
+    """Forward: the dequant-matmul kernel, or for an (E, K, N) expert
+    stack the expert-batched one; backward: plain f32 product."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
         ctx.qt = qt
+        if qt.qw.ndim == 3:
+            return ops.expert_dequant_matmul(x, qt)
         return ops.dequant_matmul(x, qt)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        return torch.matmul(grad, dequantize(ctx.qt).t()), None
+        return torch.matmul(grad, dequantize(ctx.qt).transpose(-1, -2)), None
 
 
 def _dense_quantized(w: QuantizedTensor, x: torch.Tensor) -> torch.Tensor:
@@ -74,6 +84,33 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def dense_experts(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Batched expert matmul: x (E, C, K) @ w (E, K, N) -> (E, C, N) f32
+    (+ b (E, N))."""
+    w = p["w"]
+    if not isinstance(w, QuantizedTensor):
+        y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    elif w.act_bits == 8:
+        y = ops.expert_w8a8_matmul(x, w)
+    elif w.act_bits == 0:
+        y = (_DequantMatmul.apply(x, w)
+             if torch.is_grad_enabled() and x.requires_grad
+             else ops.expert_dequant_matmul(x, w))
+    else:
+        raise NotImplementedError(
+            f"act_bits={w.act_bits}: only per-token int8 activations (8) "
+            "are ported")
+    if p.get("b") is not None:
+        y = y + p["b"][:, None, :]
+    return y
+
+
 def init_dense(gen: torch.Generator, k: int, n: int, device) -> dict:
     std = 1.0 / (k ** 0.5)
     return {"w": torch.randn((k, n), generator=gen, device=device) * std}
+
+
+def init_dense_experts(gen: torch.Generator, e: int, k: int, n: int,
+                       device) -> dict:
+    std = 1.0 / (k ** 0.5)
+    return {"w": torch.randn((e, k, n), generator=gen, device=device) * std}

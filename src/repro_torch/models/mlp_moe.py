@@ -1,5 +1,15 @@
-"""Dense SiLU-GLU MLP (port of ``repro.models.mlp_moe``; MoE comes in a
-later slice)."""
+"""Dense SiLU-GLU MLP and capacity-based top-k MoE (port of
+``repro.models.mlp_moe``).
+
+MoE dispatch is the JAX package's scatter/gather formulation: tokens are
+scattered into a per-expert (E, C, d) buffer (C = capacity), the experts
+run as one batched matmul per linear (``dense_experts``: packed stacks on
+the expert-batched kernels, every expert in one launch), and the results
+are gathered back with the router gates. Tokens past an expert's capacity
+are dropped, as in Switch/GShard. The index ops (``index_put`` with
+accumulation, advanced-index gathers) are ones autograd differentiates,
+so the norm tweak reaches ln2 through the router and the experts.
+"""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.linear import dense, init_dense
+from repro_torch.models.linear import (dense, dense_experts, init_dense,
+                                       init_dense_experts)
 
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: int,
@@ -31,3 +42,104 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor,
     if taps is not None:
         taps[tap_prefix + "wo"] = h
     return dense(p["wo"], h)
+
+
+# ------------------------------------------------------------------- MoE
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+    m = cfg.moe
+    d, ff = cfg.d_model, m.d_ff_expert
+    p = {"router": init_dense(gen, d, m.n_experts, device),
+         "experts": {
+             "wi": init_dense_experts(gen, m.n_experts, d, ff, device),
+             "wg": init_dense_experts(gen, m.n_experts, d, ff, device),
+             "wo": init_dense_experts(gen, m.n_experts, ff, d, device)}}
+    if m.n_shared:
+        p["shared"] = init_mlp(cfg, gen, m.n_shared * ff, device)
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Tokens each expert takes: capacity_factor x its fair share, rounded
+    up to a multiple of 8, at least 8 (the JAX package's rule)."""
+    m = cfg.moe
+    c = int(m.capacity_factor * n_tokens * m.top_k / m.n_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              taps: Optional[dict] = None, tap_prefix: str = "",
+              valid: Optional[torch.Tensor] = None):
+    """x: (B, S, d). Returns (y, aux loss scalar).
+
+    ``valid`` (B, S) marks real tokens; False (left-padding in a paged
+    prefill, an idle slot in decode) routes the token to the overflow bin,
+    so it neither takes expert capacity nor shifts real tokens' positions.
+    Capacity counts all B*S tokens, pads included, as in the JAX package."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    e, k = m.n_experts, m.top_k
+    cap = moe_capacity(cfg, t)
+    xf = x.reshape(t, d)
+    if taps is not None:
+        taps[tap_prefix + "router"] = xf
+
+    logits = dense(p["router"], xf.to(torch.float32))           # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, k, dim=-1)                      # (T, k)
+    gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+
+    # slot positions within each expert: a stable sort by expert, each
+    # entry's rank among its expert's entries
+    flat_idx = idx.reshape(t * k)
+    if valid is not None:
+        flat_idx = torch.where(valid.reshape(t).repeat_interleave(k),
+                               flat_idx, e)
+    order = torch.argsort(flat_idx, stable=True)
+    sorted_e = flat_idx[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(e, device=x.device))
+    # the overflow bin E reads expert E-1's start, as the JAX package's
+    # clamped gather does; its entries are dropped below either way
+    pos_sorted = (torch.arange(t * k, device=x.device)
+                  - starts[sorted_e.clamp_max(e - 1)])
+    pos = torch.empty_like(pos_sorted)
+    pos[order] = pos_sorted
+
+    # load-balancing aux loss (Switch): E * sum_e f_e * p_e; the overflow
+    # bin is not counted
+    me = probs.mean(dim=0)
+    ce = torch.bincount(flat_idx, minlength=e + 1)[:e].to(torch.float32) / t
+    aux = m.router_aux_weight * e * torch.sum(me * ce)
+
+    keep = pos < cap
+    safe_e = torch.where(keep, flat_idx, e)                  # overflow -> E
+    safe_pos = torch.where(keep, pos, 0)
+
+    # dispatch: one (expert, slot) per kept entry, so accumulating into
+    # zeros is a copy; the overflow row E is dropped
+    xk = xf.repeat_interleave(k, dim=0)                        # (T*k, d)
+    buf = torch.zeros((e + 1, cap, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((safe_e, safe_pos), xk, accumulate=True)[:e]
+    if taps is not None:
+        taps[tap_prefix + "experts"] = buf
+
+    h = (F.silu(dense_experts(p["experts"]["wg"], buf))
+         * dense_experts(p["experts"]["wi"], buf))
+    if taps is not None:
+        taps[tap_prefix + "experts_out"] = h
+    out = dense_experts(p["experts"]["wo"], h)                  # (E, C, d)
+
+    # combine
+    gathered = out[safe_e.clamp_max(e - 1), safe_pos]          # (T*k, d)
+    live = (keep & (safe_e < e)).to(x.dtype)
+    gathered = gathered * live[:, None] * gate.reshape(t * k, 1)
+    y = gathered.reshape(t, k, d).sum(dim=1).reshape(b, s, d)
+
+    if "shared" in p:
+        sh_taps = {} if taps is not None else None
+        y = y + apply_mlp(cfg, p["shared"], x, sh_taps, "")
+        if taps is not None:
+            for kk, vv in sh_taps.items():
+                taps[tap_prefix + "shared/" + kk] = vv
+    return y, aux

@@ -40,9 +40,9 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         params["lm_head"] = {"w": torch.randn(
             (cfg.d_model, cfg.vocab_size), generator=gen, device=dev) * 0.02}
     params["stack"] = {
-        f"p{j}": tree_stack([init_block(cfg, gen, dev)
-                         for _ in range(cfg.n_repeats)])
-        for j in range(len(cfg.pattern))}
+        f"p{j}": tree_stack([init_block(cfg, spec, gen, dev)
+                             for _ in range(cfg.n_repeats)])
+        for j, spec in enumerate(cfg.pattern)}
     return params
 
 
@@ -84,18 +84,22 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                positions: torch.Tensor, cache: Optional[dict] = None,
-               paged: Optional[dict] = None) -> torch.Tensor:
+               paged: Optional[dict] = None):
     """Pattern repeats in order, layer by layer. ``cache`` is updated in
-    place through each layer's view of the stacked pools."""
+    place through each layer's view of the stacked pools. Returns (x, the
+    sum of the blocks' aux losses: a tensor, or 0.0 when no block is an
+    MoE)."""
     pat = cfg.pattern
+    aux_total = 0.0
     for r in range(cfg.n_repeats):
         for j in range(len(pat)):
             p = tree_index(params["stack"][f"p{j}"], r)
             c = (tree_index(cache["stack"][f"p{j}"], r)
                  if cache is not None else None)
-            x = apply_block(cfg, p, x, positions=positions, cache=c,
-                            paged=paged)
-    return x
+            x, aux = apply_block(cfg, p, x, positions=positions, cache=c,
+                                 paged=paged)
+            aux_total = aux_total + aux
+    return x, aux_total
 
 
 def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -106,15 +110,16 @@ def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return dense(params["lm_head"], x)
 
 
-def lm_forward(cfg: ModelConfig, params: dict,
-               tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal forward. tokens (B, S) -> logits (B, S, V) f32."""
+def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    """Full-sequence causal forward. tokens (B, S) -> (logits (B, S, V)
+    f32, the MoE aux loss)."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
     x = _embed(params, tokens)
-    x = _run_stack(cfg, params, x, positions=positions)
-    return _head(cfg, params, x)
+    x, aux = _run_stack(cfg, params, x, positions=positions)
+    return _head(cfg, params, x), torch.as_tensor(aux, dtype=torch.float32,
+                                                  device=x.device)
 
 
 def lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -125,8 +130,8 @@ def lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     holds the slots' block-table rows ("bt_rows"). Returns last-token
     logits (B, V)."""
     x = _embed(params, tokens)
-    x = _run_stack(cfg, params, x, positions=positions, cache=cache,
-                   paged=paged)
+    x, _ = _run_stack(cfg, params, x, positions=positions, cache=cache,
+                      paged=paged)
     return _head(cfg, params, x[:, -1:, :])[:, 0, :]
 
 
@@ -138,16 +143,15 @@ def lm_decode(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     targets and fill counts; without ``paged`` the cache is contiguous
     (``init_contiguous_cache``). Returns logits (B, V)."""
     x = _embed(params, tokens)
-    x = _run_stack(cfg, params, x, positions=positions, cache=cache,
-                   paged=paged)
+    x, _ = _run_stack(cfg, params, x, positions=positions, cache=cache,
+                      paged=paged)
     return _head(cfg, params, x)[:, 0, :]
 
 
 def lm_loss(cfg: ModelConfig, params: dict, batch: dict):
-    """Next-token cross-entropy. batch: tokens, labels, optional mask.
-    Returns (loss, {"nll", "aux"}); no layer of the port has an auxiliary
-    loss, so aux is 0."""
-    logits = lm_forward(cfg, params, batch["tokens"])
+    """Next-token cross-entropy plus the MoE aux loss. batch: tokens,
+    labels, optional mask. Returns (loss, {"nll", "aux"})."""
+    logits, aux = lm_forward(cfg, params, batch["tokens"])
     labels = batch["labels"].to(torch.int64)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -157,7 +161,6 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: dict):
         mask = torch.ones_like(nll)
     mask = mask.to(nll.dtype)
     loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + aux, {"nll": loss, "aux": aux}
 
 

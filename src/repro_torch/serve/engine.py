@@ -17,10 +17,14 @@ cache; each ``step()``:
      retire at a block boundary.
 
 Weights may be float or packed (``quant_bits`` packs a float tree through
-``quantize_params_for_serving``). On the card every quantized linear runs
-the CUDA dequant-matmul kernel and every decode attention read the CUDA
-paged-attention kernel; with ``device="cpu"`` both run their plain
-versions. Prefix sharing, chunked prefill, tensor parallelism, speculative
+``quantize_params_for_serving``; ``act_bits=8`` tags it for int8
+activations). On the card every quantized linear runs a CUDA matmul
+kernel — the dequant matmul, or the W8A8 matmul for A8 weights, and
+their expert-batched forms for MoE experts — and every decode attention
+read the CUDA paged-attention kernel; with ``device="cpu"`` they run
+their plain versions. An MoE's capacity is cross-token: a prefill batch
+routes its padded tokens' count, so with ``prefill_batch`` > 1 which
+tokens are dropped depends on the co-batched prompts. Prefix sharing, chunked prefill, tensor parallelism, speculative
 decoding, preemption, fault injection and snapshots come in later slices
 and are not accepted here.
 """
@@ -90,7 +94,7 @@ class ContinuousEngine:
                  prefill_bucket: int = 16, prefill_batch: int = 8,
                  decode_block: int = 8, temperature: float = 0.0,
                  top_k: int = 0, seed: int = 0, quant_bits: int = 0,
-                 quant_group: int = 0, device="cuda"):
+                 quant_group: int = 0, act_bits: int = 0, device="cuda"):
         cfg.validate()
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -100,7 +104,10 @@ class ContinuousEngine:
                                  "quant_bits=0")
             self.params = quantize_params_for_serving(
                 cfg, params, bits=quant_bits, group_size=quant_group,
-                device=self.device)
+                act_bits=act_bits, device=self.device)
+        elif act_bits:
+            raise ValueError("act_bits needs quant_bits (the A8 tag lives on "
+                             "packed weights)")
         else:
             self.params = to_device(params, self.device)
         self.n_slots = n_slots

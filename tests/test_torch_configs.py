@@ -6,8 +6,10 @@ import pytest
 
 import repro.configs as jc
 from repro.configs import llama3_2_1b as jllama
+from repro.configs import mixtral_8x22b as jmix
 from repro_torch import configs as tc
 from repro_torch.configs import llama3_2_1b as tllama
+from repro_torch.configs import mixtral_8x22b as tmix
 from repro_torch.models.config import ModelConfig
 
 
@@ -17,6 +19,8 @@ def _same(tcfg, jcfg):
         if f.name == "pattern":
             assert [(s.kind, s.mlp) for s in tv] == \
                 [(s.kind, s.mlp) for s in jv]
+        elif f.name == "moe" and tv is not None:
+            assert dataclasses.asdict(tv) == dataclasses.asdict(jv)
         else:
             assert tv == jv, f.name
     assert tcfg.hd == jcfg.hd
@@ -27,6 +31,9 @@ def _same(tcfg, jcfg):
     (tllama.SMOKE, jllama.SMOKE),
     (tc.get_smoke_config("llama3.2-1b"), jc.get_smoke_config("llama3.2-1b")),
     (tc.get_config("tiny"), jc.get_config("tiny")),
+    (tmix.CONFIG, jmix.CONFIG), (tmix.SMOKE, jmix.SMOKE),
+    (tc.get_smoke_config("mixtral-8x22b"),
+     jc.get_smoke_config("mixtral-8x22b")),
 ])
 def test_configs_match_jax(pair):
     _same(*pair)

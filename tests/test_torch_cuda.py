@@ -114,7 +114,7 @@ def test_engine_serves_through_the_kernels(gen):
     for (prompt, _), cpu_toks, gpu_toks in zip(reqs, outs["cpu"],
                                                outs["cuda"]):
         seq = torch.tensor(np.concatenate([prompt, cpu_toks])[None])
-        logits = lm_forward(cfg, cpu_params, seq)[0, len(prompt) - 1:-1]
+        logits = lm_forward(cfg, cpu_params, seq)[0][0, len(prompt) - 1:-1]
         top2 = torch.topk(logits, 2, dim=-1).values
         for i, (a, b) in enumerate(zip(cpu_toks, gpu_toks)):
             if a != b:
@@ -198,3 +198,121 @@ def test_packed_linear_backward_matches_plain(gen, act_bits, bits, group):
     # f32 products summed in another order on the two devices
     assert float((got - want).abs().max()) <= 1e-4 * float(
         want.abs().max())
+
+
+# (E, C, K, N): TINY's widths with a ragged capacity, Mixtral-like decode
+# (C = 8) and prefill (C = 80) capacities, one expert, and a split-K shape
+EXPERT_SHAPES = [(4, 8, 192, 576), (3, 5, 576, 192), (2, 80, 160, 64),
+                 (1, 1, 64, 160), (8, 8, 1024, 256)]
+EXPERT_DQ_QUANTS = [(2, 32), (3, 32), (4, 32), (4, -1), (8, -1), (3, -1),
+                    (4, 16)]
+
+
+def _expert_case(gen, e, c, k, n, bits, group, act_bits=0):
+    x = torch.randn((e, c, k), generator=gen, device="cuda")
+    x[:, -1] = 0.0                       # an empty capacity row
+    w = torch.randn((e, k, n), generator=gen, device="cuda") / math.sqrt(k)
+    from repro_torch.core.quant.types import quantize_stacked
+    return x, quantize_stacked(w, bits, group, act_bits)
+
+
+@pytest.mark.parametrize("bits,group", EXPERT_DQ_QUANTS)
+@pytest.mark.parametrize("e,c,k,n", EXPERT_SHAPES)
+def test_expert_dequant_matmul_kernel_matches_plain(gen, e, c, k, n, bits,
+                                                    group):
+    from repro_torch.kernels.expert_dequant_matmul import (
+        expert_dequant_matmul_cuda)
+
+    x, qt = _expert_case(gen, e, c, k, n, bits, group)
+    kw = dict(bits=bits, group_size=group, k=k)
+    before = ops.launch_counts()["expert_dequant_matmul"]
+    got = expert_dequant_matmul_cuda(x, qt.qw, qt.scale, **kw)
+    assert ops.launch_counts()["expert_dequant_matmul"] == before + 1
+    want = ref.expert_dequant_matmul_ref(x, qt.qw, qt.scale, **kw)
+    # kernel 1's bound: the same bf16 operands, f32 sums in another order
+    bound = torch.matmul(x.to(torch.bfloat16).float().abs(),
+                         dequantize(qt).to(torch.bfloat16).float().abs())
+    assert float((got - want).abs().max()) <= 4e-5 * float(bound.max())
+    assert torch.all(got[:, -1] == 0)
+
+
+EXPERT_W8_QUANTS = [(2, 32), (3, 32), (4, 16), (4, 64), (4, -1), (8, -1),
+                    (3, -1)]
+# every shape with every (bits, group) whose group divides K
+EXPERT_W8_CASES = [(e, c, k, n, bits, group) for e, c, k, n in EXPERT_SHAPES
+                   for bits, group in EXPERT_W8_QUANTS
+                   if group == -1 or k % group == 0]
+
+
+@pytest.mark.parametrize("e,c,k,n,bits,group", EXPERT_W8_CASES)
+def test_expert_w8a8_matmul_kernel_matches_plain(gen, e, c, k, n, bits,
+                                                 group):
+    from repro_torch.core.quant.types import quantize_activation, unpack
+    from repro_torch.kernels.expert_w8a8_matmul import (
+        expert_w8a8_matmul_cuda)
+
+    x, qt = _expert_case(gen, e, c, k, n, bits, group, act_bits=8)
+    xq, _ = quantize_activation(x.reshape(e * c, k))
+    xq = xq.reshape(e, c, k)
+    kw = dict(bits=bits, group_size=group, k=k)
+    got = expert_w8a8_matmul_cuda(xq, qt.qw, qt.scale, **kw)
+    want = ref.expert_w8a8_matmul_ref(xq, qt.qw, qt.scale, **kw)
+    # kernel 3's bound: exact group sums, f32 sums over groups and splits
+    # in another order
+    g = qt.scale.shape[-2]
+    rows = torch.arange(k, device="cuda") // (k // g)
+    wabs = unpack(qt.qw, bits, k).abs().double() * qt.scale[:, rows].double()
+    bound = float(torch.matmul(xq.double().abs(), wabs).max())
+    assert float((got - want).abs().max()) <= 1e-5 * bound
+    assert torch.all(got[:, -1] == 0)
+
+
+def test_expert_kernels_refuse_what_they_cannot_take(gen):
+    from repro_torch.kernels.expert_dequant_matmul import (
+        expert_dequant_matmul_cuda)
+    from repro_torch.kernels.expert_w8a8_matmul import (
+        expert_w8a8_matmul_cuda)
+
+    x, qt = _expert_case(gen, 2, 8, 64, 32, 4, 8, act_bits=8)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        expert_w8a8_matmul_cuda(torch.zeros((2, 8, 64), dtype=torch.int8,
+                                            device="cuda"), qt.qw, qt.scale,
+                                bits=4, group_size=8, k=64)
+    with pytest.raises(ValueError, match="want x"):
+        expert_dequant_matmul_cuda(x[0], qt.qw, qt.scale, bits=4,
+                                   group_size=8, k=64)
+    with pytest.raises(ValueError, match="want x"):
+        expert_dequant_matmul_cuda(x, qt.qw[:1], qt.scale[:1], bits=4,
+                                   group_size=8, k=64)
+
+
+@pytest.mark.parametrize("act_bits", [0, 8])
+def test_moe_engine_serves_through_the_expert_kernels(gen, act_bits):
+    """Mixtral SMOKE served W4 g32 (or W4A8) on the card launches the
+    expert kernel of its linears, and its greedy tokens agree with the CPU
+    engine (plain versions) until a near-tie of the CPU forward."""
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import ContinuousEngine
+
+    cfg = get_smoke_config("mixtral-8x22b")
+    params = init_lm(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(4, 40))),
+             int(rng.integers(3, 12))) for _ in range(6)]
+    kernel = "expert_w8a8_matmul" if act_bits else "expert_dequant_matmul"
+    outs = {}
+    for device in ("cpu", "cuda"):
+        eng = ContinuousEngine(cfg, params, n_slots=4, max_len=64,
+                               page_size=8, prefill_bucket=8,
+                               prefill_batch=1, quant_bits=4, quant_group=32,
+                               act_bits=act_bits, device=device)
+        for prompt, max_new in reqs:
+            eng.submit(prompt, max_new=max_new)
+        ops.reset_launch_counts()
+        outs[device] = [r.tokens for r in eng.run(max_steps=500)]
+        counts = ops.launch_counts()
+        assert (counts[kernel] > 0) == (device == "cuda")
+    agree = sum(a == b for a, b in zip(outs["cpu"], outs["cuda"]))
+    # A8 rounds every input to int8 per token: a last-bit difference can
+    # move a code a whole step, so near-ties flip more often than on W4
+    assert agree >= (4 if act_bits else 5)

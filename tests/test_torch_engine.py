@@ -25,13 +25,16 @@ TCFG = tc.TINY.replace(**SHRINK)
 WORKLOAD = [(8, 6), (16, 4), (32, 8), (64, 5)] * 4
 
 
-def _serve_both(variant, reqs, engine_kw, quant=None, monkeypatch=None):
-    jcfg = JCFG.replace(**variant)
-    tcfg = TCFG.replace(**variant)
+def _serve_both(variant, reqs, engine_kw, quant=None, monkeypatch=None,
+                base=(JCFG, TCFG)):
+    jcfg = base[0].replace(**variant)
+    tcfg = base[1].replace(**variant)
     params = jinit(jcfg, jax.random.PRNGKey(0))
     kw = dict(engine_kw)
     if quant:
         kw.update(quant_bits=quant[0], quant_group=quant[1])
+        if len(quant) > 2:
+            kw.update(act_bits=quant[2])
         # the JAX engine's packed linears on the kernel path (interpret
         # mode): bf16 operands as in the port's kernel and plain version
         monkeypatch.setenv("REPRO_DEQUANT_IMPL", "pallas")
@@ -78,6 +81,54 @@ def test_fused_paged_variants_match_jax(name, variant, quant, monkeypatch):
                             dict(n_slots=3, max_len=64, page_size=8,
                                  prefill_bucket=8),
                             quant=quant, monkeypatch=monkeypatch)
+    assert got == want, f"{name} diverged"
+
+
+def _moe_bases():
+    """(name, (JAX cfg, port cfg)): Mixtral SMOKE, and the W4 MoE of the
+    JAX package's quantized-MoE serving test (tests/test_continuous_
+    batching.py: the shrunk TINY with 4 experts top-2 at capacity factor
+    1.0)."""
+    from repro.models.config import LayerSpec as JSpec
+    from repro.models.config import MoEConfig as JMoE
+    from repro_torch.models.config import LayerSpec as TSpec
+    from repro_torch.models.config import MoEConfig as TMoE
+
+    moe = dict(n_experts=4, top_k=2, d_ff_expert=64, capacity_factor=1.0)
+    return {"mixtral": (jc.get_smoke_config("mixtral-8x22b"),
+                        tc.get_smoke_config("mixtral-8x22b")),
+            "tiny-moe": (JCFG.replace(pattern=(JSpec(mlp="moe"),),
+                                      moe=JMoE(**moe)),
+                         TCFG.replace(pattern=(TSpec(mlp="moe"),),
+                                      moe=TMoE(**moe)))}
+
+
+# MoE serving: Mixtral SMOKE float (prompts co-batched in prefill, so the
+# bucket-padded batch decides capacity on both sides), the JAX package's
+# W4 g32 MoE (one prompt a prefill), int8 KV, and RTN W4A8 through
+# act_bits=8 (the expert W8A8 path). The port's engine is held against
+# the JAX ContinuousEngine with the same bucket and prefill batch: MoE
+# capacity counts the padded tokens of a prefill batch, so an engine that
+# pads differently (the static ServeEngine) may drop other tokens
+@pytest.mark.parametrize("name,base,variant,quant,prefill_batch", [
+    ("mixtral-float", "mixtral", {}, None, 8),
+    ("tiny-moe-w4-g32", "tiny-moe", {}, (4, 32), 1),
+    ("mixtral-int8-kv", "mixtral", {"kv_cache_bits": 8}, None, 1),
+    ("mixtral-w4a8", "mixtral", {}, (4, 32, 8), 1),
+])
+def test_moe_serving_matches_jax(name, base, variant, quant, prefill_batch,
+                                 monkeypatch):
+    jcfg, tcfg = _moe_bases()[base]
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(0, jcfg.vocab_size, plen), max_new, float(i % 2))
+            for i, (plen, max_new) in enumerate([(8, 4), (12, 5), (16, 3),
+                                                 (9, 4)])]
+    want, got = _serve_both(variant, reqs,
+                            dict(n_slots=3, max_len=64, page_size=8,
+                                 prefill_bucket=8,
+                                 prefill_batch=prefill_batch),
+                            quant=quant, monkeypatch=monkeypatch,
+                            base=(jcfg, tcfg))
     assert got == want, f"{name} diverged"
 
 

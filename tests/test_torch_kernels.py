@@ -17,6 +17,9 @@ from repro_torch.core.quant import types as tt
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.dequant_matmul import (TILE_K, dequant_matmul_cuda,
                                                 plan_splits)
+from repro_torch.kernels.expert_dequant_matmul import (
+    expert_dequant_matmul_cuda)
+from repro_torch.kernels.expert_w8a8_matmul import expert_w8a8_matmul_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.w8a8_matmul import w8a8_matmul_cuda
 
@@ -153,8 +156,17 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         w8a8_matmul_cuda(torch.zeros((8, 64), dtype=torch.int8),
                          torch.from_numpy(qw), torch.from_numpy(scale),
                          bits=4, group_size=32, k=64)
+    eq, es = torch.from_numpy(qw)[None], torch.from_numpy(scale)[None]
+    with pytest.raises(ValueError, match="CUDA"):
+        expert_dequant_matmul_cuda(torch.zeros((1, 8, 64)), eq, es, bits=4,
+                                   group_size=32, k=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        expert_w8a8_matmul_cuda(torch.zeros((1, 8, 64), dtype=torch.int8),
+                                eq, es, bits=4, group_size=32, k=64)
     assert ops.launch_counts() == {"dequant_matmul": 0, "w8a8_matmul": 0,
-                                   "paged_attention": 0}
+                                   "paged_attention": 0,
+                                   "expert_dequant_matmul": 0,
+                                   "expert_w8a8_matmul": 0}
 
 
 def test_paged_ref_matches_dequant_gather_oracle():

@@ -76,6 +76,28 @@ def test_launcher_runs_the_pipeline_on_cpu(method, capsys):
     assert "layer 8/8 done (tweaked)" in out and "overall" in out
 
 
+@pytest.mark.parametrize("method", ["gptq", "smoothquant"])
+def test_launcher_runs_mixtral_on_cpu(method):
+    """``--arch mixtral-8x22b --smoke``: the pipeline reaches the expert
+    stacks (packed, with the method's act_bits, for both layers) and the
+    engine serves every request; routers stay float."""
+    eng, report, stats = launcher.main(
+        ["--device", "cpu", "--arch", "mixtral-8x22b", "--smoke",
+         "--requests", "4", "--prompt-len-max", "20", "--max-new-min", "2",
+         "--max-new-max", "6", "--virtual-clock", "--method", method])
+    act_bits = 8 if method == "smoothquant" else 0
+    moe = eng.params["stack"]["p0"]["moe"]
+    for name in ("wi", "wg", "wo"):
+        w = moe["experts"][name]["w"]
+        assert isinstance(w, QuantizedTensor) and w.act_bits == act_bits
+        assert w.qw.shape[:2] == (2, 4) and w.shape[:2] == (2, 4)
+    assert not isinstance(moe["router"]["w"], QuantizedTensor)
+    assert len(stats["layer_loss"]) == 2
+    assert all(np.isfinite(stats["layer_loss"]))
+    done = report["requests"]
+    assert len(done) == 4 and all(len(r.tokens) == r.max_new for r in done)
+
+
 @pytest.mark.parametrize("flags,slice_name", [
     (["--spec-decode"], "self-speculative decoding"),
     (["--tp", "2"], "multi-device serving"),
@@ -111,6 +133,25 @@ def test_convert_carries_act_bits_and_pipeline_stacking():
                             device="cpu")["w"]
     assert got.shape == (2, 64, 32) and got.act_bits == 8
     assert got[1].shape == (64, 32) and got[1].act_bits == 8
+    np.testing.assert_array_equal(got.qw.numpy(),
+                                  np.asarray(stacked["w"].qw))
+
+
+def test_convert_carries_pipeline_stacked_experts():
+    """A JAX pipeline's restacked packed experts: per layer an (E, K, N)
+    static shape, codes (L, E, packed_rows(K), N); the port's leaf is
+    (L, E, K, N) and a layer of it is the block's expert stack."""
+    from repro.core.quant.types import quantize_stacked as jquantize
+    from repro.utils.tree import tree_stack as jtree_stack
+
+    w = np.random.default_rng(0).normal(size=(2, 4, 64, 32)).astype(
+        np.float32)
+    stacked = jtree_stack([{"w": jquantize(jnp.asarray(wi), 4, 32)}
+                           for wi in w])
+    got = params_from_numpy(jax.tree_util.tree_map(np.asarray, stacked),
+                            device="cpu")["w"]
+    assert got.shape == (2, 4, 64, 32) and got.qw.shape == (2, 4, 32, 32)
+    assert got[1].shape == (4, 64, 32)
     np.testing.assert_array_equal(got.qw.numpy(),
                                   np.asarray(stacked["w"].qw))
 

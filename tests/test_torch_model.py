@@ -49,7 +49,7 @@ def test_lm_forward_matches_jax(arch, bits, group, jax_params, monkeypatch):
     want, _ = jforward(jcfg, params, jnp.asarray(tokens, jnp.int32))
     tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, params),
                                 device="cpu")
-    got = lm_forward(tcfg, tparams, torch.from_numpy(tokens)).numpy()
+    got = lm_forward(tcfg, tparams, torch.from_numpy(tokens))[0].numpy()
     err = np.abs(got - np.asarray(want))
     if not bits:
         # f32 on both sides, sums in another order: ~2e-6 measured on
@@ -103,7 +103,7 @@ def test_prefill_decode_matches_forward(bits, kv_bits):
     b, s, pad = 2, 21, 3
     tokens = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (b, s)))
-    logits = lm_forward(cfg, params, tokens)
+    logits, _ = lm_forward(cfg, params, tokens)
     spec = PageSpec(n_pages=9, page_size=8, max_pages=4)
     cache = init_cache(cfg, spec, "cpu")
     bt = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32)

@@ -261,8 +261,9 @@ def test_a8_gradient_pattern_matches_jax(setup):
     jg = jax.jit(jax.grad(jloss))(jn)
     tn, trest = tree_partition(tq, is_norm_path)
     tracked = tree_map(lambda t: t.detach().requires_grad_(True), tn)
-    y = apply_block(TCFG, tree_merge(tracked, trest), torch.from_numpy(x),
-                    positions=torch.from_numpy(pos.copy()))
+    y, _ = apply_block(TCFG, tree_merge(tracked, trest),
+                       torch.from_numpy(x),
+                       positions=torch.from_numpy(pos.copy()))
     norms = ("ln1", "ln2")
     grads = torch.autograd.grad(tl.l_dist(torch.from_numpy(fout), y),
                                 [tracked[n]["scale"] for n in norms])
