@@ -3,21 +3,32 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels from src/repro_torch/kernels/csrc/ (nvcc, at
-first use, all in parallel) and holds each against its plain PyTorch
+Builds the seven CUDA kernels from src/repro_torch/kernels/csrc/ (nvcc,
+at first use, all in parallel) and holds each against its plain PyTorch
 version on the card at the shapes the main paths give it. Then it drives
-eight paths, each with the kernels' launch counts set to 0 just before it
+ten paths, each with the kernels' launch counts set to 0 just before it
 and read just after. On llama3.2-1b at full width and depth, with seeded
 random weights:
 
-  1. serving W4 g128 (RTN-packed) through the port's ContinuousEngine
-     (16 requests, 8 slots);
-  2. the paper's pipeline through the launcher's ``build_params`` — self-
-     generated calibration, then GPTQ W4 g128 + norm tweaking, then
-     SmoothQuant W4A8 + norm tweaking — with layer 0 quantized and tweaked
-     again on a CPU copy of its inputs and held against the card;
+  1. serving W4 g128 (RTN-packed by the engine's deploy, one quantize-pack
+     launch per stacked linear) through the port's ContinuousEngine (16
+     requests, 8 slots);
+  2. the paper's pipeline through the launcher's ``build_params`` — 8 x 32
+     self-generated calibration tokens, then GPTQ W4 g128 + norm
+     tweaking, then SmoothQuant W4A8 + norm tweaking — with layer 0
+     quantized and tweaked again on a CPU copy of its inputs and held
+     against the card;
   3. serving the SmoothQuant W4A8 + NT model (the same workload), every
-     quantized linear on the W8A8 kernel.
+     quantized linear on the W8A8 kernel;
+  4. AWQ W4 g128 + NT through the same ``build_params``, layer 0 again on
+     the CPU;
+  5. the paper's own configuration: 128 self-generated samples of 2048
+     tokens, GPTQ W4 g128 + NT with the reference defaults (the chunked
+     attention core in every apply and tweak step, the channel-statistics
+     kernel twice a tweak step), layer 0 run again on the card with every
+     kernel replaced by its plain version (the host CPU would take many
+     minutes at 262,144 tokens), and the chunked attention core held
+     against the single-shot one.
 
 On mixtral-8x22b at its published widths, cut to 2 layers (the float
 tree of 56 layers would not fit the card), the same four paths: serving
@@ -39,11 +50,13 @@ of the JAX package. Any failure raises and exits non-zero.
 
 Output, in order: the card's name and power limit (nvidia-smi), the kernel
 build time, one line per kernel check, per path its metrics and launch
-counts and the plain-path checks, then the JSON line {"kernels": [...]}
-and, last, {"ok": true, "device": {...}}.
+counts and the plain-path checks, the seconds of each phase ("phases"),
+then the JSON line {"kernels": [...]} and, last, {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import gc
 import json
@@ -113,6 +126,17 @@ NOISE = 1e-7
 # position's logits from the plain forward's: measured 0.245 against the
 # noise's 8.15 (H100, 700 W); a kernel fault that moves logits by more fails
 CARD_SHIFT_MOE = 1.0
+# seconds of each phase (path with its checks), printed on the "phases"
+# line so a phase that drifts between machines shows by name
+PHASE_S: dict = {}
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Record the seconds the block takes under ``name`` in PHASE_S."""
+    t0 = time.perf_counter()
+    yield
+    PHASE_S[name] = time.perf_counter() - t0
 
 
 def nvidia_smi() -> str:
@@ -297,12 +321,12 @@ def check_w8a8_matmul(timer, gen):
 def _expert_stack(gen, e, c, k, n, bits, group, act_bits=0):
     """An (E, C, K) capacity buffer (its last row empty, as idle capacity
     is) and an RTN-packed (E, K, N) expert stack."""
-    from repro_torch.core.quant.types import quantize_stacked
+    from repro_torch.core.quant.types import quantize
 
     x = torch.randn((e, c, k), generator=gen, device="cuda")
     x[:, -1] = 0.0
     w = torch.randn((e, k, n), generator=gen, device="cuda") / math.sqrt(k)
-    qt = quantize_stacked(w, bits, group, act_bits)
+    qt = quantize(w, bits, group, act_bits)
     del w
     return x, qt
 
@@ -424,6 +448,118 @@ def check_expert_w8a8_matmul(timer, gen):
         results.append(r)
         del x, xq, qt
         torch.cuda.empty_cache()
+    return results
+
+
+def check_quantize_pack(timer, gen):
+    from repro_torch.core.quant.types import compute_scales
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quantize_pack import quantize_pack_cuda
+
+    # (shape, bits, group, dtype): bits {2, 3, 4, 8} x group {-1, 32, 64,
+    # 128} on a 2048 x 2048 weight; a group of 3, K = 2050 (not a multiple
+    # of a packed group at W2 and W3), bf16 weights; llama3.2-1b's MLP
+    # stack (16 layers of 2048 x 8192, what serve_w4's deploy packs in one
+    # launch: the main case) and one Mixtral layer's expert stack (8 x
+    # 6144 x 16384)
+    cases = [((2048, 2048), bits, group, torch.float32)
+             for bits in (2, 3, 4, 8) for group in (-1, 32, 64, 128)]
+    cases += [((768, 512), 4, 3, torch.float32),
+              ((2050, 512), 3, -1, torch.float32),
+              ((2050, 512), 2, -1, torch.float32),
+              ((2048, 8192), 4, 128, torch.bfloat16),
+              ((16, 2048, 8192), 4, 128, torch.float32),
+              ((MOE_E, MOE_D, MOE_FF), 4, 128, torch.float32)]
+    results = []
+    for shape, bits, group, dtype in cases:
+        w = (torch.randn(shape, generator=gen, device="cuda")
+             / math.sqrt(shape[-2])).to(dtype)
+        scale = compute_scales(w.float(), bits, group)
+        got = quantize_pack_cuda(w, scale, bits=bits)
+        want = ref.quantize_pack_ref(w, scale, bits=bits)
+        torch.cuda.synchronize()
+        # exact: the same IEEE f32 quotient, rounding and packing
+        diff = int((got != want).sum())
+        if diff or got.shape != want.shape:
+            raise AssertionError(f"quantize_pack {shape} W{bits} g{group} "
+                                 f"{dtype}: {diff} bytes differ")
+        ms = timer(lambda: quantize_pack_cuda(w, scale, bits=bits))
+        plain_ms = timer(lambda: ref.quantize_pack_ref(w, scale, bits=bits))
+        nbytes = (w.numel() * w.element_size() + scale.numel() * 4
+                  + got.numel())
+        b_ms, b_by = bound(nbytes, 0.0, F32_FLOPS)
+        # no single PyTorch call rounds and packs: no library time
+        r = dict(shape=list(shape), bits=bits, group=group,
+                 dtype=str(dtype).split(".")[-1], bytes_differing=diff,
+                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                 bound_ms=b_ms, bound_by=b_by)
+        print("quantize_pack", json.dumps(r))
+        results.append(r)
+        del w, scale, got, want
+    return results
+
+
+def check_channel_stats(timer, gen):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.channel_stats import channel_stats_cuda
+
+    # (T, C, dtype, mean): one tweak step's output (sample_batch 8 x 2048
+    # tokens at llama3.2-1b's d 2048: the main case), the whole 128 x 2048
+    # calibration set, bf16, ragged T and C, TINY's d 192, and a mean of
+    # 1e3 at std 1, where sum(x^2) / T - mean^2 in f32 fails
+    cases = [(16384, 2048, torch.float32, 0.0),
+             (262144, 2048, torch.float32, 0.0),
+             (16384, 2048, torch.bfloat16, 0.0),
+             (1000, 70, torch.float32, 0.5), (257, 33, torch.bfloat16, 0.5),
+             (320, 192, torch.float32, 0.5),
+             (16384, 2048, torch.float32, 1e3)]
+    results = []
+    for t, c, dtype, mean in cases:
+        x = (torch.randn((t, c), generator=gen, device="cuda")
+             + mean).to(dtype)
+        mu, var = channel_stats_cuda(x)
+        want_mu, want_var = ref.channel_stats_ref(x)
+        lib_var, lib_mu = torch.var_mean(x.float(), dim=0, correction=0)
+        torch.cuda.synchronize()
+        # f32 sums in other orders (tiles of 256 rows merged by Chan's
+        # formula; torch's reductions): the mean within 1e-6 of max(|mean|,
+        # std) and the variance within 1e-5 relative, each channel, against
+        # the plain version and torch.var_mean alike
+        errs = {}
+        for name, m_ref, v_ref in (("plain", want_mu, want_var),
+                                   ("var_mean", lib_mu, lib_var)):
+            scale = torch.maximum(m_ref.abs(), v_ref.sqrt())
+            errs[name] = (float(((mu - m_ref).abs() / scale).max()),
+                          float(((var - v_ref).abs() / v_ref).max()))
+            if not (errs[name][0] <= 1e-6 and errs[name][1] <= 1e-5):
+                raise AssertionError(f"channel_stats ({t}, {c}) {dtype} "
+                                     f"mean {mean}: (mean, var) errors "
+                                     f"against {name} {errs[name]}")
+        if not (torch.equal(channel_stats_cuda(x)[1], var)):
+            raise AssertionError("channel_stats: two calls differ")
+        # what the TPU kernel's one-pass formula gives on this input
+        xf = x.float()
+        one_pass = ((xf * xf).mean(0) - want_mu * want_mu).clamp_min(0.0)
+        one_pass_err = float(((one_pass - want_var).abs() / want_var).max())
+        ms = timer(lambda: channel_stats_cuda(x))
+        plain_ms = timer(lambda: ref.channel_stats_ref(x))
+        library_ms = timer(lambda: torch.var_mean(x, dim=0, correction=0))
+        nbytes = x.numel() * x.element_size() + 2 * c * 4
+        b_ms, b_by = bound(nbytes, 3.0 * x.numel(), F32_FLOPS)
+        r = dict(shape=[t, c], dtype=str(dtype).split(".")[-1], mean=mean,
+                 max_abs_err=max(float((mu - want_mu).abs().max()),
+                                 float((var - want_var).abs().max())),
+                 rel_err_vs_plain=errs["plain"],
+                 rel_err_vs_var_mean=errs["var_mean"],
+                 one_pass_var_rel_err=one_pass_err, ms=ms, plain_ms=plain_ms,
+                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+        print("channel_stats", json.dumps(r))
+        results.append(r)
+        if mean == 1e3 and not one_pass_err > 1e-5:
+            raise AssertionError(f"the one-pass variance was within the "
+                                 f"tolerance at mean 1e3 ({one_pass_err}): "
+                                 "the case has no power")
+        del x, xf
     return results
 
 
@@ -549,10 +685,13 @@ def serve(cfg, params, label, work, device="cuda", **quant):
     """Serve the workload ``work`` (LLAMA_WORK or MOE_WORK) on ``params``
     (packed by the engine when ``quant`` gives quant_bits); returns
     (engine, finished requests, metrics). The launch counts are reset just
-    before the run and read just after it."""
+    before the engine is built (its deploy packs through the quantize-pack
+    kernel) and read just after the run: ``launches`` counts the deploy and
+    the run, ``run_launches`` the run alone."""
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import ContinuousEngine
 
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     engine = ContinuousEngine(cfg, params, n_slots=8, page_size=16,
                               prefill_bucket=16, max_len=work["max_len"],
@@ -560,6 +699,7 @@ def serve(cfg, params, label, work, device="cuda", **quant):
                               seed=SEED, device=device, **quant)
     del params                  # the float tree, when the engine packed it
     sync(device)
+    setup_launches = ops.launch_counts()
     print(f"{label} setup: {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(SEED)
     reqs = []
@@ -583,7 +723,6 @@ def serve(cfg, params, label, work, device="cuda", **quant):
     engine._decode_block = counted_decode_block
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
     t_start = time.perf_counter()
     done = engine.run(clock=lambda: time.perf_counter() - t_start)
     sync(device)
@@ -613,6 +752,8 @@ def serve(cfg, params, label, work, device="cuda", **quant):
                  prefill_calls=engine.n_prefills,
                  prefill_tokens=engine.n_prefill_tokens,
                  peak_mem_gib=peak / 2**30, launches=launches,
+                 run_launches={name: n - setup_launches[name]
+                               for name, n in launches.items()},
                  decode_launches=decode_launches,
                  launches_per_decode_step=per_step)
     print("serve", json.dumps(stats))
@@ -622,16 +763,28 @@ def serve(cfg, params, label, work, device="cuda", **quant):
 def assert_decode_launches(stats, want):
     """Every decode step launched exactly ``want[name]`` times each kernel,
     and a kernel not named was never launched in the run (prefill
-    included)."""
+    included; the engine's deploy before it is not part of the run)."""
     steps = stats["decode_steps"]
     got = stats["decode_launches"]
     bad = {name: (n, want.get(name, 0) * steps) for name, n in got.items()
            if n != want.get(name, 0) * steps}
-    bad.update({name: (n, 0) for name, n in stats["launches"].items()
+    bad.update({name: (n, 0) for name, n in stats["run_launches"].items()
                 if name not in want and n})
     if bad or steps <= 0:
         raise AssertionError(f"{stats['path']}: launches in {steps} decode "
                              f"steps (got, want): {bad}")
+
+
+def assert_deploy_launches(stats):
+    """The engine's deploy packed each of the 7 stacked linears (layers,
+    and experts, in one tensor) with one quantize-pack launch."""
+    got = stats["launches"]["quantize_pack"] - stats["run_launches"][
+        "quantize_pack"]
+    if got != 7 or stats["run_launches"]["quantize_pack"]:
+        raise AssertionError(f"{stats['path']}: deploy launched "
+                             f"quantize_pack {got} times, want 7 (and the "
+                             f"run {stats['run_launches']['quantize_pack']},"
+                             " want 0)")
 
 
 @contextlib.contextmanager
@@ -639,9 +792,11 @@ def plain_kernels():
     """Inside: every kernel wrapper's CUDA entry point is its plain
     PyTorch version (kernels/ref.py), which runs on the card's tensors.
     Raises if a launch count moved inside (a kernel ran after all)."""
-    from repro_torch.kernels import (dequant_matmul, expert_dequant_matmul,
+    from repro_torch.kernels import (channel_stats, dequant_matmul,
+                                     expert_dequant_matmul,
                                      expert_w8a8_matmul, ops,
-                                     paged_attention, ref, w8a8_matmul)
+                                     paged_attention, quantize_pack, ref,
+                                     w8a8_matmul)
 
     swaps = [(dequant_matmul, "dequant_matmul_cuda",
               ref.dequant_matmul_ref),
@@ -651,7 +806,9 @@ def plain_kernels():
              (expert_w8a8_matmul, "expert_w8a8_matmul_cuda",
               ref.expert_w8a8_matmul_ref),
              (paged_attention, "paged_attention_cuda",
-              ref.paged_attention_ref)]
+              ref.paged_attention_ref),
+             (quantize_pack, "quantize_pack_cuda", ref.quantize_pack_ref),
+             (channel_stats, "channel_stats_cuda", ref.channel_stats_ref)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -885,25 +1042,39 @@ def _packed_leaves(tree, prefix=""):
         yield prefix[:-1], tree
 
 
-def run_pipeline(cfg, method, device="cuda"):
-    """The launcher's ``build_params`` at full size on the card: seeded
-    float weights, self-generated calibration, then ``method`` W4 + norm
-    tweaking. The pipeline's own ``quantize_block`` and ``tweak_block`` are
-    wrapped to record per layer the launches inside the tweak and that the
-    tweak changed no non-norm leaf, and to keep layer 0's inputs and
-    results for the CPU check. Returns (params, record)."""
+def launcher_build(cfg, method):
+    """The launcher's ``build_params`` at full size: seeded float weights,
+    8 x 32 self-generated calibration tokens, then ``method`` W4 + norm
+    tweaking (g128 for GPTQ and AWQ, per-channel for SmoothQuant). The
+    launcher has no ``--method awq`` (the JAX launcher has none); AWQ runs
+    through the same function with the parsed arguments' method set to
+    it. Returns build(device) -> (params, stats)."""
+    from repro_torch.launch import serve as launcher
+
+    argv = ["--no-smoke", "--arch", cfg.name, "--bits", "4", "--method",
+            "smoothquant" if method == "smoothquant" else "gptq"]
+    if method != "smoothquant":
+        argv += ["--group-size", "128"]
+    args = argparse.Namespace(**{**vars(launcher.parse_args(argv)),
+                                 "method": method})
+    return lambda device: launcher.build_params(cfg, args,
+                                                torch.device(device))
+
+
+def run_pipeline(cfg, method, build, device="cuda", keep_inputs=True):
+    """``build(device)`` (a pipeline run: float weights, calibration,
+    ``method`` + norm tweaking) on the card. The pipeline's own
+    ``quantize_block`` and ``tweak_block`` are wrapped to record per layer
+    the launches inside the tweak and that the tweak changed no non-norm
+    leaf, and to keep layer 0's float block, quantized block and tweaked
+    block on the CPU, with ``keep_inputs`` also its calibration taps and
+    tweak inputs (for the host-CPU check). Returns (params, record)."""
     from repro_torch.core.normtweak import pipeline
     from repro_torch.core.quant.deploy import to_device
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve as launcher
     from repro_torch.models.norms import is_norm_path
     from repro_torch.utils.tree import tree_partition
 
-    argv = ["--no-smoke", "--arch", cfg.name, "--method", method,
-            "--bits", "4"]
-    if method == "gptq":
-        argv += ["--group-size", "128"]
-    args = launcher.parse_args(argv)
     rec = {"tweak_launches": dict.fromkeys(ops.launch_counts(), 0),
            "non_norm_changed": []}
     real_quantize, real_tweak = pipeline.quantize_block, pipeline.tweak_block
@@ -911,9 +1082,10 @@ def run_pipeline(cfg, method, device="cuda"):
     def quantize_block(bp, taps, **kw):
         out = real_quantize(bp, taps, **kw)
         if "layer0" not in rec:
-            rec["layer0"] = dict(block=to_device(bp, "cpu"),
-                                 taps=to_device(taps, "cpu"), kw=kw,
+            rec["layer0"] = dict(block=to_device(bp, "cpu"), kw=kw,
                                  qbp=to_device(out, "cpu"))
+            if keep_inputs:
+                rec["layer0"]["taps"] = to_device(taps, "cpu")
         return out
 
     def tweak_block(cfg_, qbp, qx, fout, positions, nt, lr):
@@ -927,9 +1099,10 @@ def run_pipeline(cfg, method, device="cuda"):
             path for path, t in rest_out
             if t is not None and not torch.equal(t, rest_in[path])]
         if "tweak0" not in rec:
-            rec["tweak0"] = dict(qx=qx.cpu(), fout=fout.cpu(),
-                                 positions=positions.cpu(), nt=nt, lr=lr,
-                                 out=to_device(out, "cpu"))
+            rec["tweak0"] = dict(nt=nt, lr=lr, out=to_device(out, "cpu"))
+            if keep_inputs:
+                rec["tweak0"].update(qx=qx.cpu(), fout=fout.cpu(),
+                                     positions=positions.cpu())
         return out, loss
 
     pipeline.quantize_block, pipeline.tweak_block = (quantize_block,
@@ -940,8 +1113,7 @@ def run_pipeline(cfg, method, device="cuda"):
             torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        params, stats = launcher.build_params(cfg, args,
-                                              torch.device(device))
+        params, stats = build(device)
         sync(device)
         rec["total_s"] = time.perf_counter() - t0
         rec["launches"] = ops.launch_counts()
@@ -954,11 +1126,13 @@ def run_pipeline(cfg, method, device="cuda"):
     return params, rec
 
 
-def check_pipeline(cfg, method, params, rec):
+def check_pipeline(cfg, method, params, rec, cpu_layer0=True):
     """Every quantizable linear packed (with the method's act_bits), no
     non-norm leaf changed by the tweak, the tweak went through the kernels
-    of the method's linears, and layer 0 quantized and tweaked again by
-    the port on a CPU copy of its inputs agrees with the card.
+    of the method's linears, RTN's packing (SmoothQuant, AWQ) through the
+    quantize-pack kernel, and layer 0 quantized and tweaked again by the
+    port on a CPU copy of its inputs agrees with the card (AWQ's scale
+    search and fold included).
 
     Layer 0's linears quantized again on the CPU: all of llama3.2-1b's; on
     Mixtral the attention linears and expert CHECK_EXPERT's wi and wg (K
@@ -984,7 +1158,8 @@ def check_pipeline(cfg, method, params, rec):
     held to the same moved channels, a mean of 0.05 lr (15 times the
     measured one) and a 99th percentile of LN2_P99_MOE."""
     from repro_torch.core.normtweak.pipeline import tweak_block
-    from repro_torch.core.quant.blockquant import smooth_block, tap_key_for
+    from repro_torch.core.quant.blockquant import (awq_block, smooth_block,
+                                                   tap_key_for)
     from repro_torch.core.quant.gptq import (gptq_quantize,
                                              hessian_from_inputs)
     from repro_torch.core.quant.rtn import rtn_quantize
@@ -1020,6 +1195,15 @@ def check_pipeline(cfg, method, params, rec):
         if rec["tweak_launches"][kernel] <= 0:
             raise AssertionError(f"{method}: {kernel} never launched inside "
                                  "the tweak")
+    # one quantize-pack launch per RTN-packed linear (an expert stack in
+    # one), none for GPTQ, which packs its own codes
+    want_qp = 0 if method == "gptq" else 7 * cfg.n_repeats
+    if rec["launches"]["quantize_pack"] != want_qp:
+        raise AssertionError(f"{method}: quantize_pack launched "
+                             f"{rec['launches']['quantize_pack']} times, "
+                             f"want {want_qp}")
+    if not cpu_layer0:
+        return {}
 
     t0 = time.perf_counter()
     l0, t0rec = rec["layer0"], rec["tweak0"]
@@ -1027,6 +1211,9 @@ def check_pipeline(cfg, method, params, rec):
     block = l0["block"]
     if method == "smoothquant":
         block = smooth_block(block, l0["taps"], kw["alpha"])
+    elif method == "awq":
+        block = awq_block(block, l0["taps"], bits=kw["bits"],
+                          group_size=kw["group_size"])
     codes = {}
     for path, expert in checked:
         card = tree_get(l0["qbp"], path)["w"]
@@ -1097,8 +1284,10 @@ def check_pipeline(cfg, method, params, rec):
                 seconds=time.perf_counter() - t0)
 
 
-def pipeline_phase(cfg, method, label, device="cuda"):
-    params, rec = run_pipeline(cfg, method, device)
+def pipeline_phase(cfg, method, label):
+    """A launcher pipeline (``launcher_build``) on the card, checked by
+    ``check_pipeline``; prints its metrics and returns (params, them)."""
+    params, rec = run_pipeline(cfg, method, launcher_build(cfg, method))
     st = rec["stats"]
     check = check_pipeline(cfg, method, params, rec)
     line = dict(path=label, method=method, total_s=rec["total_s"],
@@ -1117,6 +1306,154 @@ def pipeline_phase(cfg, method, label, device="cuda"):
     return params, line
 
 
+# the paper's calibration set (its Calibration Data Generation section):
+# 128 self-generated samples of 2048 tokens, all 128 decoded together
+PAPER_CALIB = dict(n_samples=128, token_length=2048, batch_size=128)
+
+
+def check_chunked_attention(cfg, block, x):
+    """Layer 0's attention core on calibration samples ``x`` (B, S, d):
+    the chunked online softmax (KV blocks of cfg.attn_block_kv) against
+    the single-shot softmax over all S keys, on the card. The same f32
+    scores, exponentials and sums in another order: within 1e-5 of the
+    largest output."""
+    from repro_torch.models.attention import attention_core
+    from repro_torch.models.linear import dense
+    from repro_torch.models.norms import apply_norm
+    from repro_torch.models.rope import apply_rope
+
+    b, s, _ = x.shape
+    hd, p = cfg.hd, block["attn"]
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)[None]
+    pos = pos.expand(b, s)
+    with torch.no_grad():
+        h = apply_norm(cfg, block["ln1"], x)
+        q = apply_rope(dense(p["wq"], h).reshape(b, s, cfg.n_heads, hd), pos,
+                       theta=cfg.rope_theta)
+        k = apply_rope(dense(p["wk"], h).reshape(b, s, cfg.n_kv_heads, hd),
+                       pos, theta=cfg.rope_theta)
+        v = dense(p["wv"], h).reshape(b, s, cfg.n_kv_heads, hd)
+        kw = dict(q_pos=pos, kv_pos=pos, window=cfg.attn_window)
+        chunked = attention_core(q, k, v, block_kv=cfg.attn_block_kv, **kw)
+        one = attention_core(q, k, v, block_kv=s, **kw)
+    err = float((chunked - one).abs().max())
+    tol = 1e-5 * float(one.abs().max())
+    line = dict(samples=b, tokens=s, block_kv=cfg.attn_block_kv,
+                max_abs_err=err, tol=tol)
+    if not err <= tol:
+        raise AssertionError(f"chunked attention differs from single-shot: "
+                             f"{line}")
+    return line
+
+
+def paper_pipeline_phase(cfg, device="cuda"):
+    """The paper's configuration (slice 4): GPTQ W4 g128 + NT with the
+    reference defaults (1 iteration, sample batch 8, lr0 1e-5, L_dist on
+    the float stream) on PAPER_CALIB self-generated calibration, at full
+    width and depth. Checked: every linear packed, the tweak changed only
+    norms and ran through the dequant matmul, kernel 7 launched exactly
+    twice a tweak step (L_dist of fOut and of the block output, 16 steps
+    a layer); the chunked attention core against the single-shot one on
+    2 samples of layer 0; and layer 0 run again on the card with every
+    kernel replaced by its plain version (the host CPU would take many
+    minutes at 262,144 tokens): GPTQ codes and scales equal, the tweak's
+    norm deltas within check_pipeline's W4 bar (mean 0.5 lr)."""
+    from repro_torch.core.calibration.generator import generate_calibration
+    from repro_torch.core.normtweak.pipeline import (NTConfig,
+                                                     norm_tweak_ptq,
+                                                     tweak_layers)
+    from repro_torch.core.quant.deploy import to_device
+    from repro_torch.models.transformer import _embed, init_lm
+    from repro_torch.utils.tree import tree_get
+
+    nt = NTConfig(method="gptq", bits=4, group_size=128)
+    kept = {}
+
+    def build(device):
+        params = init_lm(cfg, seed=SEED, device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(1)
+        t0 = time.perf_counter()
+        kept["calib"] = generate_calibration(cfg, params, gen,
+                                             **PAPER_CALIB)
+        sync(device)
+        calib_s = time.perf_counter() - t0
+        params, stats = norm_tweak_ptq(cfg, params, kept["calib"], nt)
+        stats["calib_s"] = calib_s
+        return params, stats
+
+    params, rec = run_pipeline(cfg, "gptq", build, device=device,
+                               keep_inputs=False)
+    st = rec["stats"]
+    check_pipeline(cfg, "gptq", params, rec, cpu_layer0=False)
+    steps = -(-PAPER_CALIB["n_samples"] // nt.sample_batch) * nt.iters
+    want_cs = 2 * steps * cfg.n_repeats
+    if not (rec["tweak_launches"]["channel_stats"]
+            == rec["launches"]["channel_stats"] == want_cs):
+        raise AssertionError(f"channel_stats launched "
+                             f"{rec['tweak_launches']['channel_stats']} "
+                             f"times in the tweak, "
+                             f"{rec['launches']['channel_stats']} in all; "
+                             f"want {want_cs}")
+    x0 = _embed(params, kept.pop("calib"))
+    del params
+    release()
+    l0, t0rec = rec["layer0"], rec["tweak0"]
+    block0 = to_device(l0["block"], device)
+    attn_check = check_chunked_attention(cfg, block0, x0[:2])
+
+    t0 = time.perf_counter()
+    with plain_kernels():
+        (plain0,), _, plain_st = tweak_layers(cfg, [block0], x0, nt,
+                                              total_layers=cfg.n_repeats)
+    sync(device)
+    plain_s = time.perf_counter() - t0
+    del x0, block0
+    codes = {}
+    for path in ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/wi",
+                 "mlp/wg", "mlp/wo"):
+        card, plain = tree_get(l0["qbp"], path)["w"], tree_get(plain0,
+                                                              path)["w"]
+        codes[path] = dict(
+            qw_equal=bool(torch.equal(card.qw, plain.qw.cpu())),
+            scale_equal=bool(torch.equal(card.scale, plain.scale.cpu())))
+        if not all(codes[path].values()):
+            raise AssertionError(f"paper GPTQ layer 0 {path}: card and "
+                                 f"plain-kernel codes differ: {codes[path]}")
+    lr = t0rec["lr"]
+    norms = {}
+    for norm in ("ln1", "ln2"):
+        start = l0["qbp"][norm]["scale"]
+        d_card = t0rec["out"][norm]["scale"] - start
+        d_plain = plain0[norm]["scale"].cpu() - start
+        err = (d_card - d_plain).abs()
+        c = norms[norm] = dict(mean_err_lr=float(err.mean()) / lr,
+                               max_err_lr=float(err.max()) / lr,
+                               mean_delta_lr=float(d_card.abs().mean()) / lr)
+        if not c["mean_err_lr"] <= 0.5:
+            raise AssertionError(f"paper GPTQ layer 0 {norm}: card and "
+                                 f"plain-kernel tweaks differ: {c}")
+    line = dict(path="pipeline_paper_gptq", method="gptq",
+                calibration=PAPER_CALIB, total_s=rec["total_s"],
+                calib_s=st["calib_s"], quant_s=sum(st["layer_quant_s"]),
+                tweak_s=sum(st["layer_tweak_s"]),
+                forward_s=sum(st["layer_forward_s"]),
+                layer_quant_s=st["layer_quant_s"],
+                layer_tweak_s=st["layer_tweak_s"],
+                layer_forward_s=st["layer_forward_s"],
+                layer_l_dist=st["layer_loss"], layer_lr=st["layer_lr"],
+                peak_mem_gib=rec["peak_mem_gib"], launches=rec["launches"],
+                tweak_launches=rec["tweak_launches"],
+                channel_stats_launches_predicted=want_cs,
+                chunked_attention=attn_check,
+                layer0_plain_kernels=dict(
+                    seconds=plain_s, codes=codes, norms=norms,
+                    l_dist=plain_st["layer_loss"][0],
+                    card_l_dist=st["layer_loss"][0]))
+    print("pipeline", json.dumps(line))
+    return line
+
+
 def release() -> None:
     """Free what the last phase left on the card (the serving phases'
     counting wrapper makes each engine a reference cycle)."""
@@ -1129,34 +1466,49 @@ def llama_paths(cfg):
     from repro_torch.models.transformer import init_lm
 
     out = {}
-    # path 1 (slice 1): W4 g128 serving
-    engine, done, out["serve_w4"] = serve(
-        cfg, init_lm(cfg, seed=SEED, device="cuda"), "serve_w4", LLAMA_WORK,
-        quant_bits=4, quant_group=128)
-    check_against_plain(cfg, engine, done)
     n_lin = 7 * cfg.n_repeats
-    assert_decode_launches(out["serve_w4"], {"dequant_matmul": n_lin,
-                                             "paged_attention":
-                                             cfg.n_repeats})
-    del engine, done
-    release()
+    # path 1 (slice 1): W4 g128 serving
+    with phase("serve_w4"):
+        engine, done, out["serve_w4"] = serve(
+            cfg, init_lm(cfg, seed=SEED, device="cuda"), "serve_w4",
+            LLAMA_WORK, quant_bits=4, quant_group=128)
+        check_against_plain(cfg, engine, done)
+        assert_decode_launches(out["serve_w4"], {"dequant_matmul": n_lin,
+                                                 "paged_attention":
+                                                 cfg.n_repeats})
+        assert_deploy_launches(out["serve_w4"])
+        del engine, done
+        release()
     # path 2: the paper's pipeline, GPTQ W4 g128 + NT, SmoothQuant W4A8 + NT
-    params, out["pipeline_gptq"] = pipeline_phase(cfg, "gptq",
-                                                  "pipeline_gptq")
-    del params
-    release()
-    params, out["pipeline_smoothquant"] = pipeline_phase(
-        cfg, "smoothquant", "pipeline_smoothquant")
+    with phase("pipeline_gptq"):
+        params, out["pipeline_gptq"] = pipeline_phase(cfg, "gptq",
+                                                      "pipeline_gptq")
+        del params
+        release()
+    with phase("pipeline_smoothquant"):
+        params, out["pipeline_smoothquant"] = pipeline_phase(
+            cfg, "smoothquant", "pipeline_smoothquant")
     # path 3: serving the SmoothQuant W4A8 + NT model
-    engine, done, out["serve_w4a8"] = serve(cfg, params, "serve_w4a8",
-                                            LLAMA_WORK)
-    del params
-    check_against_plain(cfg, engine, done, measure_margin=True)
-    assert_decode_launches(out["serve_w4a8"], {"w8a8_matmul": n_lin,
-                                               "paged_attention":
-                                               cfg.n_repeats})
-    del engine, done
-    release()
+    with phase("serve_w4a8"):
+        engine, done, out["serve_w4a8"] = serve(cfg, params, "serve_w4a8",
+                                                LLAMA_WORK)
+        del params
+        check_against_plain(cfg, engine, done, measure_margin=True)
+        assert_decode_launches(out["serve_w4a8"], {"w8a8_matmul": n_lin,
+                                                   "paged_attention":
+                                                   cfg.n_repeats})
+        del engine, done
+        release()
+    # slice 4: AWQ W4 g128 + NT at the launcher's calibration, then the
+    # paper's 128 x 2048 calibration through GPTQ W4 g128 + NT
+    with phase("pipeline_awq"):
+        params, out["pipeline_awq"] = pipeline_phase(cfg, "awq",
+                                                     "pipeline_awq")
+        del params
+        release()
+    with phase("pipeline_paper_gptq"):
+        out["pipeline_paper_gptq"] = paper_pipeline_phase(cfg)
+        release()
     return out
 
 
@@ -1170,32 +1522,38 @@ def moe_paths(cfg):
 
     out = {}
     layers = cfg.n_repeats
-    engine, done, out["serve_moe_w4"] = serve(
-        cfg, init_lm(cfg, seed=SEED, device="cuda"), "serve_moe_w4",
-        MOE_WORK, quant_bits=4, quant_group=128)
-    check_against_plain(cfg, engine, done, replay=True)
-    assert_decode_launches(out["serve_moe_w4"],
-                           {"dequant_matmul": 4 * layers,
-                            "expert_dequant_matmul": 3 * layers,
-                            "paged_attention": layers})
-    del engine, done
-    release()
-    params, out["pipeline_moe_gptq"] = pipeline_phase(cfg, "gptq",
-                                                      "pipeline_moe_gptq")
-    del params
-    release()
-    params, out["pipeline_moe_smoothquant"] = pipeline_phase(
-        cfg, "smoothquant", "pipeline_moe_smoothquant")
-    engine, done, out["serve_moe_w4a8"] = serve(cfg, params,
-                                                "serve_moe_w4a8", MOE_WORK)
-    del params
-    check_against_plain(cfg, engine, done, measure_margin=True, replay=True)
-    assert_decode_launches(out["serve_moe_w4a8"],
-                           {"w8a8_matmul": 4 * layers,
-                            "expert_w8a8_matmul": 3 * layers,
-                            "paged_attention": layers})
-    del engine, done
-    release()
+    with phase("serve_moe_w4"):
+        engine, done, out["serve_moe_w4"] = serve(
+            cfg, init_lm(cfg, seed=SEED, device="cuda"), "serve_moe_w4",
+            MOE_WORK, quant_bits=4, quant_group=128)
+        check_against_plain(cfg, engine, done, replay=True)
+        assert_decode_launches(out["serve_moe_w4"],
+                               {"dequant_matmul": 4 * layers,
+                                "expert_dequant_matmul": 3 * layers,
+                                "paged_attention": layers})
+        assert_deploy_launches(out["serve_moe_w4"])
+        del engine, done
+        release()
+    with phase("pipeline_moe_gptq"):
+        params, out["pipeline_moe_gptq"] = pipeline_phase(
+            cfg, "gptq", "pipeline_moe_gptq")
+        del params
+        release()
+    with phase("pipeline_moe_smoothquant"):
+        params, out["pipeline_moe_smoothquant"] = pipeline_phase(
+            cfg, "smoothquant", "pipeline_moe_smoothquant")
+    with phase("serve_moe_w4a8"):
+        engine, done, out["serve_moe_w4a8"] = serve(
+            cfg, params, "serve_moe_w4a8", MOE_WORK)
+        del params
+        check_against_plain(cfg, engine, done, measure_margin=True,
+                            replay=True)
+        assert_decode_launches(out["serve_moe_w4a8"],
+                               {"w8a8_matmul": 4 * layers,
+                                "expert_w8a8_matmul": 3 * layers,
+                                "paged_attention": layers})
+        del engine, done
+        release()
     return out
 
 
@@ -1216,21 +1574,26 @@ def main() -> int:
     resolve_device("cuda")            # pins full-f32 matmuls (no TF32)
     print(nvidia_smi())
     t_all = time.perf_counter()
-    built = build.build()
+    with phase("kernel_build"):
+        built = build.build()
     print(f"kernel build: {time.perf_counter() - t_all:.2f} s "
           f"(compiled: {', '.join(built) or 'none, cached'})")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     timer = Timer()
-    checks = {"dequant_matmul": check_dequant_matmul(timer, gen),
-              "w8a8_matmul": check_w8a8_matmul(timer, gen),
-              "paged_attention": check_paged_attention(timer, gen),
-              "expert_dequant_matmul": check_expert_dequant_matmul(timer,
-                                                                   gen),
-              "expert_w8a8_matmul": check_expert_w8a8_matmul(timer, gen)}
-    del timer
-    release()
+    with phase("kernel_checks"):
+        checks = {"dequant_matmul": check_dequant_matmul(timer, gen),
+                  "w8a8_matmul": check_w8a8_matmul(timer, gen),
+                  "paged_attention": check_paged_attention(timer, gen),
+                  "expert_dequant_matmul": check_expert_dequant_matmul(
+                      timer, gen),
+                  "expert_w8a8_matmul": check_expert_w8a8_matmul(timer,
+                                                                 gen),
+                  "quantize_pack": check_quantize_pack(timer, gen),
+                  "channel_stats": check_channel_stats(timer, gen)}
+        del timer
+        release()
     print(f"kernel phase done: {time.perf_counter() - t_all:.1f} s")
 
     paths = llama_paths(get_config("llama3.2-1b"))
@@ -1239,11 +1602,16 @@ def main() -> int:
         n_repeats=MOE_LAYERS)))
     print(f"mixtral-8x22b paths done: {time.perf_counter() - t_all:.1f} s")
 
-    # each entry's times are at the decode shape its serving path runs
-    # most: M = 8 slots x the 2048 x 8192 MLP linears (W4 g128 for the
-    # dequant matmul, W4 per-channel for the W8A8 matmul), the m_rows = 1
-    # f32-pool read over ragged fills, and the 8 experts' 6144 x 16384
-    # wi/wg at capacity 8 (W4 g128, and W4 per-channel for W8A8)
+    # each entry's times are at the shape its path runs most: for the
+    # serving kernels the decode shape, M = 8 slots x the 2048 x 8192 MLP
+    # linears (W4 g128 for the dequant matmul, W4 per-channel for the W8A8
+    # matmul), the m_rows = 1 f32-pool read over ragged fills, and the 8
+    # experts' 6144 x 16384 wi/wg at capacity 8 (W4 g128, and W4
+    # per-channel for W8A8); serve_w4's deploy of the 16-layer MLP stack
+    # for the quantize-pack; a tweak step's 8 x 2048 tokens x d 2048 for
+    # the channel statistics. ``launches`` counts the path's whole run; on
+    # a serving path that includes the engine's deploy, whose share is
+    # ``deploy_launches`` (the quantize-pack's only; 0 for the others)
     kernels = [
         ("dequant_matmul", "dequant_matmul.cu",
          "src/repro/kernels/dequant_matmul.py:43", "serve_w4",
@@ -1260,6 +1628,12 @@ def main() -> int:
         ("expert_w8a8_matmul", "expert_w8a8_matmul.cu",
          "src/repro/kernels/expert_w8a8_matmul.py:33", "serve_moe_w4a8",
          dict(shape=[MOE_E, 8, MOE_D, MOE_FF], bits=4, group=-1)),
+        ("quantize_pack", "quantize_pack.cu",
+         "src/repro/kernels/quantize.py:46", "serve_w4",
+         dict(shape=[16, 2048, 8192], bits=4, group=128, dtype="float32")),
+        ("channel_stats", "channel_stats.cu",
+         "src/repro/kernels/channel_stats.py:32", "pipeline_paper_gptq",
+         dict(shape=[16384, 2048], dtype="float32", mean=0.0)),
     ]
     entries = []
     for name, source, replaces, path, main_key in kernels:
@@ -1270,8 +1644,11 @@ def main() -> int:
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/" + source,
             replaces=replaces, launches=paths[path]["launches"][name],
-            launches_per_decode_step=paths[path][
-                "launches_per_decode_step"][name],
+            deploy_launches=(paths[path]["launches"][name]
+                             - paths[path]["run_launches"][name]
+                             if "run_launches" in paths[path] else 0),
+            launches_per_decode_step=paths[path].get(
+                "launches_per_decode_step", {}).get(name),
             path=path,
             launches_by_path={p: paths[p]["launches"][name] for p in paths},
             max_abs_err=max(c["max_abs_err"] for c in cases),
@@ -1280,6 +1657,7 @@ def main() -> int:
             library_ms=main_case["library_ms"], main_case=main_case,
             cases=cases))
     print(f"command time: {time.perf_counter() - t_all:.1f} s")
+    print("phases", json.dumps({"seconds": PHASE_S}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

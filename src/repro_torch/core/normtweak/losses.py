@@ -9,14 +9,37 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops
+
+
+class _ChannelStats(torch.autograd.Function):
+    """(T, C) -> (mean (C,), var (C,)) f32 (f64 for f64 input) through
+    ``ops.channel_stats`` (the CUDA kernel on the card, its plain version
+    on the CPU), with the two moments' gradient in plain PyTorch on both:
+    dx = (g_mean + 2 g_var (x - mean)) / T, in x's dtype (the reference has
+    no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        mu, var = ops.channel_stats(x)
+        ctx.save_for_backward(x, mu)
+        return mu, var
+
+    @staticmethod
+    def backward(ctx, g_mu, g_var):
+        x, mu = ctx.saved_tensors
+        xf = x.to(mu.dtype)
+        dx = (torch.zeros_like(xf) if g_var is None
+              else 2.0 * g_var * (xf - mu))
+        if g_mu is not None:
+            dx = dx + g_mu
+        return (dx / x.shape[0]).to(x.dtype)
+
 
 def channel_stats(x: torch.Tensor):
     """x: (..., C) -> (mean (C,), var (C,)) over all token dims, in f32
     (population variance, as ``jnp.var``)."""
-    xf = x.to(torch.float32).reshape(-1, x.shape[-1])
-    mu = xf.mean(dim=0)
-    var = torch.square(xf - mu).mean(dim=0)
-    return mu, var
+    return _ChannelStats.apply(x.reshape(-1, x.shape[-1]))
 
 
 def l_dist(f: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

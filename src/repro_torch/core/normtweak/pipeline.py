@@ -5,8 +5,8 @@ Layer-by-layer over the model:
   1. the quantized stream qX feeds every layer (lines 4-7);
   2. the float output fOut_l is computed with float weights (line 8), from
      the float model's own stream ("fstream") or from qX ("qstream");
-  3. the layer's linears are quantized (GPTQ/RTN/SmoothQuant, line 9) from
-     the inputs each linear sees on qX (taps);
+  3. the layer's linears are quantized (GPTQ/RTN/SmoothQuant/AWQ, line 9)
+     from the inputs each linear sees on qX (taps);
   4. Adam updates ONLY the norm parameters against the channel-wise
      distribution loss for ``iters`` passes over the calibration set in
      sample-batch chunks (lines 11-15), with the depth-increasing LR of
@@ -47,9 +47,15 @@ from repro_torch.utils.tree import (tree_map, tree_merge, tree_partition,
                                     tree_stack)
 
 
+# tokens a full-batch block apply (float stream, taps, qX advance) takes
+# at a time: at the paper's 128 x 2048 calibration tokens one MLP
+# intermediate of llama3.2-1b alone would be 8.6 GB in f32
+APPLY_TOKENS = 1 << 15
+
+
 @dataclasses.dataclass(frozen=True)
 class NTConfig:
-    method: str = "gptq"          # gptq | rtn | smoothquant
+    method: str = "gptq"          # gptq | rtn | smoothquant | awq
     bits: int = 4
     group_size: int = -1          # -1 = per-channel; 64 for W2 (paper)
     act_bits: int = 0             # 8 for SmoothQuant W4A8
@@ -132,10 +138,32 @@ def tweak_layers(cfg: ModelConfig, blocks: list, x0: torch.Tensor,
     stats = {"layer_loss": [], "layer_lr": [], "layer_forward_s": [],
              "layer_quant_s": [], "layer_tweak_s": []}
 
+    @torch.no_grad()
     def block_apply_full(bp, x, taps=None):
-        with torch.no_grad():
+        """The block over all samples: in chunks of APPLY_TOKENS tokens
+        (each sample's function is the same whichever chunk it is in),
+        except an MoE block, whose capacity routing counts every token of
+        the call. Chunked taps are concatenated along the samples, a tensor
+        that several keys share (wq, wk, wv's input) once."""
+        step = n if "moe" in bp else max(1, APPLY_TOKENS // s)
+        if step >= n:
             return apply_block(cfg, bp, x, positions=positions,
                                taps=taps)[0]
+        outs, parts = [], {}
+        for s0 in range(0, n, step):
+            ctaps = None if taps is None else {}
+            outs.append(apply_block(cfg, bp, x[s0:s0 + step],
+                                    positions=positions[s0:s0 + step],
+                                    taps=ctaps)[0])
+            for key, t in (ctaps or {}).items():
+                parts.setdefault(key, []).append(t)
+        joined = {}
+        for key, ts in parts.items():
+            ident = tuple(map(id, ts))
+            if ident not in joined:
+                joined[ident] = torch.cat(ts)
+            taps[key] = joined[ident]
+        return torch.cat(outs)
 
     for li, bp in enumerate(blocks):
         gi = layer_offset + li

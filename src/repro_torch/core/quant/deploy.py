@@ -9,7 +9,7 @@ embeddings and the LM head stay float.
 from __future__ import annotations
 
 from repro_torch.core.quant.blockquant import iter_linears
-from repro_torch.core.quant.types import quantize_stacked
+from repro_torch.core.quant.types import quantize
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.utils.tree import tree_set
@@ -49,7 +49,7 @@ def quantize_params_for_serving(cfg: ModelConfig, params: dict,
         else:
             gs = group_size
         new_lin = dict(lin)
-        new_lin["w"] = quantize_stacked(w, bits, gs, act_bits)
+        new_lin["w"] = quantize(w, bits, gs, act_bits)
         params = tree_set(params, path, new_lin)
     return params
 

@@ -45,13 +45,23 @@ from repro_torch.core.quant.types import (QuantizedTensor, compute_scales,
                                           pack, qmax_for_bits)
 
 BLOCK_ROWS = 128
+# calibration tokens a Hessian takes in f64 at a time: at the paper's
+# 128 x 2048 tokens a whole f64 copy of the MLP-down input (262144 x 8192)
+# would be 17 GB
+HESSIAN_ROWS = 8192
 
 
 def hessian_from_inputs(x: torch.Tensor) -> torch.Tensor:
-    """x: (..., T, K) calibration inputs for one linear -> H (K, K), f64
-    (see the module docstring)."""
-    x2 = x.reshape(-1, x.shape[-1]).to(torch.float64)
-    return 2.0 * x2.t() @ x2
+    """x: (..., T, K) calibration inputs for one linear -> H = 2 X^T X
+    (K, K), f64 (see the module docstring), summed over chunks of
+    HESSIAN_ROWS tokens, always the same chunks for the same shape."""
+    x2 = x.reshape(-1, x.shape[-1])
+    k = x2.shape[1]
+    h = torch.zeros((k, k), dtype=torch.float64, device=x2.device)
+    for r0 in range(0, x2.shape[0], HESSIAN_ROWS):
+        xc = x2[r0:r0 + HESSIAN_ROWS].to(torch.float64)
+        h.addmm_(xc.t(), xc)
+    return h.mul_(2.0)
 
 
 def _expert_bytes(k: int, n: int) -> int:
@@ -150,10 +160,8 @@ def _gptq(w: torch.Tensor, hf: torch.Tensor, *, bits: int, group_size: int,
 
 def _packed(q: torch.Tensor, scale: torch.Tensor, bits: int,
             group_size: int, shape: tuple, act_bits: int) -> QuantizedTensor:
-    qw = (pack(q, bits) if q.ndim == 2
-          else torch.stack([pack(qi, bits) for qi in q]))
-    return QuantizedTensor(qw, scale, bits, group_size, tuple(shape),
-                           act_bits)
+    return QuantizedTensor(pack(q, bits), scale, bits, group_size,
+                           tuple(shape), act_bits)
 
 
 def gptq_quantize(w: torch.Tensor, h: torch.Tensor, *, bits: int,

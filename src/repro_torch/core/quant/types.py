@@ -77,27 +77,29 @@ def _group_count(k: int, group_size: int) -> int:
 
 def compute_scales(w: torch.Tensor, bits: int,
                    group_size: int = -1) -> torch.Tensor:
-    """Symmetric scales: (n_groups, N). w is (K, N)."""
-    k, n = w.shape
+    """Symmetric scales: (..., n_groups, N). w is (..., K, N)."""
+    lead, (k, n) = w.shape[:-2], w.shape[-2:]
     g = _group_count(k, group_size)
-    amax = w.reshape(g, k // g, n).abs().amax(dim=1)
+    amax = w.reshape(*lead, g, k // g, n).abs().amax(dim=-2)
     scale = amax / qmax_for_bits(bits)
     return scale.clamp_min(1e-10).to(torch.float32)
 
 
 def quantize_values(w: torch.Tensor, scale: torch.Tensor,
                     bits: int) -> torch.Tensor:
-    """Round half to even onto the grid: int32 q in [-qmax, qmax], (K, N)."""
-    k, n = w.shape
-    g = scale.shape[0]
+    """Round half to even onto the grid: int32 q in [-qmax, qmax],
+    (..., K, N), with scale (..., G, N)."""
+    lead, (k, n) = w.shape[:-2], w.shape[-2:]
+    g = scale.shape[-2]
     qmax = qmax_for_bits(bits)
-    q = torch.round(w.reshape(g, k // g, n) / scale[:, None, :])
-    return q.clamp(-qmax, qmax).reshape(k, n).to(torch.int32)
+    q = torch.round(w.reshape(*lead, g, k // g, n) / scale[..., :, None, :])
+    return q.clamp(-qmax, qmax).reshape(w.shape).to(torch.int32)
 
 
 def pack(q: torch.Tensor, bits: int) -> torch.Tensor:
-    """Pack offset-binary values along K into uint8. q: int32 (K, N)."""
-    k, n = q.shape
+    """Pack offset-binary values along K into uint8. q: int32 (..., K, N)
+    -> (..., packed_rows(K), N)."""
+    lead, (k, n) = q.shape[:-2], q.shape[-2:]
     qmax = qmax_for_bits(bits)
     bpg, vpg = pack_layout(bits)
     u = (q + qmax).to(torch.int32)
@@ -105,16 +107,17 @@ def pack(q: torch.Tensor, bits: int) -> torch.Tensor:
         return u.to(torch.uint8)
     pad = (-k) % vpg
     if pad:
-        u = torch.cat([u, u.new_zeros((pad, n))], dim=0)
-    u = u.reshape(-1, vpg, n)
-    word = torch.zeros_like(u[:, 0, :])
+        u = torch.cat([u, u.new_zeros(lead + (pad, n))], dim=-2)
+    u = u.reshape(*lead, -1, vpg, n)
+    word = torch.zeros_like(u[..., 0, :])
     for i in range(vpg):
-        word = word | (u[:, i, :] << (bits * i))
+        word = word | (u[..., i, :] << (bits * i))
     if bpg == 1:
         return word.to(torch.uint8)
     # multi-byte group (3-bit): emit the word little-endian along K
-    out = torch.stack([(word >> (8 * b)) & 0xFF for b in range(bpg)], dim=1)
-    return out.reshape(-1, n).to(torch.uint8)
+    out = torch.stack([(word >> (8 * b)) & 0xFF for b in range(bpg)],
+                      dim=-2)
+    return out.reshape(*lead, -1, n).to(torch.uint8)
 
 
 def unpack(qw: torch.Tensor, bits: int, k: int) -> torch.Tensor:
@@ -141,11 +144,16 @@ def unpack(qw: torch.Tensor, bits: int, k: int) -> torch.Tensor:
 
 def quantize(w: torch.Tensor, bits: int, group_size: int = -1,
              act_bits: int = 0) -> QuantizedTensor:
-    """RTN-quantize a (K, N) weight to a packed QuantizedTensor."""
+    """RTN-quantize a (K, N) weight, or a stack of them (..., K, N) (layers,
+    experts), to a packed QuantizedTensor. The scales are computed here;
+    the rounding and packing are ``kernels.ops.quantize_pack`` (on the
+    card one launch of the quantize-pack kernel for the whole stack)."""
+    # imported here: kernels/ops.py imports this module
+    from repro_torch.kernels import ops
+
     scale = compute_scales(w, bits, group_size)
-    q = quantize_values(w, scale, bits)
-    return QuantizedTensor(pack(q, bits), scale, bits, group_size,
-                           tuple(w.shape), act_bits)
+    return QuantizedTensor(ops.quantize_pack(w, scale, bits=bits), scale,
+                           bits, group_size, tuple(w.shape), act_bits)
 
 
 def dequantize(qt: QuantizedTensor) -> torch.Tensor:
@@ -161,13 +169,19 @@ def dequantize(qt: QuantizedTensor) -> torch.Tensor:
             * qt.scale[..., :, None, :]).reshape(q.shape)
 
 
-def quantize_stacked(w: torch.Tensor, bits: int, group_size: int = -1,
-                     act_bits: int = 0) -> QuantizedTensor:
-    """RTN-quantize weights with any leading batch dims (..., K, N)."""
-    if w.ndim == 2:
-        return quantize(w, bits, group_size, act_bits)
-    return stack_quantized([quantize_stacked(wi, bits, group_size, act_bits)
-                            for wi in w])
+# the JAX package's name for ``quantize`` on stacked weights
+quantize_stacked = quantize
+
+
+def fake_quant(w: torch.Tensor, bits: int,
+               group_size: int = -1) -> torch.Tensor:
+    """Quantize then dequantize a (K, N) weight without packing (the grid
+    of ``quantize``), in w's dtype."""
+    scale = compute_scales(w, bits, group_size)
+    k, n = w.shape
+    g = scale.shape[0]
+    q = quantize_values(w, scale, bits).reshape(g, k // g, n)
+    return (q.to(w.dtype) * scale[:, None, :].to(w.dtype)).reshape(k, n)
 
 
 def stack_quantized(parts: list) -> QuantizedTensor:

@@ -37,7 +37,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("dequant_matmul", "w8a8_matmul", "paged_attention",
-           "expert_dequant_matmul", "expert_w8a8_matmul")
+           "expert_dequant_matmul", "expert_w8a8_matmul", "quantize_pack",
+           "channel_stats")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -1,7 +1,8 @@
 """Public wrappers around the port's kernels.
 
-Port of ``repro.kernels.ops`` for the kernels ported so far: the dequant
-matmul, the W8A8 matmul, their expert-batched forms and paged attention.
+Port of ``repro.kernels.ops``: the dequant matmul, the W8A8 matmul, their
+expert-batched forms, paged attention, the RTN quantize-pack and the
+per-channel statistics.
 Dispatch is by the device of the tensors: a CPU tensor runs the kernel's
 plain PyTorch version (``kernels/ref.py``); a CUDA tensor launches the
 hand-written CUDA kernel or raises. There is no fallback from one to the
@@ -20,10 +21,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quant.types import QuantizedTensor, quantize_activation
+from repro_torch.kernels import channel_stats as _cs
 from repro_torch.kernels import dequant_matmul as _dq
 from repro_torch.kernels import expert_dequant_matmul as _edq
 from repro_torch.kernels import expert_w8a8_matmul as _ew8
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import quantize_pack as _qp
 from repro_torch.kernels import ref
 from repro_torch.kernels import w8a8_matmul as _w8
 
@@ -33,12 +36,31 @@ def launch_counts() -> dict[str, int]:
     return {"dequant_matmul": _dq.launches, "w8a8_matmul": _w8.launches,
             "paged_attention": _pa.launches,
             "expert_dequant_matmul": _edq.launches,
-            "expert_w8a8_matmul": _ew8.launches}
+            "expert_w8a8_matmul": _ew8.launches,
+            "quantize_pack": _qp.launches, "channel_stats": _cs.launches}
 
 
 def reset_launch_counts() -> None:
-    for mod in (_dq, _w8, _pa, _edq, _ew8):
+    for mod in (_dq, _w8, _pa, _edq, _ew8, _qp, _cs):
         mod.launches = 0
+
+
+def quantize_pack(w: torch.Tensor, scale: torch.Tensor, *,
+                  bits: int) -> torch.Tensor:
+    """RTN quantize + pack: w (..., K, N) f32 or bf16 with scale
+    (..., G, N) -> uint8 (..., packed_rows(K), N); on the card every
+    leading index in one launch."""
+    if w.device.type == "cpu":
+        return ref.quantize_pack_ref(w, scale, bits=bits)
+    return _qp.quantize_pack_cuda(w, scale, bits=bits)
+
+
+def channel_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (T, C) f32 or bf16 -> per-channel (mean, population var) in f32.
+    No gradient: ``core/normtweak/losses.py::channel_stats`` gives it one."""
+    if x.device.type == "cpu":
+        return ref.channel_stats_ref(x)
+    return _cs.channel_stats_cuda(x)
 
 
 def dequant_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:

@@ -11,8 +11,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.quant.types import (QuantizedTensor, dequantize,
-                                          qmax_for_bits, unpack)
+from repro_torch.core.quant.types import (QuantizedTensor, dequantize, pack,
+                                          qmax_for_bits, quantize_values,
+                                          unpack)
 
 NEG = -1e30
 
@@ -144,3 +145,20 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
         l = torch.where(keep, l_new, l)
         acc = torch.where(keep, acc_new, acc)
     return acc / l.clamp_min(1e-30)
+
+
+def quantize_pack_ref(w: torch.Tensor, scale: torch.Tensor, *,
+                      bits: int) -> torch.Tensor:
+    """RTN quantize + pack: w (..., K, N) f32 or bf16 with scale (..., G, N)
+    f32 -> uint8 (..., packed_rows(K), N): IEEE f32 quotient, rounded half
+    to even, clipped, packed offset-binary along K."""
+    q = quantize_values(w.to(torch.float32), scale.to(torch.float32), bits)
+    return pack(q, bits)
+
+
+def channel_stats_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (T, C) -> (mean (C,), population var (C,)) over T in f32 (f64 for
+    f64 input), the variance two-pass (as ``jnp.var``)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mu = xf.mean(dim=0)
+    return mu, torch.square(xf - mu).mean(dim=0)

@@ -30,6 +30,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
@@ -50,20 +51,88 @@ def _mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
     return m
 
 
-def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   q_pos: torch.Tensor, kv_pos: torch.Tensor,
-                   window: Optional[int] = None) -> torch.Tensor:
-    """Single-shot causal GQA attention in f32.
-    q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd). Returns (B, Sq, H, hd)."""
-    b, sq, h, hd = q.shape
-    kvh = k.shape[2]
-    qg = q.reshape(b, sq, kvh, h // kvh, hd)
-    s = torch.einsum("bqkgh,btkh->bkgqt", qg, k) * (1.0 / math.sqrt(hd))
+def _single_shot(qg, k, v, *, q_pos, kv_pos, window, scale):
+    """Masked softmax over all of K at once. qg: (B, Sq, KVH, G, hd)."""
+    s = torch.einsum("bqkgh,btkh->bkgqt", qg, k) * scale
     m = _mask(q_pos, kv_pos, window=window)
     s = torch.where(m[:, None, None], s, NEG)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqt,btkh->bqkgh", p, v)
+    return torch.einsum("bkgqt,btkh->bqkgh", p, v)
+
+
+def _kv_block(qg, kb, vb, pb, m_run, l_run, acc, *, q_pos, window, scale):
+    """One KV block of the online softmax: the carries (m, l, acc) after
+    block (kb, vb, pb), all f32. A masked score is the finite NEG, so a
+    row with no live key yet takes exp(0) = 1 from each of them; the
+    first live block's correction exp(NEG - m) wipes those out."""
+    s = torch.einsum("bqkgh,btkh->bkgqt", qg, kb) * scale
+    msk = _mask(q_pos, pb, window=window)
+    s = torch.where(msk[:, None, None], s, NEG)
+    m_new = torch.maximum(m_run, s.amax(dim=-1))
+    corr = torch.exp(m_run - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l_run * corr + p.sum(dim=-1)
+    pv = torch.einsum("bkgqt,btkh->bkgqh", p, vb)
+    return m_new, l_new, acc * corr[..., None] + pv
+
+
+def _chunked(qg, k, v, *, q_pos, kv_pos, window, scale, block_kv):
+    """Online softmax over KV blocks of ``block_kv`` (K padded with dead
+    slots, position -1, to whole blocks). Under autograd each block runs
+    checkpointed: the backward pass recomputes its scores from the saved
+    carries, so only O(Sq * hd) carries per block are kept, never the
+    (B, KVH, G, Sq, block_kv) scores."""
+    b, sq, kvh, g, _ = qg.shape
+    skv = k.shape[1]
+    pad = (-skv) % block_kv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-1)
+    dev = qg.device
+    m = torch.full((b, kvh, g, sq), NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kvh, g, sq, v.shape[-1]), dtype=torch.float32,
+                      device=dev)
+    kw = dict(q_pos=q_pos, window=window, scale=scale)
+    for t0 in range(0, skv + pad, block_kv):
+        blk = (qg, k[:, t0:t0 + block_kv], v[:, t0:t0 + block_kv],
+               kv_pos[:, t0:t0 + block_kv], m, l, acc)
+        if torch.is_grad_enabled():
+            m, l, acc = checkpoint(_kv_block, *blk, use_reentrant=False,
+                                   **kw)
+        else:
+            m, l, acc = _kv_block(*blk, **kw)
+    o = acc / l.clamp_min(1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4)                       # (B, Sq, KVH, G, hd)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                   window: Optional[int] = None, block_kv: int = 512
+                   ) -> torch.Tensor:
+    """Causal GQA attention in f32, as the JAX package's ``attention_core``
+    with its default options: single-shot where K fits one block
+    (Skv <= block_kv) or for a decode query (Sq 1), else the chunked
+    online softmax.
+    q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd). Returns (B, Sq, H, hd)."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, hd)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window,
+              scale=1.0 / math.sqrt(hd))
+    if skv <= block_kv or sq == 1:
+        o = _single_shot(qg, k, v, **kw)
+    else:
+        o = _chunked(qg, k, v, block_kv=block_kv, **kw)
     return o.reshape(b, sq, h, v.shape[-1])
+
+
+def _core(cfg: ModelConfig, q, k, v, q_pos, kv_pos) -> torch.Tensor:
+    """``attention_core`` with the config's window and KV block."""
+    return attention_core(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                          window=cfg.attn_window,
+                          block_kv=cfg.attn_block_kv)
 
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
@@ -208,20 +277,17 @@ def apply_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     v = dense(p["wv"], x).reshape(b, s, kvh, hd)
     k = apply_rope(k, positions, theta=cfg.rope_theta)
     if cache is None:
-        o = attention_core(q, k, v, q_pos=positions, kv_pos=positions,
-                           window=window)
+        o = _core(cfg, q, k, v, positions, positions)
     elif "pos" in cache:
         _cache_write(cache, k, v, positions)
         if s == 1:
             # decode: attend over the whole (ring) cache
             kc, vc = _cached_kv(cache)
-            o = attention_core(q, kc, vc, q_pos=positions,
-                               kv_pos=cache["pos"], window=window)
+            o = _core(cfg, q, kc, vc, positions, cache["pos"])
         else:
             # prefill: attend over the sequence itself (a ring may already
             # have evicted positions that early queries need)
-            o = attention_core(q, k, v, q_pos=positions, kv_pos=positions,
-                               window=window)
+            o = _core(cfg, q, k, v, positions, positions)
     elif "block_table" in paged:
         if s != 1:
             raise ValueError("paged decode takes one token per slot")
@@ -233,8 +299,7 @@ def apply_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     elif "bt_rows" in paged:
         # fresh full prompt: write the pages, self-attend to the prompt
         _paged_write_prefill(cache, k, v, positions, paged["bt_rows"])
-        o = attention_core(q, k, v, q_pos=positions, kv_pos=positions,
-                           window=window)
+        o = _core(cfg, q, k, v, positions, positions)
     else:
         raise ValueError("a paged cache needs 'block_table' (decode) or "
                          "'bt_rows' (prefill) indices")

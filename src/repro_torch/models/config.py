@@ -55,6 +55,7 @@ class ModelConfig:
     serve_quant_group: int = 128
     moe_impl: str = "spmd"      # spmd | shard_map (multi-device EP only)
     kv_cache_bits: int = 0      # 8: int8 KV pools with f32 scale pools
+    attn_block_kv: int = 512    # KV block of the chunked attention core
 
     @property
     def hd(self) -> int:

@@ -316,3 +316,98 @@ def test_moe_engine_serves_through_the_expert_kernels(gen, act_bits):
     # A8 rounds every input to int8 per token: a last-bit difference can
     # move a code a whole step, so near-ties flip more often than on W4
     assert agree >= (4 if act_bits else 5)
+
+
+# (shape, group): TINY's and llama's widths, K not a multiple of a packed
+# group (100: the last W3 and W2 groups padded with zero fields), a group
+# of 3, a group smaller than a W3 word, and (L, E) stacks
+QP_CASES = [((192, 576), 32), ((2048, 512), 128), ((100, 24), -1),
+            ((768, 40), 3), ((64, 33), 4), ((3, 64, 40), 16),
+            ((2, 3, 96, 24), -1)]
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("shape,group", QP_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_pack_kernel_matches_plain(gen, shape, group, bits, dtype):
+    """Byte-equal to the plain version: the same IEEE f32 quotient,
+    rounded half to even, clipped, packed. One launch a stack. With a
+    power-of-two scale the first row holds exact halves of the grid
+    (which round to even) and the weights reach past it (which clip)."""
+    from repro_torch.core.quant.types import qmax_for_bits
+    from repro_torch.kernels.quantize_pack import quantize_pack_cuda
+
+    lead, (k, n) = shape[:-2], shape[-2:]
+    g = 1 if group == -1 else k // group
+    w = torch.randn(shape, generator=gen, device="cuda") * 0.1
+    qmax = qmax_for_bits(bits)
+    ties = (torch.arange(2 * qmax + 2, device="cuda") - qmax - 0.5) / 16
+    m = min(n, len(ties))
+    w[..., 0, :m] = ties[:m]
+    w = w.to(dtype)
+    scale = torch.full(lead + (g, n), 1 / 16, device="cuda")
+    before = ops.launch_counts()["quantize_pack"]
+    got = quantize_pack_cuda(w, scale, bits=bits)
+    assert ops.launch_counts()["quantize_pack"] == before + 1
+    want = ref.quantize_pack_ref(w, scale, bits=bits)
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_quantize_pack_refuses_what_it_cannot_take(gen):
+    from repro_torch.kernels.quantize_pack import quantize_pack_cuda
+
+    w = torch.randn((64, 32), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="G dividing"):
+        quantize_pack_cuda(w, torch.ones((3, 32), device="cuda"), bits=4)
+    with pytest.raises(ValueError, match="bits"):
+        quantize_pack_cuda(w, torch.ones((2, 32), device="cuda"), bits=5)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        quantize_pack_cuda(w.half(), torch.ones((2, 32), device="cuda"),
+                           bits=4)
+
+
+# (T, C): one row, a ragged tile and strip, TINY's d 192 over 40-token
+# samples, a tweak step's 8 x 2048 tokens at llama's d 2048
+CS_SHAPES = [(1, 5), (257, 33), (320, 192), (1000, 70), (16384, 2048)]
+
+
+@pytest.mark.parametrize("t,c", CS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mean", [0.5, 1e3])
+def test_channel_stats_kernel_matches_plain(gen, t, c, dtype, mean):
+    """Against the plain version (f32 mean, two-pass variance): tile-wise
+    two-pass sums merged by Chan's formula, in another order. Mean within
+    1e-6 of max(|mean|, std), variance within 1e-5 relative; at mean 1e3
+    and std 1 too, where sum(x^2) / T - mean^2 in f32 would be off by
+    percents. Deterministic: a second call is bit-equal."""
+    from repro_torch.kernels.channel_stats import channel_stats_cuda
+
+    x = (torch.randn((t, c), generator=gen, device="cuda") + mean).to(dtype)
+    mu, var = channel_stats_cuda(x)
+    want_mu, want_var = ref.channel_stats_ref(x)
+    scale = torch.maximum(want_mu.abs(), want_var.sqrt())
+    assert torch.all((mu - want_mu).abs() <= 1e-6 * scale + 1e-7)
+    assert torch.all((var - want_var).abs() <= 1e-5 * want_var + 1e-9)
+    mu2, var2 = channel_stats_cuda(x)
+    assert torch.equal(mu, mu2) and torch.equal(var, var2)
+
+
+def test_channel_stats_gradient_matches_the_cpu(gen):
+    """The loss's statistics through the Function on the card (kernel 7
+    forward, plain backward) and on the CPU (plain both): the gradient of
+    l_dist within 1e-5 of its largest entry."""
+    from repro_torch.core.normtweak.losses import l_dist
+
+    f = torch.randn((4, 64, 96), generator=gen, device="cuda")
+    q = f + 0.1 * torch.randn(f.shape, generator=gen, device="cuda")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        qd = q.to(dev).requires_grad_(True)
+        before = ops.launch_counts()["channel_stats"]
+        (g,) = torch.autograd.grad(l_dist(f.to(dev), qd), qd)
+        assert ops.launch_counts()["channel_stats"] - before == (
+            2 if dev == "cuda" else 0)
+        grads[dev] = g.cpu()
+    assert float((grads["cuda"] - grads["cpu"]).abs().max()) <= 1e-5 * float(
+        grads["cpu"].abs().max())

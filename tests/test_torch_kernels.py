@@ -15,12 +15,14 @@ from repro.kernels.paged_attention import paged_attention_pallas
 from repro.kernels.paged_harness import build_paged_case, build_verify_case
 from repro_torch.core.quant import types as tt
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.channel_stats import channel_stats_cuda
 from repro_torch.kernels.dequant_matmul import (TILE_K, dequant_matmul_cuda,
                                                 plan_splits)
 from repro_torch.kernels.expert_dequant_matmul import (
     expert_dequant_matmul_cuda)
 from repro_torch.kernels.expert_w8a8_matmul import expert_w8a8_matmul_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
+from repro_torch.kernels.quantize_pack import quantize_pack_cuda
 from repro_torch.kernels.w8a8_matmul import w8a8_matmul_cuda
 
 # (M, K, N): the llama3.2-1b linears' (K, N) pairs scaled to TINY
@@ -163,10 +165,16 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         expert_w8a8_matmul_cuda(torch.zeros((1, 8, 64), dtype=torch.int8),
                                 eq, es, bits=4, group_size=32, k=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize_pack_cuda(torch.zeros((64, 32)), torch.ones((2, 32)),
+                           bits=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        channel_stats_cuda(torch.zeros((8, 32)))
     assert ops.launch_counts() == {"dequant_matmul": 0, "w8a8_matmul": 0,
                                    "paged_attention": 0,
                                    "expert_dequant_matmul": 0,
-                                   "expert_w8a8_matmul": 0}
+                                   "expert_w8a8_matmul": 0,
+                                   "quantize_pack": 0, "channel_stats": 0}
 
 
 def test_paged_ref_matches_dequant_gather_oracle():
