@@ -339,13 +339,15 @@ def check_expert_dequant_matmul(timer, gen):
 
     # (E, C, K, N, bits, group): the decode shape of wi/wg at W4 g128 (the
     # main case), wo, a prefill capacity, a ragged capacity, bits 2, 3 and
-    # 8, per-channel scales and a group of 32
+    # 8, per-channel scales and a group of 32, and a capacity of 200 rows
+    # (more than one block's chunk: several chunks re-stream each strip)
     e, d, ff = MOE_E, MOE_D, MOE_FF
     cases = [(e, 8, d, ff, 4, 128), (e, 8, ff, d, 4, 128),
              (e, 80, d, ff, 4, 128), (e, 5, d, ff, 4, 128),
              (e, 8, d, ff, 2, 128), (e, 8, d, ff, 3, 128),
              (e, 8, d, ff, 8, 128), (e, 8, d, ff, 4, -1),
-             (e, 8, d, ff, 4, 32)]
+             (e, 8, d, ff, 4, 32), (e, 200, d, ff, 4, 128),
+             (e, 200, d, ff, 4, -1)]
     results = []
     for e, c, k, n, bits, group in cases:
         x, qt = _expert_stack(gen, e, c, k, n, bits, group)
@@ -375,7 +377,8 @@ def check_expert_dequant_matmul(timer, gen):
         b_ms, b_by = bound(nbytes, 2.0 * e * c * k * n, BF16_TENSOR_FLOPS)
         r = dict(shape=[e, c, k, n], bits=bits, group=group,
                  max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                 bound_over_ms=b_ms / ms)
         print("expert_dequant_matmul", json.dumps(r))
         results.append(r)
         del x, qt
@@ -391,14 +394,15 @@ def check_expert_w8a8_matmul(timer, gen):
 
     # (E, C, K, N, bits, group): the decode shape of wi/wg at W4
     # per-channel (the launcher's SmoothQuant default; the main case), wo,
-    # a prefill capacity, a ragged capacity, bits 2, 3 and 8, and groups of
-    # 32 and 128
+    # a prefill capacity, a ragged capacity, bits 2, 3 and 8, groups of 32
+    # and 128, and a capacity of 200 rows (several chunks)
     e, d, ff = MOE_E, MOE_D, MOE_FF
     cases = [(e, 8, d, ff, 4, -1), (e, 8, ff, d, 4, -1),
              (e, 80, d, ff, 4, -1), (e, 5, d, ff, 4, -1),
              (e, 8, d, ff, 2, -1), (e, 8, d, ff, 3, -1),
              (e, 8, d, ff, 8, -1), (e, 8, d, ff, 4, 32),
-             (e, 8, d, ff, 4, 128)]
+             (e, 8, d, ff, 4, 128), (e, 200, d, ff, 4, -1),
+             (e, 200, d, ff, 4, 128)]
     results = []
     for e, c, k, n, bits, group in cases:
         x, qt = _expert_stack(gen, e, c, k, n, bits, group, act_bits=8)
@@ -443,7 +447,8 @@ def check_expert_w8a8_matmul(timer, gen):
         b_ms, b_by = bound(nbytes, 2.0 * e * c * k * n, INT8_TENSOR_OPS)
         r = dict(shape=[e, c, k, n], bits=bits, group=group,
                  max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                 bound_over_ms=b_ms / ms)
         print("expert_w8a8_matmul", json.dumps(r))
         results.append(r)
         del x, xq, qt

@@ -7,9 +7,7 @@
 //   out[m, n] = sum_k bf16(x[m, k]) * bf16(q[k, n] * scale[g(k), n])
 //
 // accumulated in f32. The body, what bounds it on this card and what its
-// design does about that are in dequant_matmul.cuh, shared with the
-// expert-batched kernel (expert_dequant_matmul.cu); this is its one-expert
-// instance.
+// design does about that are in dequant_matmul.cuh.
 #include "dequant_matmul.cuh"
 
 using namespace dequant_mm;
@@ -23,8 +21,8 @@ extern "C" int dequant_matmul(const void* x, const void* qw, const void* scale,
                               void* out, void* workspace, int M, int K, int N,
                               int G, int bits, int splits, int k_per_split,
                               void* stream) {
-  return launch<false>(x, qw, scale, out, workspace, 1, M, K, N, G, bits,
-                       splits, k_per_split, stream);
+  return launch(x, qw, scale, out, workspace, M, K, N, G, bits, splits,
+                k_per_split, stream);
 }
 
 // Resident blocks per SM of the main kernel for `bits` with one scale per
@@ -35,16 +33,16 @@ extern "C" int dequant_matmul_blocks_per_sm(int bits, int* blocks) {
   cudaError_t err;
   switch (bits) {
     case 2:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dequant_matmul_kernel<2, true, false>, THREADS, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dequant_matmul_kernel<2, true>, THREADS, 0);
       break;
     case 3:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dequant_matmul_kernel<3, true, false>, THREADS, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dequant_matmul_kernel<3, true>, THREADS, 0);
       break;
     case 4:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dequant_matmul_kernel<4, true, false>, THREADS, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dequant_matmul_kernel<4, true>, THREADS, 0);
       break;
     case 8:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dequant_matmul_kernel<8, true, false>, THREADS, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dequant_matmul_kernel<8, true>, THREADS, 0);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,23 +1,17 @@
 // The body of the fused low-bit dequantize + matmul for Hopper (sm_90a),
-// shared by the dense kernel (dequant_matmul.cu) and the expert-batched
-// one (expert_dequant_matmul.cu). For each of E experts (E = 1 for a
-// dense linear) it computes
+// the dense kernel of dequant_matmul.cu. It computes
 //
-//   out[e, m, n] = sum_k bf16(x[e, m, k]) * bf16(q[e, k, n] * scale[e, g(k), n])
+//   out[m, n] = sum_k bf16(x[m, k]) * bf16(q[k, n] * scale[g(k), n])
 //
 // accumulated in f32, where q comes from the K-packed offset-binary bytes
 // of core/quant/types.py (read by packing.cuh), and g(k) = 0 per-channel
-// (G == 1), else k / (K / G). Expert e's operands are whole matrices laid
-// one after the other: x (E, M, K), qw (E, packed_rows(K), N), scale
-// (E, G, N), out (E, M, N).
+// (G == 1), else k / (K / G).
 //
-// What bounds it on this card. Prefill (M = B*S rows, or an expert's
-// capacity C, in the hundreds) does 2*E*M*K*N operations on
-// E*K*N*bits/8 weight bytes and is bound by the tensor cores' bf16 rate.
-// Decode (M <= 8 slots; an expert's capacity C = 8) does almost no
+// What bounds it on this card. Prefill (M = B*S rows, in the hundreds)
+// does 2*M*K*N operations on K*N*bits/8 weight bytes and is bound by the
+// tensor cores' bf16 rate. Decode (M <= 8 slots) does almost no
 // arithmetic per weight byte and is bound by reading the packed weight
-// bytes: at W4 a 2048x8192 weight is 8 MiB, 2.5 us at 3.35 TB/s; eight
-// 6144x16384 experts are 403 MB, 0.12 ms.
+// bytes: at W4 a 2048x8192 weight is 8 MiB, 2.5 us at 3.35 TB/s.
 //
 // What this first design does about it: it is the simple, right kernel.
 // One block of 4 warps per 64x64 output tile walks a range of K in 32-row
@@ -26,20 +20,18 @@
 // scales the weights into shared memory as bf16, and the warps multiply
 // with the tensor cores through WMMA (16x16x16 bf16, f32 accumulation).
 // Rows of M and columns of N past the edge, and K rows past the end, are
-// masked to zero, so any M, K and N run (a ragged expert capacity is not
-// padded). Each thread unpacks one column of the weight tile, so when a K
+// masked to zero, so any M, K and N run. Each thread unpacks one column of the weight tile, so when a K
 // step lies inside one scale group (per-channel scales, or a group size
 // that is a multiple of 32) it loads one scale per step instead of one per
 // element. That, and a launch bound of 4 resident blocks per SM (at most
 // 128 registers a thread), keep 16 warps on each SM: with per-element
 // scales and no bound the unpack's load arrays take 177-240 registers and
 // leave 2 blocks per SM, which made prefill 4-5x slower. When the output
-// tiles alone cannot fill the card (decode: M <= 8 gives E*N/64 blocks),
+// tiles alone cannot fill the card (decode: M <= 8 gives N/64 blocks),
 // the wrapper splits K across `splits` blocks per tile; each writes an f32
 // partial and a second kernel sums the partials in split order, so the
-// result does not depend on block timing. The grid's z index folds expert
-// and split (z = expert * splits + split), so all E experts run in one
-// launch. Still far from the decode bound: most of each 64-row tile is
+// result does not depend on block timing. Still far from the decode
+// bound: most of each 64-row tile is
 // padding at M <= 8, and nothing overlaps one step's loads with the
 // previous step's math (cp.async or TMA pipelining of the packed bytes is
 // later work).
@@ -70,9 +62,9 @@ constexpr int CS_LD = BN + 4;  // f32 leading dim: a multiple of 4
 constexpr int MAX_GRID_Z = 65535;
 
 // STEP_SCALE: every K step lies inside one scale group (G == 1, or K / G a
-// multiple of BK), so a thread's scale is one load per step. EXPERTS: the
-// grid's z is expert * splits + split (else z is the split of one linear)
-template <int BITS, bool STEP_SCALE, bool EXPERTS>
+// multiple of BK), so a thread's scale is one load per step. The grid's z
+// is the split.
+template <int BITS, bool STEP_SCALE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 dequant_matmul_kernel(const float* __restrict__ x,
                       const uint8_t* __restrict__ qw,
@@ -87,19 +79,9 @@ dequant_matmul_kernel(const float* __restrict__ x,
   __shared__ __align__(32) __nv_bfloat16 ws[BK * WS_LD];
   __shared__ __align__(32) float cs[BM * CS_LD];
 
-  // expert e's rows of x, of the scales and of the packed weight (in K
-  // rows, padded to whole packed groups) start e matrices down. They are
-  // row offsets, not moved pointers: a moved pointer is held in two
-  // registers all through the K loop, where the kernel parameter costs
-  // none, and at the 128-register bound that spilled 220-550 bytes a
-  // thread. Split z writes partial z of the (E, splits, M, N) workspace
-  // (with one split: the (E, M, N) output); a dense linear has E = 1.
-  const int expert = EXPERTS ? blockIdx.z / splits : 0;
-  const int split = EXPERTS ? blockIdx.z % splits : blockIdx.z;
-  const int x_row0 = expert * M;
-  const int s_row0 = expert * G;
-  const int q_row0 =
-      expert * (int)((K + L::VALUES - 1) / L::VALUES * L::VALUES);
+  // split z writes partial z of the (splits, M, N) workspace (with one
+  // split: the (M, N) output)
+  const int split = blockIdx.z;
   out += (size_t)blockIdx.z * M * N;
 
   const int m0 = blockIdx.y * BM;
@@ -125,22 +107,22 @@ dequant_matmul_kernel(const float* __restrict__ x,
     for (int j = 0; j < XPT; ++j) {
       const int i = threadIdx.x + j * THREADS;
       const int gm = m0 + i / BK, gk = k0 + i % BK;
-      xv[j] = (gm < M && gk < k_end) ? x[(size_t)(x_row0 + gm) * K + gk]
+      xv[j] = (gm < M && gk < k_end) ? x[(size_t)gm * K + gk]
                                      : 0.0f;
     }
     int qv[WPT];
     float sv[STEP_SCALE ? 1 : WPT];
     if (STEP_SCALE)
-      sv[0] = gn_t < N ? scale[(size_t)(s_row0 + k0 / group) * N + gn_t]
+      sv[0] = gn_t < N ? scale[(size_t)(k0 / group) * N + gn_t]
                        : 0.0f;
 #pragma unroll
     for (int j = 0; j < WPT; ++j) {
       const int gk = k0 + kt + j * (THREADS / BN);
       const bool ok = gk < k_end && gn_t < N;
-      qv[j] = ok ? packed_value<BITS>(qw, q_row0 + gk, gn_t, N)
+      qv[j] = ok ? packed_value<BITS>(qw, gk, gn_t, N)
                  : QMAX;  // QMAX -> 0
       if (!STEP_SCALE)
-        sv[j] = ok ? scale[(size_t)(s_row0 + gk / group) * N + gn_t] : 0.0f;
+        sv[j] = ok ? scale[(size_t)(gk / group) * N + gn_t] : 0.0f;
     }
 #pragma unroll
     for (int j = 0; j < XPT; ++j) {
@@ -182,36 +164,33 @@ dequant_matmul_kernel(const float* __restrict__ x,
   }
 }
 
-template <int BITS, bool EXPERTS>
+template <int BITS>
 void launch_bits(bool step_scale, dim3 grid, cudaStream_t st, const float* x,
                  const uint8_t* qw, const float* scale, float* dst, int M,
                  int K, int N, int G, int splits, int k_per_split) {
   if (step_scale)
-    dequant_matmul_kernel<BITS, true, EXPERTS><<<grid, THREADS, 0, st>>>(
+    dequant_matmul_kernel<BITS, true><<<grid, THREADS, 0, st>>>(
         x, qw, scale, dst, M, K, N, G, splits, k_per_split);
   else
-    dequant_matmul_kernel<BITS, false, EXPERTS><<<grid, THREADS, 0, st>>>(
+    dequant_matmul_kernel<BITS, false><<<grid, THREADS, 0, st>>>(
         x, qw, scale, dst, M, K, N, G, splits, k_per_split);
 }
 
-// E experts' x (E, M, K) f32, qw (E, packed_rows(K), N) uint8, scale
-// (E, G, N) f32 -> out (E, M, N) f32, all contiguous on the current
-// device (EXPERTS false: one linear, E = 1). With splits > 1, K is cut
-// into ranges of k_per_split rows (a multiple of 32) and workspace holds E
-// x splits x M x N f32 partials. Returns the CUDA error code of the
+// x (M, K) f32, qw (packed_rows(K), N) uint8, scale (G, N) f32 -> out
+// (M, N) f32, all contiguous on the current device. With splits > 1, K is
+// cut into ranges of k_per_split rows (a multiple of 32) and workspace
+// holds splits x M x N f32 partials. Returns the CUDA error code of the
 // launches (0 on success).
-template <bool EXPERTS>
-int launch(const void* x, const void* qw, const void* scale,
-                  void* out, void* workspace, int E, int M, int K, int N,
-                  int G, int bits, int splits, int k_per_split,
-                  void* stream) {
-  if (E <= 0 || (!EXPERTS && E != 1) || M <= 0 || K <= 0 || N <= 0 ||
-      G <= 0 || splits <= 0 || (long long)E * splits > MAX_GRID_Z ||
-      (long long)E * (M + K + 8 + G) > INT32_MAX || k_per_split % BK != 0 ||
+inline int launch(const void* x, const void* qw, const void* scale,
+                  void* out, void* workspace, int M, int K, int N, int G,
+                  int bits, int splits, int k_per_split, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || G <= 0 || splits <= 0 ||
+      splits > MAX_GRID_Z || (long long)M + K + 8 + G > INT32_MAX ||
+      k_per_split % BK != 0 ||
       (long long)splits * k_per_split < K ||
       (splits > 1 && workspace == nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E * splits);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   const cudaStream_t st = (cudaStream_t)stream;
   const float* xp = (const float*)x;
   const uint8_t* qp = (const uint8_t*)qw;
@@ -220,22 +199,22 @@ int launch(const void* x, const void* qw, const void* scale,
   const bool step_scale = G == 1 || (K / G) % BK == 0;
   switch (bits) {
     case 2:
-      launch_bits<2, EXPERTS>(step_scale, grid, st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split);
+      launch_bits<2>(step_scale, grid, st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split);
       break;
     case 3:
-      launch_bits<3, EXPERTS>(step_scale, grid, st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split);
+      launch_bits<3>(step_scale, grid, st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split);
       break;
     case 4:
-      launch_bits<4, EXPERTS>(step_scale, grid, st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split);
+      launch_bits<4>(step_scale, grid, st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split);
       break;
     case 8:
-      launch_bits<8, EXPERTS>(step_scale, grid, st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split);
+      launch_bits<8>(step_scale, grid, st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   if (splits > 1)
-    split_k::sum_splits(dst, (float*)out, (size_t)M * N, splits, E, st);
+    split_k::sum_splits(dst, (float*)out, (size_t)M * N, splits, 1, st);
   return (int)cudaGetLastError();
 }
 

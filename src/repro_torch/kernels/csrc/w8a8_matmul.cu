@@ -8,9 +8,7 @@
 //   out[m, n] = sum_g scale[g, n] * (sum_{k in group g} xq[m, k] * q[k, n])
 //
 // before the per-token activation rescale. The body, what bounds it on
-// this card and what its design does about that are in w8a8_matmul.cuh,
-// shared with the expert-batched kernel (expert_w8a8_matmul.cu); this is
-// its one-expert instance.
+// this card and what its design does about that are in w8a8_matmul.cuh.
 #include "w8a8_matmul.cuh"
 
 // xq (M, K) int8, qw (packed_rows(K), N) uint8, scale (G, N) f32 -> out
@@ -25,8 +23,8 @@ extern "C" int w8a8_matmul(const void* xq, const void* qw, const void* scale,
                            void* out, void* workspace, int M, int K, int N,
                            int G, int bits, int splits, int k_per_split,
                            int vec_x, void* stream) {
-  return w8a8_mm::launch<false>(xq, qw, scale, out, workspace, 1, M, K, N,
-                                G, bits, splits, k_per_split, vec_x, stream);
+  return w8a8_mm::launch(xq, qw, scale, out, workspace, M, K, N, G, bits,
+                         splits, k_per_split, vec_x, stream);
 }
 
 extern "C" const char* w8a8_matmul_error_string(int code) {

@@ -1,24 +1,20 @@
 // The body of int8 activations times low-bit packed weights on the int8
-// tensor cores of Hopper (sm_90a), the W8A8 / W4A8 matmul, shared by the
-// dense kernel (w8a8_matmul.cu) and the expert-batched one
-// (expert_w8a8_matmul.cu). For each of E experts (E = 1 for a dense
-// linear) it computes
+// tensor cores of Hopper (sm_90a), the W8A8 / W4A8 matmul of the dense
+// kernel (w8a8_matmul.cu). It computes
 //
-//   out[e, m, n] = sum_g scale[e, g, n] * (sum_{k in group g} xq[e, m, k] * q[e, k, n])
+//   out[m, n] = sum_g scale[g, n] * (sum_{k in group g} xq[m, k] * q[k, n])
 //
 // before the per-token activation rescale (the caller, kernels/ops.py,
 // multiplies by it). xq is int8 (per-token quantized activations); q comes
 // from the K-packed offset-binary bytes of core/quant/types.py (read by
 // packing.cuh), so every unpacked value fits int8 for bits 2, 3, 4 and 8.
 // Each inner sum over a scale group is exact in int32; it is rescaled by
-// scale[e, g, n] in f32 and summed over groups in f32. Expert e's operands
-// are whole matrices laid one after the other: xq (E, M, K), qw (E,
-// packed_rows(K), N), scale (E, G, N), out (E, M, N).
+// scale[g, n] in f32 and summed over groups in f32.
 //
-// What bounds it on this card. Decode (M = n_slots <= 8; an expert's
-// capacity C = 8) does almost no arithmetic per weight byte and is bound
-// by reading the packed weights: at W4 a 2048x8192 weight is 8 MiB, 2.5 us
-// at 3.35 TB/s. Prefill (M, or C, in the hundreds) does 2*M*K*N int8
+// What bounds it on this card. Decode (M = n_slots <= 8) does almost no
+// arithmetic per weight byte and is bound by reading the packed weights:
+// at W4 a 2048x8192 weight is 8 MiB, 2.5 us at 3.35 TB/s. Prefill (M in
+// the hundreds) does 2*M*K*N int8
 // operations on K*N*bits/8 weight bytes and is bound by the int8
 // tensor-core rate (1979 TOP/s dense).
 //
@@ -39,9 +35,7 @@
 // in whole scale groups; each split writes an f32 partial and a second
 // kernel sums the partials in split order, so the result does not depend
 // on block timing (per-channel scales then rescale one exact int32 partial
-// per split). The grid's z index folds expert and split (z = expert *
-// splits + split), so all E experts run in one launch. Still far from the
-// decode bound: most of each 64-row tile is padding at M <= 8, the weight
+// per split). Still far from the decode bound: most of each 64-row tile is padding at M <= 8, the weight
 // bytes are read a byte at a time, and nothing overlaps one step's loads
 // with the previous step's math (later work: wgmma, TMA, a pipelined ring
 // of tiles).
@@ -92,9 +86,8 @@ __device__ __forceinline__ void unpack16(const uint8_t* __restrict__ qw,
   }
 }
 
-// EXPERTS: the grid's z is expert * splits + split (else z is the split of
-// one linear)
-template <int BITS, bool EXPERTS>
+// the grid's z is the split
+template <int BITS>
 __global__ void __launch_bounds__(THREADS)
 w8a8_matmul_kernel(const int8_t* __restrict__ xq,
                    const uint8_t* __restrict__ qw,
@@ -107,19 +100,9 @@ w8a8_matmul_kernel(const int8_t* __restrict__ xq,
   __shared__ __align__(32) int8_t wt[2][BN * KS];
   __shared__ __align__(32) int cs[BM * BN];
 
-  // expert e's rows of xq, of the scales and of the packed weight (in K
-  // rows, padded to whole packed groups) start e matrices down: row
-  // offsets, not moved pointers, which stay in registers all through the
-  // K loop (with moved pointers the dense instance ran 25-45% slower on an
-  // H100). Split z writes partial z of the (E, splits, M, N) workspace
-  // (with one split: the (E, M, N) output); a dense linear has E = 1.
-  using L = packing::Layout<BITS>;
-  const int expert = EXPERTS ? blockIdx.z / splits : 0;
-  const int split = EXPERTS ? blockIdx.z % splits : blockIdx.z;
-  const int x_row0 = expert * M;
-  const int s_row0 = expert * G;
-  const int q_row0 =
-      expert * (int)((K + L::VALUES - 1) / L::VALUES * L::VALUES);
+  // split z writes partial z of the (splits, M, N) workspace (with one
+  // split: the (M, N) output)
+  const int split = blockIdx.z;
   out += (size_t)blockIdx.z * M * N;
 
   const int m0 = blockIdx.y * BM;
@@ -149,16 +132,16 @@ w8a8_matmul_kernel(const int8_t* __restrict__ xq,
     __align__(16) int8_t xv[KS];
     if (gm < M && vec_x && ks + KS <= k_end) {
       *reinterpret_cast<int4*>(xv) =
-          *reinterpret_cast<const int4*>(xq + (size_t)(x_row0 + gm) * K + ks);
+          *reinterpret_cast<const int4*>(xq + (size_t)gm * K + ks);
     } else {
 #pragma unroll
       for (int i = 0; i < KS; ++i)
         xv[i] = (gm < M && ks + i < k_end)
-                    ? xq[(size_t)(x_row0 + gm) * K + ks + i]
+                    ? xq[(size_t)gm * K + ks + i]
                     : (int8_t)0;
     }
     __align__(16) int8_t wv[KS];
-    unpack16<BITS>(qw, q_row0, ks, gn, N, gn < N ? k_end : 0, wv);
+    unpack16<BITS>(qw, 0, ks, gn, N, gn < N ? k_end : 0, wv);
     *reinterpret_cast<int4*>(&xs[ts][tl * KS]) =
         *reinterpret_cast<const int4*>(xv);
     *reinterpret_cast<int4*>(&wt[ts][tl * KS]) =
@@ -190,7 +173,7 @@ w8a8_matmul_kernel(const int8_t* __restrict__ xq,
           }
         __syncthreads();
         const float sc =
-            gn < N ? scale[(size_t)(s_row0 + kslice / group) * N + gn]
+            gn < N ? scale[(size_t)(kslice / group) * N + gn]
                    : 0.0f;
 #pragma unroll
         for (int j = 0; j < OUT_PER_THREAD; ++j)
@@ -210,29 +193,27 @@ w8a8_matmul_kernel(const int8_t* __restrict__ xq,
   }
 }
 
-// E experts' xq (E, M, K) int8, qw (E, packed_rows(K), N) uint8, scale
-// (E, G, N) f32 -> out (E, M, N) f32, all contiguous on the current
-// device (EXPERTS false: one linear, E = 1). A scale group (K / G rows,
-// or all of K when G == 1) must be a multiple of 16 rows. With splits >
-// 1, K is cut into ranges of k_per_split rows (a multiple of 32, and of
-// the group when G > 1) and workspace holds E x splits x M x N f32
-// partials. vec_x: xq's rows may
-// be read 16 bytes at a time (K % 16 == 0 and xq 16-byte aligned).
-// Returns the CUDA error code of the launches (0 on success).
-template <bool EXPERTS>
-int launch(const void* xq, const void* qw, const void* scale,
-                  void* out, void* workspace, int E, int M, int K, int N,
-                  int G, int bits, int splits, int k_per_split, int vec_x,
+// xq (M, K) int8, qw (packed_rows(K), N) uint8, scale (G, N) f32 -> out
+// (M, N) f32, all contiguous on the current device. A scale group (K / G
+// rows, or all of K when G == 1) must be a multiple of 16 rows. With
+// splits > 1, K is cut into ranges of k_per_split rows (a multiple of 32,
+// and of the group when G > 1) and workspace holds splits x M x N f32
+// partials. vec_x: xq's rows may be read 16 bytes at a time (K % 16 == 0
+// and xq 16-byte aligned). Returns the CUDA error code of the launches (0
+// on success).
+inline int launch(const void* xq, const void* qw, const void* scale,
+                  void* out, void* workspace, int M, int K, int N, int G,
+                  int bits, int splits, int k_per_split, int vec_x,
                   void* stream) {
-  if (E <= 0 || (!EXPERTS && E != 1) || M <= 0 || K <= 0 || N <= 0 ||
-      G <= 0 || splits <= 0 || (long long)E * splits > MAX_GRID_Z ||
-      (long long)E * (M + K + 8 + G) > INT32_MAX || K % G != 0 ||
+  if (M <= 0 || K <= 0 || N <= 0 || G <= 0 || splits <= 0 ||
+      splits > MAX_GRID_Z || (long long)M + K + 8 + G > INT32_MAX ||
+      K % G != 0 ||
       k_per_split % BK != 0 || (long long)splits * k_per_split < K ||
       (splits > 1 && workspace == nullptr))
     return (int)cudaErrorInvalidValue;
   if (G > 1 && ((K / G) % KS != 0 || k_per_split % (K / G) != 0))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E * splits);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   const cudaStream_t st = (cudaStream_t)stream;
   const int8_t* xp = (const int8_t*)xq;
   const uint8_t* qp = (const uint8_t*)qw;
@@ -240,22 +221,22 @@ int launch(const void* xq, const void* qw, const void* scale,
   float* dst = splits > 1 ? (float*)workspace : (float*)out;
   switch (bits) {
     case 2:
-      w8a8_matmul_kernel<2, EXPERTS><<<grid, THREADS, 0, st>>>(xp, qp, sp, dst, M, K, N, G, splits, k_per_split, vec_x);
+      w8a8_matmul_kernel<2><<<grid, THREADS, 0, st>>>(xp, qp, sp, dst, M, K, N, G, splits, k_per_split, vec_x);
       break;
     case 3:
-      w8a8_matmul_kernel<3, EXPERTS><<<grid, THREADS, 0, st>>>(xp, qp, sp, dst, M, K, N, G, splits, k_per_split, vec_x);
+      w8a8_matmul_kernel<3><<<grid, THREADS, 0, st>>>(xp, qp, sp, dst, M, K, N, G, splits, k_per_split, vec_x);
       break;
     case 4:
-      w8a8_matmul_kernel<4, EXPERTS><<<grid, THREADS, 0, st>>>(xp, qp, sp, dst, M, K, N, G, splits, k_per_split, vec_x);
+      w8a8_matmul_kernel<4><<<grid, THREADS, 0, st>>>(xp, qp, sp, dst, M, K, N, G, splits, k_per_split, vec_x);
       break;
     case 8:
-      w8a8_matmul_kernel<8, EXPERTS><<<grid, THREADS, 0, st>>>(xp, qp, sp, dst, M, K, N, G, splits, k_per_split, vec_x);
+      w8a8_matmul_kernel<8><<<grid, THREADS, 0, st>>>(xp, qp, sp, dst, M, K, N, G, splits, k_per_split, vec_x);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   if (splits > 1)
-    split_k::sum_splits(dst, (float*)out, (size_t)M * N, splits, E, st);
+    split_k::sum_splits(dst, (float*)out, (size_t)M * N, splits, 1, st);
   return (int)cudaGetLastError();
 }
 

@@ -27,10 +27,10 @@ TARGET_BLOCKS = 1024
 MIN_STEPS_PER_SPLIT = 4
 
 
-def plan_splits(m: int, k: int, n: int, group_rows: int | None = None,
-                experts: int = 1) -> tuple[int, int]:
-    """(splits, k_per_split): cut K across blocks when the output tiles of
-    all ``experts`` alone are too few to fill the card (the decode shapes).
+def plan_splits(m: int, k: int, n: int,
+                group_rows: int | None = None) -> tuple[int, int]:
+    """(splits, k_per_split): cut K across blocks when the output tiles
+    alone are too few to fill the card (the decode shapes).
     k_per_split is a whole number of K steps and no split is empty. With
     ``group_rows`` (< K: grouped scales, which the W8A8 kernel sums apart)
     it is also a whole number of scale groups."""
@@ -38,7 +38,7 @@ def plan_splits(m: int, k: int, n: int, group_rows: int | None = None,
     unit = TILE_K if group_rows >= k else max(TILE_K, group_rows)
     if unit % TILE_K:
         unit *= 2                          # a group of 16 rows: two a step
-    tiles = experts * -(-m // TILE_M) * -(-n // TILE_N)
+    tiles = -(-m // TILE_M) * -(-n // TILE_N)
     units = -(-k // unit)
     splits = max(1, min(-(-TARGET_BLOCKS // tiles),
                         units * unit // (TILE_K * MIN_STEPS_PER_SPLIT)))
@@ -84,40 +84,33 @@ def check_operands(name: str, x: torch.Tensor, x_dtype: torch.dtype,
 def _lib(name: str):
     fn = getattr(build.load(name), name)
     if fn.argtypes is None:
-        # the expert-batched entry point takes E before M
-        n_ints = 8 if name.startswith("expert_") else 7
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def run(name: str, x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
-        *, bits: int, group_size: int, k: int,
-        experts: bool) -> torch.Tensor:
+        *, bits: int, group_size: int, k: int) -> torch.Tensor:
     """Check, plan and launch the dequant-matmul body as library ``name``:
-    x (M, K) f32, or with ``experts`` the (E, C, K) capacity buffer and
-    packed stacks with a leading E. Returns the f32 output; the caller
-    counts the launch."""
+    x (M, K) f32. Returns the f32 output; the caller counts the launch."""
     check_operands(name, x, torch.float32, qw, scale, bits=bits,
-                   group_size=group_size, k=k, experts=experts)
+                   group_size=group_size, k=k, experts=False)
     n = qw.shape[-1]
     want_g = 1 if group_size == -1 else k // group_size
-    e = x.shape[0] if experts else 1
     m = x.shape[-2]
     out = torch.empty(x.shape[:-1] + (n,), dtype=torch.float32,
                       device=x.device)
-    if m == 0 or e == 0:
+    if m == 0:
         return out
-    splits, k_per_split = plan_splits(m, k, n, experts=e)
-    work = (torch.empty((e, splits, m, n), dtype=torch.float32,
+    splits, k_per_split = plan_splits(m, k, n)
+    work = (torch.empty((splits, m, n), dtype=torch.float32,
                         device=x.device) if splits > 1 else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    dims = (e, m) if experts else (m,)
     code = _lib(name)(x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
                       out.data_ptr(),
                       None if work is None else work.data_ptr(),
-                      *dims, k, n, want_g, bits, splits, k_per_split, stream)
+                      m, k, n, want_g, bits, splits, k_per_split, stream)
     build.check(name, code)
     return out
 
@@ -130,7 +123,7 @@ def dequant_matmul_cuda(x: torch.Tensor, qw: torch.Tensor,
     take."""
     global launches
     out = run("dequant_matmul", x, qw, scale, bits=bits,
-              group_size=group_size, k=k, experts=False)
+              group_size=group_size, k=k)
     if out.numel():                      # an empty x launches nothing
         launches += 1
     return out

@@ -2,21 +2,168 @@
 dequantize + matmul launch (``csrc/expert_dequant_matmul.cu``).
 
 Replaces the TPU kernel ``expert_dequant_matmul_pallas``
-(src/repro/kernels/expert_dequant_matmul.py). The kernel is the dense
-dequant matmul's body (``csrc/dequant_matmul.cuh``) with the expert on the
-grid; the header says what bounds it on the H100 and what the design does
+(src/repro/kernels/expert_dequant_matmul.py). The kernel streams each
+expert's packed weight strip once through a shared-memory ring and
+multiplies on the tensor cores with the weight as the wide operand
+(``csrc/expert_stream.cuh``, shared with the expert W8A8 kernel); the
+sources' headers say what bounds it on the H100 and what the design does
 about it. Its plain version is ``kernels/ref.py::expert_dequant_matmul_ref``.
+
+``plan`` cuts the work of both expert kernels into blocks; it is the one
+place their strips, capacity chunks and K splits are chosen.
 
 ``launches`` counts the kernel's launches in this process (reset it by
 assigning 0); nothing but the launch below adds to it.
 """
 from __future__ import annotations
 
+import ctypes
+import math
+from dataclasses import dataclass
+
 import torch
 
-from repro_torch.kernels import dequant_matmul as _dq
+from repro_torch.core.quant.types import qmax_for_bits
+from repro_torch.kernels import build
+from repro_torch.kernels.dequant_matmul import check_operands
 
 launches = 0
+
+# the kernels' geometry (csrc/expert_stream.cuh): a block's strip of
+# output columns, the K rows of a ring stage, the ring's stages, the
+# padding of a staged packed row per bit width, shared memory a block may
+# take, and the grid's z limit
+STRIP = 256
+STAGE_K = 128
+STAGES = 3
+ROW_PAD = {2: 32, 3: 32, 4: 16, 8: 16}
+MAX_SMEM = 232448
+MAX_GRID_Z = 65535
+# blocks that give each of the H100's 132 SMs about 8 (three are
+# resident at a time at decode): K is split until the grid holds this
+# many, so the last wave of blocks is a small part of the launch
+SMS = 132
+TARGET_BLOCKS = 8 * SMS
+# a split walks at least this many stages (the ring's fill is amortized)
+MIN_STAGES_PER_SPLIT = 4
+# n8 tiles of capacity rows a block may hold (both kernels; with 8, the
+# f32 x rows of a prefill chunk grow the ring to one block an SM)
+CAPACITY_TILES = (1, 2, 4)
+
+
+@dataclass(frozen=True)
+class ExpertPlan:
+    """How a launch cuts (E, C, K) x (E, K, N): ``nt`` n8 tiles of capacity
+    rows a block (chunks of 8 * nt rows), ``chunks`` of them over C,
+    ``strips`` of STRIP columns over N, and K in ``splits`` ranges of
+    ``k_per_split`` rows; ``smem`` bytes of ring a block."""
+    nt: int
+    chunks: int
+    strips: int
+    splits: int
+    k_per_split: int
+    smem: int
+    experts: int
+
+    @property
+    def blocks(self) -> int:
+        return self.experts * self.splits * self.chunks * self.strips
+
+
+def scale_rows(k: int, groups: int) -> int:
+    """Scale rows a ring stage holds (``scale_rows`` of the header): 1 for
+    per-channel scales or a group of whole stages, the most groups a stage
+    touches for a group of whole 16-row K steps, 0 for any other group
+    (read per value)."""
+    group = k // groups
+    if groups == 1 or group % STAGE_K == 0:
+        return 1
+    if group % 16:
+        return 0
+    return min(STAGE_K // 16, (STAGE_K - 16) // group + 2)
+
+
+def stage_bytes(bits: int, nt: int, x_bytes: int, srows: int) -> int:
+    """Shared memory of one ring stage: its packed weight rows, its 8 * nt
+    x rows and its scale rows (``stage_bytes`` of the header)."""
+    values, nbytes = (8, 3) if bits == 3 else (8 // bits, 1)
+    w = STAGE_K // values * nbytes * (STRIP + ROW_PAD[bits])
+    x_row = STAGE_K * x_bytes + (64 if x_bytes == 4 else 16)
+    return w + 8 * nt * x_row + srows * STRIP * 4
+
+
+def plan(e: int, c: int, k: int, n: int, bits: int, groups: int, *,
+         x_bytes: int) -> ExpertPlan:
+    """Cut the expert product into blocks. The capacity tile is the fewest
+    n8 tiles of CAPACITY_TILES that hold C, else the largest whose ring fits
+    shared memory (C then takes several chunks). K is split, in whole
+    stages (and, for the W8A8 kernel's grouped scales, whole groups), only
+    while the strips, chunks and experts give fewer than TARGET_BLOCKS
+    blocks, each split walking at least MIN_STAGES_PER_SPLIT stages; no
+    split is empty."""
+    # the W8A8 kernel reads per-channel scales once, not through the ring
+    srows = 0 if x_bytes == 1 and groups == 1 else scale_rows(k, groups)
+    fitting = [t for t in CAPACITY_TILES
+               if STAGES * stage_bytes(bits, t, x_bytes, srows) <= MAX_SMEM]
+    nt = next((t for t in fitting if 8 * t >= c), fitting[-1])
+    chunks = -(-c // (8 * nt))
+    strips = -(-n // STRIP)
+    unit = STAGE_K
+    if x_bytes == 1 and groups > 1:
+        unit = math.lcm(STAGE_K, k // groups)
+    units = -(-k // unit)
+    tiles = e * chunks * strips
+    splits = max(1, min(-(-TARGET_BLOCKS // tiles),
+                        units * unit // (STAGE_K * MIN_STAGES_PER_SPLIT),
+                        MAX_GRID_Z // e))
+    per = -(-units // splits)
+    return ExpertPlan(nt=nt, chunks=chunks, strips=strips,
+                      splits=-(-units // per), k_per_split=per * unit,
+                      smem=STAGES * stage_bytes(bits, nt, x_bytes, srows),
+                      experts=e)
+
+
+def launch(name: str, x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
+           *, bits: int, group_size: int, k: int) -> torch.Tensor:
+    """Check, plan and launch expert kernel ``name``: the dequant matmul
+    on f32 x, or the W8A8 matmul on int8 x (its scale groups whole 16-row
+    K steps, and no exact int32 group sum able to overflow), on the
+    (E, C, K) capacity buffer x and the (E, ...) packed stack. Returns the
+    (E, C, N) f32 output; the caller counts the launch."""
+    int8 = name == "expert_w8a8_matmul"
+    check_operands(name, x, torch.int8 if int8 else torch.float32, qw,
+                   scale, bits=bits, group_size=group_size, k=k,
+                   experts=True)
+    group_rows = k if group_size == -1 else group_size
+    if int8 and group_size != -1 and group_rows % 16:
+        raise ValueError(f"{name}: a scale group of {group_rows} rows is not "
+                         f"a multiple of 16")
+    if x.shape[0] > MAX_GRID_Z:
+        raise ValueError(f"{name}: {x.shape[0]} experts exceed the grid")
+    e, c = x.shape[:2]
+    n = qw.shape[-1]
+    groups = scale.shape[-2]
+    out = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
+    if c == 0 or e == 0:
+        return out
+    p = plan(e, c, k, n, bits, groups, x_bytes=x.element_size())
+    # one exact int32 sum covers at most a group (or a split's rows)
+    rows = min(group_rows, p.k_per_split)
+    if int8 and 127 * qmax_for_bits(bits) * rows >= 2 ** 31:
+        raise ValueError(f"{name}: {rows} rows per int32 sum could overflow")
+    work = (torch.empty((e, p.splits, c, n), dtype=torch.float32,
+                        device=x.device) if p.splits > 1 else None)
+    fn = getattr(build.load(name), name)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = fn(x.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(),
+              None if work is None else work.data_ptr(), e, c, k, n, groups,
+              bits, p.nt, p.splits, p.k_per_split, stream)
+    build.check(name, code)
+    return out
 
 
 def expert_dequant_matmul_cuda(x: torch.Tensor, qw: torch.Tensor,
@@ -26,8 +173,8 @@ def expert_dequant_matmul_cuda(x: torch.Tensor, qw: torch.Tensor,
     (E, G, N) f32 -> (E, C, N) f32, on the card, in one launch. Raises on
     anything the kernel does not take."""
     global launches
-    out = _dq.run("expert_dequant_matmul", x, qw, scale, bits=bits,
-                  group_size=group_size, k=k, experts=True)
+    out = launch("expert_dequant_matmul", x, qw, scale, bits=bits,
+                 group_size=group_size, k=k)
     if out.numel():
         launches += 1
     return out

@@ -2,10 +2,13 @@
 int8 launch on the tensor cores (``csrc/expert_w8a8_matmul.cu``).
 
 Replaces the TPU kernel ``expert_w8a8_matmul_pallas``
-(src/repro/kernels/expert_w8a8_matmul.py). The kernel is the dense W8A8
-matmul's body (``csrc/w8a8_matmul.cuh``) with the expert on the grid; the
-header says what bounds it on the H100 and what the design does about it.
-Its plain version is ``kernels/ref.py::expert_w8a8_matmul_ref``.
+(src/repro/kernels/expert_w8a8_matmul.py). The kernel streams each
+expert's packed weight strip once through a shared-memory ring and
+multiplies on the int8 tensor cores with the weight as the wide operand
+(``csrc/expert_stream.cuh``, shared with the expert dequant matmul, whose
+module holds the planner and launcher both use); the sources' headers say
+what bounds it on the H100 and what the design does about it. Its plain
+version is ``kernels/ref.py::expert_w8a8_matmul_ref``.
 
 ``launches`` counts the kernel's launches in this process (reset it by
 assigning 0); nothing but the launch below adds to it.
@@ -14,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import w8a8_matmul as _w8
+from repro_torch.kernels.expert_dequant_matmul import launch
 
 launches = 0
 
@@ -27,8 +30,8 @@ def expert_w8a8_matmul_cuda(xq: torch.Tensor, qw: torch.Tensor,
     the card, in one launch. Raises on anything the kernel does not
     take."""
     global launches
-    out = _w8.run("expert_w8a8_matmul", xq, qw, scale, bits=bits,
-                  group_size=group_size, k=k, experts=True)
+    out = launch("expert_w8a8_matmul", xq, qw, scale, bits=bits,
+                 group_size=group_size, k=k)
     if out.numel():
         launches += 1
     return out

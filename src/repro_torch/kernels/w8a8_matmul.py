@@ -29,49 +29,43 @@ SLICE_K = 16
 def _lib(name: str):
     fn = getattr(build.load(name), name)
     if fn.argtypes is None:
-        # the expert-batched entry point takes E before M
-        n_ints = 9 if name.startswith("expert_") else 8
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def run(name: str, xq: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
-        *, bits: int, group_size: int, k: int,
-        experts: bool) -> torch.Tensor:
+        *, bits: int, group_size: int, k: int) -> torch.Tensor:
     """Check, plan and launch the W8A8 body as library ``name``: xq (M, K)
-    int8, or with ``experts`` the (E, C, K) int8 capacity buffer and
-    packed stacks with a leading E. Returns the f32 output before the
-    per-token rescale; the caller counts the launch."""
+    int8. Returns the f32 output before the per-token rescale; the caller
+    counts the launch."""
     check_operands(name, xq, torch.int8, qw, scale, bits=bits,
-                   group_size=group_size, k=k, experts=experts)
+                   group_size=group_size, k=k, experts=False)
     n = qw.shape[-1]
     group_rows = k if group_size == -1 else group_size
     want_g = 1 if group_size == -1 else k // group_size
     if want_g > 1 and group_rows % SLICE_K:
         raise ValueError(f"{name}: a scale group of {group_rows} rows is not "
                          f"a multiple of {SLICE_K}")
-    e = xq.shape[0] if experts else 1
     m = xq.shape[-2]
     out = torch.empty(xq.shape[:-1] + (n,), dtype=torch.float32,
                       device=xq.device)
-    if m == 0 or e == 0:
+    if m == 0:
         return out
-    splits, k_per_split = plan_splits(m, k, n, group_rows, experts=e)
+    splits, k_per_split = plan_splits(m, k, n, group_rows)
     # one exact int32 sum covers at most a group (or a split's rows)
     rows = min(group_rows, k_per_split)
     if 127 * qmax_for_bits(bits) * rows >= 2 ** 31:
         raise ValueError(f"{name}: {rows} rows per int32 sum could overflow")
-    work = (torch.empty((e, splits, m, n), dtype=torch.float32,
+    work = (torch.empty((splits, m, n), dtype=torch.float32,
                         device=xq.device) if splits > 1 else None)
     vec_x = int(k % 16 == 0 and xq.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
-    dims = (e, m) if experts else (m,)
     code = _lib(name)(xq.data_ptr(), qw.data_ptr(), scale.data_ptr(),
                       out.data_ptr(),
                       None if work is None else work.data_ptr(),
-                      *dims, k, n, want_g, bits, splits, k_per_split, vec_x,
+                      m, k, n, want_g, bits, splits, k_per_split, vec_x,
                       stream)
     build.check(name, code)
     return out
@@ -85,7 +79,7 @@ def w8a8_matmul_cuda(xq: torch.Tensor, qw: torch.Tensor,
     Raises on anything the kernel does not take."""
     global launches
     out = run("w8a8_matmul", xq, qw, scale, bits=bits,
-              group_size=group_size, k=k, experts=False)
+              group_size=group_size, k=k)
     if out.numel():
         launches += 1
     return out

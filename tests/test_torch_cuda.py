@@ -201,11 +201,20 @@ def test_packed_linear_backward_matches_plain(gen, act_bits, bits, group):
 
 
 # (E, C, K, N): TINY's widths with a ragged capacity, Mixtral-like decode
-# (C = 8) and prefill (C = 80) capacities, one expert, and a split-K shape
+# (C = 8) and prefill (C = 80) capacities, one expert, a split-K shape, a
+# capacity beyond one block's chunk of rows (32), an N that is not a multiple of 16 (the copies' byte path) and
+# a K that is not a multiple of 16 (per-channel scales only)
 EXPERT_SHAPES = [(4, 8, 192, 576), (3, 5, 576, 192), (2, 80, 160, 64),
-                 (1, 1, 64, 160), (8, 8, 1024, 256)]
+                 (1, 1, 64, 160), (8, 8, 1024, 256), (2, 136, 256, 192),
+                 (2, 8, 256, 100), (2, 8, 200, 128)]
+# a group of 8 is no whole number of the kernel's 16-row K steps: its
+# scales are read per value
 EXPERT_DQ_QUANTS = [(2, 32), (3, 32), (4, 32), (4, -1), (8, -1), (3, -1),
-                    (4, 16)]
+                    (4, 16), (4, 8)]
+# every shape with every (bits, group) whose group divides K
+EXPERT_DQ_CASES = [(e, c, k, n, bits, group) for e, c, k, n in EXPERT_SHAPES
+                   for bits, group in EXPERT_DQ_QUANTS
+                   if group == -1 or k % group == 0]
 
 
 def _expert_case(gen, e, c, k, n, bits, group, act_bits=0):
@@ -216,8 +225,7 @@ def _expert_case(gen, e, c, k, n, bits, group, act_bits=0):
     return x, quantize_stacked(w, bits, group, act_bits)
 
 
-@pytest.mark.parametrize("bits,group", EXPERT_DQ_QUANTS)
-@pytest.mark.parametrize("e,c,k,n", EXPERT_SHAPES)
+@pytest.mark.parametrize("e,c,k,n,bits,group", EXPERT_DQ_CASES)
 def test_expert_dequant_matmul_kernel_matches_plain(gen, e, c, k, n, bits,
                                                     group):
     from repro_torch.kernels.expert_dequant_matmul import (
@@ -265,6 +273,56 @@ def test_expert_w8a8_matmul_kernel_matches_plain(gen, e, c, k, n, bits,
     bound = float(torch.matmul(xq.double().abs(), wabs).max())
     assert float((got - want).abs().max()) <= 1e-5 * bound
     assert torch.all(got[:, -1] == 0)
+
+
+@pytest.mark.parametrize("e,c,k,n", [(4, 8, 2048, 1024), (2, 136, 640, 512)])
+def test_expert_dequant_matmul_is_deterministic(gen, e, c, k, n):
+    """Two launches on the same inputs give the same bits (split-K partials
+    summed in split order, no float atomics), one launch counted each."""
+    from repro_torch.kernels.expert_dequant_matmul import (
+        expert_dequant_matmul_cuda, plan)
+
+    x, qt = _expert_case(gen, e, c, k, n, 4, 128)
+    kw = dict(bits=4, group_size=128, k=k)
+    p = plan(e, c, k, n, 4, k // 128, x_bytes=4)
+    assert p.splits > 1 or p.chunks > 1       # the multi-block paths
+    before = ops.launch_counts()["expert_dequant_matmul"]
+    first = expert_dequant_matmul_cuda(x, qt.qw, qt.scale, **kw)
+    assert ops.launch_counts()["expert_dequant_matmul"] == before + 1
+    second = expert_dequant_matmul_cuda(x, qt.qw, qt.scale, **kw)
+    assert ops.launch_counts()["expert_dequant_matmul"] == before + 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("e,c,k,n,group", [(4, 8, 2048, 1024, -1),
+                                           (4, 8, 2048, 1024, 128),
+                                           (2, 136, 640, 512, -1)])
+def test_expert_w8a8_matmul_is_deterministic(gen, e, c, k, n, group):
+    """Two launches on the same inputs give the same bits, one launch
+    counted each; with per-channel scales they are the plain version's
+    bits (the K splits' exact int32 sums are added before the one
+    rescale)."""
+    from repro_torch.core.quant.types import quantize_activation
+    from repro_torch.kernels.expert_dequant_matmul import plan
+    from repro_torch.kernels.expert_w8a8_matmul import (
+        expert_w8a8_matmul_cuda)
+
+    x, qt = _expert_case(gen, e, c, k, n, 4, group, act_bits=8)
+    xq, _ = quantize_activation(x.reshape(e * c, k))
+    xq = xq.reshape(e, c, k)
+    kw = dict(bits=4, group_size=group, k=k)
+    groups = 1 if group == -1 else k // group
+    p = plan(e, c, k, n, 4, groups, x_bytes=1)
+    assert p.splits > 1 or p.chunks > 1
+    before = ops.launch_counts()["expert_w8a8_matmul"]
+    first = expert_w8a8_matmul_cuda(xq, qt.qw, qt.scale, **kw)
+    assert ops.launch_counts()["expert_w8a8_matmul"] == before + 1
+    second = expert_w8a8_matmul_cuda(xq, qt.qw, qt.scale, **kw)
+    assert ops.launch_counts()["expert_w8a8_matmul"] == before + 2
+    assert torch.equal(first, second)
+    if group == -1:
+        assert torch.equal(first, ref.expert_w8a8_matmul_ref(
+            xq, qt.qw, qt.scale, **kw))
 
 
 def test_expert_kernels_refuse_what_they_cannot_take(gen):

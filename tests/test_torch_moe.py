@@ -34,7 +34,9 @@ from repro_torch.core.quant import gptq as tg
 from repro_torch.core.quant import types as tt
 from repro_torch.core.quant.deploy import quantize_params_for_serving
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.dequant_matmul import TILE_K, plan_splits
+from repro_torch.kernels.expert_dequant_matmul import (STAGE_K,
+                                                       TARGET_BLOCKS)
+from repro_torch.kernels.expert_dequant_matmul import plan as plan_expert
 from repro_torch.models import config as tmc
 from repro_torch.models import linear as tlin
 from repro_torch.models import mlp_moe as tmoe
@@ -295,14 +297,16 @@ def test_gptq_of_stacked_experts_matches_jax(bits, group, actorder,
 @pytest.mark.parametrize("c,k,n", [(8, 6144, 16384), (8, 16384, 6144),
                                    (80, 6144, 16384), (5, 64, 96)])
 def test_expert_split_plan_counts_every_expert(e, c, k, n):
-    """Split-K counts the tiles of all experts: at Mixtral's decode shape
-    (8 experts, C = 8, 6144 x 16384) the grid is full without a split."""
-    splits, per = plan_splits(c, k, n, experts=e)
-    assert splits >= 1 and per % TILE_K == 0
-    assert (splits - 1) * per < k <= splits * per
-    assert splits <= plan_splits(c, k, n)[0]
+    """Split-K counts the blocks of all experts: at Mixtral's decode shape
+    (8 experts, C = 8, 6144 x 16384) the 512 tiles of all 8 experts are
+    split only as far as the grid's target needs."""
+    p = plan_expert(e, c, k, n, 4, 1, x_bytes=4)
+    assert p.splits >= 1 and p.k_per_split % STAGE_K == 0
+    assert (p.splits - 1) * p.k_per_split < k <= p.splits * p.k_per_split
+    assert p.splits <= plan_expert(1, c, k, n, 4, 1, x_bytes=4).splits
     if e == 8 and (c, k, n) == (8, 6144, 16384):
-        assert splits == 1
+        assert p.blocks == 512 * p.splits
+        assert (p.splits - 1) * 512 < TARGET_BLOCKS <= p.blocks
 
 
 @pytest.fixture(scope="module")
