@@ -94,6 +94,11 @@ CHECK_EXPERT = 0
 # layer 0, against 2.0 for the tweak's own deltas, which a card that did
 # not tweak would be off by (H100, 700 W)
 LN2_P99_MOE = 0.05
+# the share of an MoE's ln1 channels on W4A8 that the card's tweak with
+# every kernel's plain version may move more than 1e-3 lr from the CPU's
+# (check_pipeline): measured 1 of 6144 (1.6e-4) on Mixtral layer 0, a
+# near-tie of a token's largest channel (H100, 700 W)
+LN1_TIES_MOE = 1e-3
 # a served token is held against the plain forward's argmax wherever that
 # forward's top-2 logit margin exceeds this: the served path sums in other
 # orders (tensor-core tiles, the page walk; the CPU's BLAS for the plain
@@ -195,6 +200,39 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 MOE_E, MOE_D, MOE_FF = 8, 6144, 16384
 
 
+def dense_plan(m, k, n, bits, groups, int8):
+    """The body (0 streaming, 1 tile) and K splits the dense kernels'
+    planner gives a case."""
+    from repro_torch.kernels.dequant_matmul import plan
+
+    p = plan(m, k, n, bits, groups, int8=int8)
+    return dict(body=p.body, splits=p.splits, blocks=p.blocks)
+
+
+def dequant_tol(x, qt):
+    """Kernel 1's tolerance: kernel and plain version multiply the same
+    bf16-rounded operands (products exact in f32) and differ only in the
+    order of the f32 sum, so 4e-5 of the largest sum of |terms|."""
+    from repro_torch.core.quant.types import dequantize
+
+    xb = x.to(torch.bfloat16).float()
+    wb = dequantize(qt).to(torch.bfloat16).float()
+    return 4e-5 * float((xb.abs() @ wb.abs()).max())
+
+
+def w8a8_tol(xq, qt):
+    """Kernel 3's tolerance: both take each scale group's sum exactly and
+    rescale it alike, and differ only in the order of the f32 sum over
+    groups and K splits, so 1e-5 of the largest sum of |group terms|."""
+    from repro_torch.core.quant.types import unpack
+
+    k = qt.k
+    q8 = unpack(qt.qw, qt.bits, k).to(torch.int8)
+    rows = torch.arange(k, device=xq.device) // (k // qt.scale.shape[0])
+    wabs = q8.abs().double() * qt.scale[rows].double()
+    return 1e-5 * float((xq.abs().double() @ wabs).max())
+
+
 def check_dequant_matmul(timer, gen):
     from repro_torch.core.quant.types import dequantize, quantize
     from repro_torch.kernels import ref
@@ -204,9 +242,9 @@ def check_dequant_matmul(timer, gen):
     # decode M (8 slots) and a prefill M, W4 g128; Mixtral's attention
     # linears (wq/wo 6144 x 6144, wk/wv 6144 x 1024) at a decode M and the
     # M of its 128-token prefills and tweak batches, W4 g128; then bits 2,
-    # 3 and 8, a per-channel case, a group of 16 (smaller than the
-    # kernel's K step, so one scale per element), and TINY's K = 192 and
-    # 576 (per-channel, ragged M)
+    # 3 and 8, a per-channel case, a group of 16 (no whole stage of the
+    # tile: the streaming body at any M), and TINY's K = 192 and 576
+    # (per-channel, ragged M)
     cases = [(m, k, n, 4, 128) for m in (8, 512)
              for k, n in ((2048, 2048), (2048, 512), (2048, 8192),
                           (8192, 2048))]
@@ -216,6 +254,13 @@ def check_dequant_matmul(timer, gen):
               (8, 2048, 2048, 8, 128), (8, 2048, 8192, 4, -1),
               (8, 2048, 2048, 4, 16),
               (40, 192, 576, 4, -1), (40, 576, 192, 3, -1)]
+    # the two bodies across M at 2048 x 8192 (the streaming body up to
+    # STREAM_MAX_M = 96 rows, the tile above), W2, W3 and W8 at a prefill
+    # M, and the tweak's M = 16,384 on the MLP's two shapes
+    cases += [(m, 2048, 8192, 4, 128) for m in (16, 32, 64, 96, 128)]
+    cases += [(512, 2048, 8192, bits, 128) for bits in (2, 3, 8)]
+    cases += [(16384, k, n, 4, 128) for k, n in ((2048, 8192),
+                                                 (8192, 2048))]
     results = []
     for m, k, n, bits, group in cases:
         x = torch.randn((m, k), generator=gen, device="cuda")
@@ -226,17 +271,13 @@ def check_dequant_matmul(timer, gen):
         got = dequant_matmul_cuda(*args, **kw)
         want = ref.dequant_matmul_ref(*args, **kw)
         torch.cuda.synchronize()
-        # kernel and plain version multiply the same bf16-rounded operands
-        # (products exact in f32) and differ only in the order of the f32
-        # sum: allow 4e-5 of the largest sum of |terms|
-        xb = x.to(torch.bfloat16).float()
-        wb = dequantize(qt).to(torch.bfloat16).float()
-        tol = 4e-5 * float((xb.abs() @ wb.abs()).max())
+        tol = dequant_tol(x, qt)
         err = float((got - want).abs().max())
         if not err <= tol:
             raise AssertionError(f"dequant_matmul M={m} K={k} N={n} W{bits} "
                                  f"g{group}: max |err| {err} > {tol}")
-        xbf, wbf = x.to(torch.bfloat16), wb.to(torch.bfloat16)
+        xbf = x.to(torch.bfloat16)
+        wbf = dequantize(qt).to(torch.bfloat16)
         ms = timer(lambda: dequant_matmul_cuda(*args, **kw))
         plain_ms = timer(lambda: ref.dequant_matmul_ref(*args, **kw))
         library_ms = timer(lambda: torch.matmul(xbf, wbf))
@@ -245,7 +286,8 @@ def check_dequant_matmul(timer, gen):
         b_ms, b_by = bound(nbytes, 2.0 * m * k * n, BF16_TENSOR_FLOPS)
         r = dict(shape=[m, k, n], bits=bits, group=group, max_abs_err=err,
                  tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                 bound_ms=b_ms, bound_by=b_by)
+                 bound_ms=b_ms, bound_by=b_by,
+                 plan=dense_plan(m, k, n, bits, qt.scale.shape[0], False))
         print("dequant_matmul", json.dumps(r))
         results.append(r)
     return results
@@ -270,6 +312,11 @@ def check_w8a8_matmul(timer, gen):
     cases += [(8, 2048, 8192, 4, 128), (512, 2048, 8192, 4, 128),
               (8, 2048, 2048, 8, -1), (8, 2048, 2048, 3, -1),
               (5, 2048, 2048, 4, -1)]
+    # the two bodies across M at 2048 x 8192 (the streaming body up to
+    # STREAM_MAX_M = 32 rows, the tile above), and W2, W3 and W8 at a
+    # prefill M
+    cases += [(m, 2048, 8192, 4, -1) for m in (16, 32, 64, 128)]
+    cases += [(512, 2048, 8192, bits, -1) for bits in (2, 3, 8)]
     results = []
     for m, k, n, bits, group in cases:
         x = torch.randn((m, k), generator=gen, device="cuda")
@@ -281,17 +328,17 @@ def check_w8a8_matmul(timer, gen):
         got = w8a8_matmul_cuda(*args, **kw)
         want = ref.w8a8_matmul_ref(*args, **kw)
         torch.cuda.synchronize()
-        # both take each scale group's sum exactly and rescale it alike;
-        # they differ only in the order of the f32 sum over groups and K
-        # splits: allow 1e-5 of the largest sum of |group terms|
-        q8 = unpack(qt.qw, bits, k).to(torch.int8)
-        rows = torch.arange(k, device="cuda") // (k // qt.scale.shape[0])
-        wabs = q8.abs().double() * qt.scale[rows].double()
-        tol = 1e-5 * float((xq.abs().double() @ wabs).max())
+        tol = w8a8_tol(xq, qt)
         err = float((got - want).abs().max())
         if not err <= tol:
             raise AssertionError(f"w8a8_matmul M={m} K={k} N={n} W{bits} "
                                  f"g{group}: max |err| {err} > {tol}")
+        # per-channel: one exact sum over all of K (K splits add in int32)
+        # and one rescale, as the plain version: its bits
+        if group == -1 and not torch.equal(got, want):
+            raise AssertionError(f"w8a8_matmul M={m} K={k} N={n} W{bits} "
+                                 f"per-channel: not the plain version's "
+                                 f"bits (max |err| {err})")
         ms = timer(lambda: w8a8_matmul_cuda(*args, **kw))
         plain_ms = timer(lambda: ref.w8a8_matmul_ref(*args, **kw))
         # yardsticks for per-channel scales (one group: one sum over all of
@@ -304,6 +351,7 @@ def check_w8a8_matmul(timer, gen):
         # group: no single call computes them
         library_ms = int_mm_ms = None
         if group == -1:
+            q8 = unpack(qt.qw, bits, k).to(torch.int8)
             xb, qb = xq.to(torch.bfloat16), q8.to(torch.bfloat16)
             library_ms = timer(lambda: torch.matmul(xb, qb))
             if m > 16 and k % 8 == 0 and n % 8 == 0:
@@ -312,7 +360,8 @@ def check_w8a8_matmul(timer, gen):
         b_ms, b_by = bound(nbytes, 2.0 * m * k * n, INT8_TENSOR_OPS)
         r = dict(shape=[m, k, n], bits=bits, group=group, max_abs_err=err,
                  tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                 int_mm_ms=int_mm_ms, bound_ms=b_ms, bound_by=b_by)
+                 int_mm_ms=int_mm_ms, bound_ms=b_ms, bound_by=b_by,
+                 plan=dense_plan(m, k, n, bits, qt.scale.shape[0], True))
         print("w8a8_matmul", json.dumps(r))
         results.append(r)
     return results
@@ -1161,12 +1210,29 @@ def check_pipeline(cfg, method, params, rec, cpu_layer0=True):
     on Mixtral layer 0: mean 0.0033 lr, 23% of channels more than 1e-3 lr
     apart, 99th percentile 0.012 lr, max 1.93 lr; H100, 700 W). It is
     held to the same moved channels, a mean of 0.05 lr (15 times the
-    measured one) and a 99th percentile of LN2_P99_MOE."""
+    measured one) and a 99th percentile of LN2_P99_MOE.
+
+    On W4A8 the card's tweak is also held against the same tweak on the
+    card with every kernel swapped for its plain version (same inputs):
+    the same moved channels and 1e-3 lr on every channel of ln1 and ln2
+    (measured on Mixtral layer 0: 7.5e-6 and 3.6e-4 lr; H100, 700 W).
+    That is where a kernel fault shows. The card-CPU difference there is
+    the two devices' plain PyTorch: on Mixtral's ln1 the card's plain run
+    moves one channel of 6144 0.031 lr from the CPU's (a near-tie of a
+    token's largest channel, which takes that token's gradient); a
+    W8A8 kernel whose K splits were summed in f32 moved that channel the
+    CPU's way by its rounding alone. So an MoE's ln1 holds every channel
+    to the CPU within 1e-3 lr plus the card's plain run's own distance
+    from the CPU there; a channel more than 1e-3 lr off must be one the
+    plain run also misses by more than 1e-3 lr, and those may be at most
+    LN1_TIES_MOE of the channels. Llama's norms keep every channel
+    within 1e-3 lr of the CPU."""
     from repro_torch.core.normtweak.pipeline import tweak_block
     from repro_torch.core.quant.blockquant import (awq_block, smooth_block,
                                                    tap_key_for)
     from repro_torch.core.quant.gptq import (gptq_quantize,
                                              hessian_from_inputs)
+    from repro_torch.core.quant.deploy import to_device
     from repro_torch.core.quant.rtn import rtn_quantize
     from repro_torch.core.quant.types import (QuantizedTensor, dequantize,
                                               unpack)
@@ -1259,6 +1325,14 @@ def check_pipeline(cfg, method, params, rec, cpu_layer0=True):
     tweaked_cpu, _ = tweak_block(cfg, l0["qbp"], t0rec["qx"], t0rec["fout"],
                                  t0rec["positions"], t0rec["nt"],
                                  t0rec["lr"])
+    if act_bits:
+        # the card's tweak again with every kernel's plain version
+        with plain_kernels():
+            tweaked_plain, _ = tweak_block(
+                cfg, to_device(l0["qbp"], "cuda"), t0rec["qx"].cuda(),
+                t0rec["fout"].cuda(), t0rec["positions"].cuda(),
+                t0rec["nt"], t0rec["lr"])
+        tweaked_plain = to_device(tweaked_plain, "cpu")
     lr = t0rec["lr"]
     norms = {}
     for norm in ("ln1", "ln2"):
@@ -1275,13 +1349,38 @@ def check_pipeline(cfg, method, params, rec, cpu_layer0=True):
             p99_delta_lr=float(torch.quantile(d_card.abs().double(),
                                               0.99)) / lr,
             same_moved=bool(torch.equal(d_card != 0, d_cpu != 0)))
+        if act_bits:
+            d_plain = tweaked_plain[norm]["scale"] - start
+            c.update(
+                kernels_max_err_lr=float((d_card - d_plain).abs().max()) / lr,
+                kernels_same_moved=bool(torch.equal(d_card != 0,
+                                                    d_plain != 0)),
+                plain_cpu_max_err_lr=float((d_plain - d_cpu).abs().max())
+                / lr)
         if not act_bits:
             ok = c["mean_err_lr"] <= 0.5
-        elif moe and norm == "ln2":
-            ok = (c["same_moved"] and c["mean_err_lr"] <= 0.05
-                  and c["p99_err_lr"] <= LN2_P99_MOE)
         else:
-            ok = c["same_moved"] and c["max_err_lr"] <= 1e-3
+            ok = c["kernels_same_moved"] and c["kernels_max_err_lr"] <= 1e-3
+            if moe and norm == "ln2":
+                ok = ok and (c["same_moved"] and c["mean_err_lr"] <= 0.05
+                             and c["p99_err_lr"] <= LN2_P99_MOE)
+            elif moe:
+                # every channel within 1e-3 lr of the CPU, or no further
+                # from it than the card's plain run is, plus 1e-3 lr (a
+                # near-tie both card runs break alike); the channels over
+                # 1e-3 lr are among the plain run's, and those are few
+                gap = (d_plain - d_cpu).abs()
+                over, plain_over = err > 1e-3 * lr, gap > 1e-3 * lr
+                c.update(excess_over_plain_lr=float((err - gap).max()) / lr,
+                         over_1e3_lr=int(over.sum()),
+                         plain_over_1e3_lr=int(plain_over.sum()))
+                ok = ok and (c["same_moved"]
+                             and c["excess_over_plain_lr"] <= 1e-3
+                             and not bool((over & ~plain_over).any())
+                             and c["plain_over_1e3_lr"]
+                             <= LN1_TIES_MOE * err.numel())
+            else:
+                ok = ok and c["same_moved"] and c["max_err_lr"] <= 1e-3
         if not ok:
             raise AssertionError(f"{method} layer 0 {norm}: card and CPU "
                                  f"tweaks differ: {norms[norm]}")

@@ -19,8 +19,8 @@ machine without ``nvcc`` or a card (the CPU tests import them all).
     PYTHONPATH=src python3 -m repro_torch.kernels.build --resource-usage
 
 builds the kernels and prints ptxas's registers, spills and shared memory
-for every kernel (``nvcc -Xptxas -v``), and the dequant matmul's resident
-blocks per SM on the card at hand.
+for every kernel (``nvcc -Xptxas -v``), and the resident blocks per SM of
+both bodies of the dense kernels (1 and 3) on the card at hand.
 """
 from __future__ import annotations
 
@@ -111,48 +111,57 @@ def check(name: str, code: int) -> None:
 
 def resource_usage(names=SOURCES) -> str:
     """ptxas's report (registers, spills, shared memory) for every kernel in
-    ``names``, from a compile with ``-Xptxas -v`` into a throwaway file."""
+    ``names``, from compiles with ``-Xptxas -v`` into throwaway files, all
+    started together."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lines = []
+    procs = []
     for name in names:
         tmp = BUILD_DIR / f"ptxas-{name}.{os.getpid()}.tmp"
-        proc = subprocess.run(
+        procs.append((name, tmp, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-             str(SRC_DIR / f"{name}.cu")], capture_output=True, text=True)
+             str(SRC_DIR / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    lines = []
+    for name, tmp, proc in procs:
+        _, err = proc.communicate()
         tmp.unlink(missing_ok=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed for {name}:\n{err}")
         # "ptxas info" lines, and the stack-frame and spill line that
         # follows each function's properties
-        lines += [f"{name}: {ln.strip()}" for ln in proc.stderr.splitlines()
+        lines += [f"{name}: {ln.strip()}" for ln in err.splitlines()
                   if "ptxas info" in ln or "spill" in ln]
     return "\n".join(lines)
 
 
-def dequant_matmul_blocks_per_sm(bits: int) -> int:
-    """Resident blocks of the dequant-matmul kernel per SM on the current
-    card (CUDA's occupancy calculator over its registers and shared
+def blocks_per_sm(name: str, body: int, bits: int) -> int:
+    """Resident blocks per SM on the current card of dense kernel ``name``
+    ("dequant_matmul" or "w8a8_matmul"), body 0 (streaming, 8 token rows
+    a block) or 1 (the prefill tile), at ``bits`` with the scales of the
+    model paths (CUDA's occupancy calculator over registers and shared
     memory)."""
     blocks = ctypes.c_int(0)
-    fn = load("dequant_matmul").dequant_matmul_blocks_per_sm
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn = getattr(load(name), f"{name}_blocks_per_sm")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    check("dequant_matmul", fn(bits, ctypes.byref(blocks)))
+    check(name, fn(body, bits, ctypes.byref(blocks)))
     return blocks.value
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--resource-usage", action="store_true",
-                    help="print ptxas's report and the dequant matmul's "
+                    help="print ptxas's report and the dense kernels' "
                          "resident blocks per SM")
     args = ap.parse_args()
     print("compiled:", ", ".join(build()) or "none, cached")
     if args.resource_usage:
         print(resource_usage())
-        for bits in (2, 3, 4, 8):
-            print(f"dequant_matmul W{bits}: "
-                  f"{dequant_matmul_blocks_per_sm(bits)} blocks per SM")
+        for name in ("dequant_matmul", "w8a8_matmul"):
+            for body, label in ((0, "stream"), (1, "tile")):
+                for bits in (2, 3, 4, 8):
+                    print(f"{name} {label} W{bits}: "
+                          f"{blocks_per_sm(name, body, bits)} blocks per SM")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,13 @@
 // The weight-streaming body shared by the two expert-batched kernels for
 // Hopper (sm_90a): expert_dequant_matmul.cu (bf16 products, kernel 4) and
-// expert_w8a8_matmul.cu (int8 products, kernel 5). Each computes, for E
+// expert_w8a8_matmul.cu (int8 products, kernel 5), whose kernel templates
+// are stream_dequant.cuh and stream_w8a8.cuh. Each computes, for E
 // experts at once, an (E, C, K) capacity buffer times an (E, K, N) packed
 // low-bit weight stack, the weight read in the K-packed offset-binary
-// layout of core/quant/types.py (packing.cuh).
+// layout of core/quant/types.py (packing.cuh). The dense kernels 1 and 3
+// (dequant_matmul.cu, w8a8_matmul.cu) run the same templates at decode
+// (M up to kernels/dequant_matmul.py's STREAM_MAX_M rows) as one expert,
+// E = 1, with their own K splits.
 //
 // What bounds them. At decode an expert's capacity is C = 8 rows, so the
 // product does 2*C = 16 operations per weight value: reading the packed
@@ -154,7 +158,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // of a row, are zeros. `aligned`: src and src_pitch are multiples of 16,
 // so each 16 bytes go by one cp.async (zero-filled past its source size);
 // else byte loads and a 16-byte store (ragged N or K: slow, right).
-template <int WIDTH>
+// NTHREADS: the block's threads, which share the copies.
+template <int WIDTH, int NTHREADS = THREADS>
 __device__ __forceinline__ void copy_rows(uint8_t* dst, int dst_pitch,
                                           const uint8_t* src,
                                           size_t src_pitch, int rows,
@@ -163,7 +168,7 @@ __device__ __forceinline__ void copy_rows(uint8_t* dst, int dst_pitch,
                                           bool aligned) {
   constexpr int CH = WIDTH / 16;
   static_assert(WIDTH % 16 == 0, "whole 16-byte copies");
-  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
+  for (int i = threadIdx.x; i < rows * CH; i += NTHREADS) {
     const int r = i / CH, c = (i % CH) * 16;
     const long long left = r < valid_rows ? valid_bytes - c : 0;
     const int nb = left <= 0 ? 0 : left >= 16 ? 16 : (int)left;

@@ -1,8 +1,8 @@
-// The second pass of split-K, shared by the matmul kernels
-// (dequant_matmul.cuh, w8a8_matmul.cuh): when the output tiles alone
-// cannot fill the card, K is cut across blocks, each writing an f32
-// partial, and this sums them in split order, so the result does not
-// depend on block timing.
+// The second pass of split-K, shared by the matmul kernels (prefill_tile.cuh
+// and the streaming kernels of stream_dequant.cuh and stream_w8a8.cuh):
+// when the output tiles alone cannot fill the card, K is cut across
+// blocks, each writing a partial, and this sums them in split order, so
+// the result does not depend on block timing.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,6 +29,33 @@ inline void sum_splits(const float* partial, float* out, size_t mn,
   const size_t total = (size_t)experts * mn;
   sum_splits_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
       partial, out, mn, splits, total);
+}
+
+// The second pass of a per-channel int8 launch split over K: out[e, c, n]
+// = f32(sum over splits, in int32, of partial[e, z, c, n]) * scale[e, 0,
+// n], for the (E, splits, C, N) partials holding exact int32 sums in
+// their bits; total = E * C * N. The f32 conversion and one multiply are
+// the plain version's, so the result is its bits however K was split.
+__global__ void sum_int_splits_kernel(const int* __restrict__ partial,
+                                      const float* __restrict__ scale,
+                                      float* __restrict__ out, int C, int N,
+                                      int splits, size_t total) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const size_t cn = (size_t)C * N, e = i / cn, r = i % cn;
+  const int* p = partial + e * splits * cn + r;
+  unsigned s = 0;  // wraps as the tensor cores' sums do
+  for (int z = 0; z < splits; ++z) s += (unsigned)p[(size_t)z * cn];
+  out[i] = (float)(int)s * scale[e * N + r % N];
+}
+
+inline void sum_int_splits(const float* partial, const float* scale,
+                           float* out, int C, int N, int splits, int experts,
+                           cudaStream_t st) {
+  const size_t total = (size_t)experts * C * N;
+  sum_int_splits_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      reinterpret_cast<const int*>(partial), scale, out, C, N, splits,
+      total);
 }
 
 }  // namespace split_k

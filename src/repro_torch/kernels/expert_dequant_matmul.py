@@ -25,24 +25,21 @@ import torch
 
 from repro_torch.core.quant.types import qmax_for_bits
 from repro_torch.kernels import build
-from repro_torch.kernels.dequant_matmul import check_operands
+from repro_torch.kernels.packed_operands import (MAX_GRID_Z, MAX_SMEM, SMS,
+                                                 check_operands)
 
 launches = 0
 
 # the kernels' geometry (csrc/expert_stream.cuh): a block's strip of
-# output columns, the K rows of a ring stage, the ring's stages, the
-# padding of a staged packed row per bit width, shared memory a block may
-# take, and the grid's z limit
+# output columns, the K rows of a ring stage, the ring's stages and the
+# padding of a staged packed row per bit width
 STRIP = 256
 STAGE_K = 128
 STAGES = 3
 ROW_PAD = {2: 32, 3: 32, 4: 16, 8: 16}
-MAX_SMEM = 232448
-MAX_GRID_Z = 65535
 # blocks that give each of the H100's 132 SMs about 8 (three are
 # resident at a time at decode): K is split until the grid holds this
 # many, so the last wave of blocks is a small part of the launch
-SMS = 132
 TARGET_BLOCKS = 8 * SMS
 # a split walks at least this many stages (the ring's fill is amortized)
 MIN_STAGES_PER_SPLIT = 4
@@ -93,14 +90,16 @@ def stage_bytes(bits: int, nt: int, x_bytes: int, srows: int) -> int:
 
 
 def plan(e: int, c: int, k: int, n: int, bits: int, groups: int, *,
-         x_bytes: int) -> ExpertPlan:
+         x_bytes: int, target_blocks: int = TARGET_BLOCKS,
+         min_stages: int = MIN_STAGES_PER_SPLIT) -> ExpertPlan:
     """Cut the expert product into blocks. The capacity tile is the fewest
     n8 tiles of CAPACITY_TILES that hold C, else the largest whose ring fits
     shared memory (C then takes several chunks). K is split, in whole
     stages (and, for the W8A8 kernel's grouped scales, whole groups), only
-    while the strips, chunks and experts give fewer than TARGET_BLOCKS
-    blocks, each split walking at least MIN_STAGES_PER_SPLIT stages; no
-    split is empty."""
+    while the strips, chunks and experts give fewer than ``target_blocks``
+    blocks, each split walking at least ``min_stages`` stages; no split is
+    empty. (The dense kernels' decode body plans as one expert with its
+    own two numbers: ``kernels/dequant_matmul.py::plan_stream``.)"""
     # the W8A8 kernel reads per-channel scales once, not through the ring
     srows = 0 if x_bytes == 1 and groups == 1 else scale_rows(k, groups)
     fitting = [t for t in CAPACITY_TILES
@@ -113,8 +112,8 @@ def plan(e: int, c: int, k: int, n: int, bits: int, groups: int, *,
         unit = math.lcm(STAGE_K, k // groups)
     units = -(-k // unit)
     tiles = e * chunks * strips
-    splits = max(1, min(-(-TARGET_BLOCKS // tiles),
-                        units * unit // (STAGE_K * MIN_STAGES_PER_SPLIT),
+    splits = max(1, min(-(-target_blocks // tiles),
+                        units * unit // (STAGE_K * min_stages),
                         MAX_GRID_Z // e))
     per = -(-units // splits)
     return ExpertPlan(nt=nt, chunks=chunks, strips=strips,

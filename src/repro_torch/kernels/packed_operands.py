@@ -1,0 +1,53 @@
+"""What the four packed-matmul kernels share: the operand check of their
+wrappers and the card's limits their planners cut work to.
+
+The dense kernels (1 and 3, ``kernels/dequant_matmul.py``) and the expert
+kernels (4 and 5, ``kernels/expert_dequant_matmul.py``) import both from
+here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quant.types import packed_rows
+
+# the H100's SMs, the shared memory a block may take (bytes) and the
+# grid's z limit (csrc/expert_stream.cuh, csrc/prefill_tile.cuh)
+SMS = 132
+MAX_SMEM = 232448
+MAX_GRID_Z = 65535
+
+
+def check_operands(name: str, x: torch.Tensor, x_dtype: torch.dtype,
+                   qw: torch.Tensor, scale: torch.Tensor, *, bits: int,
+                   group_size: int, k: int, experts: bool) -> None:
+    """Raise ValueError on operands the packed-matmul kernels do not take:
+    x (M, K) of ``x_dtype``, qw (packed_rows(K), N) uint8 and scale (G, N)
+    f32 on x's card, contiguous; with ``experts`` each with a leading
+    expert dim E (x the (E, C, K) capacity buffer)."""
+    lead = 1 if experts else 0
+    e = (x.shape[0],) if experts and x.ndim == 3 else ()
+    n = qw.shape[-1]
+    want_g = 1 if group_size == -1 else k // group_size
+    if not x.is_cuda:
+        raise ValueError(f"{name}: x must be a CUDA tensor")
+    if bits not in (2, 3, 4, 8):
+        raise ValueError(f"{name}: bits={bits} not in (2, 3, 4, 8)")
+    if not (x.dtype == x_dtype and x.ndim == 2 + lead and x.shape[-1] == k
+            and qw.dtype == torch.uint8
+            and tuple(qw.shape) == e + (packed_rows(k, bits), n)
+            and scale.dtype == torch.float32
+            and tuple(scale.shape) == e + (want_g, n)
+            and (group_size == -1 or k % group_size == 0)):
+        lead_s = "E, " if experts else ""
+        raise ValueError(
+            f"{name}: want x ({lead_s}{'C' if experts else 'M'}, {k}) "
+            f"{x_dtype}, qw ({lead_s}{packed_rows(k, bits)}, N) uint8, "
+            f"scale ({lead_s}{want_g}, N) f32 for group_size={group_size}; "
+            f"got {tuple(x.shape)} {x.dtype}, {tuple(qw.shape)} {qw.dtype}, "
+            f"{tuple(scale.shape)} {scale.dtype}")
+    if not (qw.device == x.device and scale.device == x.device):
+        raise ValueError(f"{name}: x, qw and scale must be on one device")
+    if not (x.is_contiguous() and qw.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous")

@@ -157,6 +157,93 @@ def test_w8a8_matmul_kernel_matches_plain(gen, m, k, n, bits, group):
     assert float((got - want).abs().max()) <= 1e-5 * bound
 
 
+# kernels 1 and 3 across M: the decode body (streaming, M up to the
+# kernel's STREAM_MAX_M, 96 or 32, in one to three chunks), each
+# threshold and both sides of it, the prefill tile with and without K splits, and beyond one
+# tile's rows; per-channel
+# scales on a K that is no whole number of either body's stages (and, for
+# int8 x, not 16-byte rows), groups of 16 rows (the streaming body at any
+# M) and 128 rows (one a ring stage of either body); N = 272 is no whole
+# number of the tile's 128 columns nor the strip's 256
+DENSE_MS = [1, 5, 8, 16, 17, 32, 33, 64, 65, 96, 97, 128, 512, 2048]
+DENSE_QUANTS = [(-1, 200), (16, 384), (128, 384)]
+
+
+def _dense_case(gen, m, k, n, bits, group, act_bits=0):
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    return x, quantize(w, bits, group, act_bits=act_bits)
+
+
+@pytest.mark.parametrize("group,k", DENSE_QUANTS)
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("m", DENSE_MS)
+def test_dequant_matmul_bodies_match_plain(gen, m, bits, group, k):
+    x, qt = _dense_case(gen, m, k, 272, bits, group)
+    kw = dict(bits=bits, group_size=group, k=k)
+    got = dequant_matmul_cuda(x, qt.qw, qt.scale, **kw)
+    want = ref.dequant_matmul_ref(x, qt.qw, qt.scale, **kw)
+    bound = (x.to(torch.bfloat16).float().abs()
+             @ dequantize(qt).to(torch.bfloat16).float().abs()).max()
+    assert float((got - want).abs().max()) <= 4e-5 * float(bound)
+
+
+@pytest.mark.parametrize("group,k", DENSE_QUANTS)
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("m", DENSE_MS)
+def test_w8a8_matmul_bodies_match_plain(gen, m, bits, group, k):
+    """Per-channel scales: the plain version's bits (one exact int32 sum
+    over all of K, K splits added in int32, one rescale); grouped: 1e-5 of
+    the largest sum of |group terms|."""
+    from repro_torch.core.quant.types import quantize_activation, unpack
+    from repro_torch.kernels.w8a8_matmul import w8a8_matmul_cuda
+
+    x, qt = _dense_case(gen, m, k, 272, bits, group, act_bits=8)
+    xq, _ = quantize_activation(x)
+    kw = dict(bits=bits, group_size=group, k=k)
+    got = w8a8_matmul_cuda(xq, qt.qw, qt.scale, **kw)
+    want = ref.w8a8_matmul_ref(xq, qt.qw, qt.scale, **kw)
+    if group == -1:
+        assert torch.equal(got, want)
+    else:
+        rows = torch.arange(k, device="cuda") // group
+        wabs = (unpack(qt.qw, bits, k).abs().double()
+                * qt.scale[rows].double())
+        bound = float((xq.double().abs() @ wabs).max())
+        assert float((got - want).abs().max()) <= 1e-5 * bound
+
+
+# llama's 2048 x 2048 at a decode M (the streaming body, K split), an M
+# whose tiles are few (the tile body, K split) and one whose 16 x 8 tiles
+# nearly fill the card (no split)
+@pytest.mark.parametrize("m", [8, 128, 2048])
+@pytest.mark.parametrize("group", [-1, 128])
+def test_dense_kernels_are_deterministic(gen, m, group):
+    """Two launches of each dense kernel on the same inputs give the same
+    bits (split-K partials summed in split order, no float atomics), one
+    launch counted each; W8A8 per-channel gives the plain version's bits."""
+    from repro_torch.core.quant.types import quantize_activation
+    from repro_torch.kernels.dequant_matmul import plan
+    from repro_torch.kernels.w8a8_matmul import w8a8_matmul_cuda
+
+    k = n = 2048
+    groups = 1 if group == -1 else k // group
+    assert (plan(m, k, n, 4, groups, int8=False).splits > 1) == (m < 2048)
+    x, qt = _dense_case(gen, m, k, n, 4, group, act_bits=8)
+    xq, _ = quantize_activation(x)
+    kw = dict(bits=4, group_size=group, k=k)
+    for name, fn, arg in (("dequant_matmul", dequant_matmul_cuda, x),
+                          ("w8a8_matmul", w8a8_matmul_cuda, xq)):
+        before = ops.launch_counts()[name]
+        first = fn(arg, qt.qw, qt.scale, **kw)
+        second = fn(arg, qt.qw, qt.scale, **kw)
+        assert ops.launch_counts()[name] == before + 2
+        assert torch.equal(first, second)
+    if group == -1:
+        assert torch.equal(second, ref.w8a8_matmul_ref(xq, qt.qw, qt.scale,
+                                                       **kw))
+
+
 def test_w8a8_matmul_refuses_what_it_cannot_take(gen):
     from repro_torch.kernels.w8a8_matmul import w8a8_matmul_cuda
 

@@ -16,8 +16,9 @@ from repro.kernels.paged_harness import build_paged_case, build_verify_case
 from repro_torch.core.quant import types as tt
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.channel_stats import channel_stats_cuda
-from repro_torch.kernels.dequant_matmul import (TILE_K, dequant_matmul_cuda,
-                                                plan_splits)
+from repro_torch.kernels.dequant_matmul import (STREAM, TILE_K,
+                                                dequant_matmul_cuda, plan)
+from repro_torch.kernels.expert_dequant_matmul import STAGE_K
 from repro_torch.kernels.expert_dequant_matmul import (
     expert_dequant_matmul_cuda)
 from repro_torch.kernels.expert_w8a8_matmul import expert_w8a8_matmul_cuda
@@ -208,11 +209,12 @@ def test_paged_ref_matches_dequant_gather_oracle():
                                    (40, 576, 192), (1, 64, 160), (8, 100, 8),
                                    (2048, 8192, 2048)])
 def test_split_plan_covers_k(m, k, n):
-    """The K split the wrapper hands the kernel: whole K steps, no empty
-    split, all of K covered, and splits only where the output tiles are
-    too few to fill the card."""
-    splits, per = plan_splits(m, k, n)
-    assert splits >= 1 and per % TILE_K == 0
-    assert (splits - 1) * per < k <= splits * per
+    """The K split the wrapper hands the kernel: whole ring stages of the
+    body the planner picks, no empty split, all of K covered, and splits
+    only where the output tiles are too few to fill the card."""
+    p = plan(m, k, n, 4, 1, int8=False)
+    step = STAGE_K if p.body == STREAM else TILE_K
+    assert p.splits >= 1 and p.k_per_split % step == 0
+    assert (p.splits - 1) * p.k_per_split < k <= p.splits * p.k_per_split
     if m >= 512 and n >= 8192:
-        assert splits == 1
+        assert p.splits == 1

@@ -140,15 +140,22 @@ def test_act_bits_survives_indexing_moving_and_stacking():
     (8, 2048, 512, 64), (5, 576, 192, 32), (512, 2048, 8192, 128),
     (1, 192, 192, -1)])
 def test_w8a8_split_plan_cuts_whole_groups(m, k, n, group):
-    """The K split the W8A8 wrapper hands its kernel (``plan_splits`` with
-    the group's rows): whole K steps and, for grouped scales, whole scale
-    groups, no empty split, all of K covered; per-channel scales plan as
-    the dequant matmul does."""
-    from repro_torch.kernels.dequant_matmul import TILE_K, plan_splits
+    """The K split the W8A8 wrapper hands its kernel (the dense planner,
+    ``plan`` with the scale groups): whole ring stages of the body it
+    picks and, for grouped scales, whole scale groups, no empty split, all
+    of K covered; per-channel scales (whose split sums add in int32) plan
+    as the dequant matmul does."""
+    from repro_torch.kernels.dequant_matmul import STREAM, TILE_K, plan
+    from repro_torch.kernels.expert_dequant_matmul import STAGE_K
 
-    rows = k if group == -1 else group
-    splits, per = plan_splits(m, k, n, rows)
-    assert splits >= 1 and per % TILE_K == 0 and per % min(rows, k) == 0
-    assert (splits - 1) * per < k <= splits * per
+    groups = 1 if group == -1 else k // group
+    p = plan(m, k, n, 4, groups, int8=True)
+    step = STAGE_K if p.body == STREAM else TILE_K
+    assert p.splits >= 1 and p.k_per_split % step == 0
+    if group != -1:
+        assert p.k_per_split % group == 0
+    assert (p.splits - 1) * p.k_per_split < k <= p.splits * p.k_per_split
     if group == -1:
-        assert (splits, per) == plan_splits(m, k, n)
+        q = plan(m, k, n, 4, 1, int8=False)
+        assert (p.body, p.splits, p.k_per_split) == (q.body, q.splits,
+                                                      q.k_per_split)
