@@ -674,7 +674,8 @@ def _check_paged_case(timer, gen, s, kvh, g, hd, ps, w, window, fills,
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     plan_paged)
 
     (kp, vp, ks, vs), bt, kl = _paged_case(gen, s, w, ps, kvh, g, hd, fills,
                                            quant)
@@ -691,6 +692,10 @@ def _check_paged_case(timer, gen, s, kvh, g, hd, ps, w, window, fills,
     if not err <= tol or not torch.all(got[0] == 0):
         raise AssertionError(f"paged_attention hd={hd} G={g} window={window} "
                              f"m_rows={m_rows} int8={quant}: max |err| {err}")
+    # the split walk's partials merge in rank order, never by atomics
+    if not torch.equal(paged_attention_cuda(*args, **kw), got):
+        raise AssertionError("paged_attention: two calls differ")
+    n_split = plan_paged(s, kvh, w, ps, m_rows * g, hd, hd, quant)
     # yardstick: SDPA over the gathered (dequantized) pages with a boolean
     # mask of the same per-row causal (and window) limits
     idx = bt.long().clamp_min(0)
@@ -728,7 +733,7 @@ def _check_paged_case(timer, gen, s, kvh, g, hd, ps, w, window, fills,
     flops = live_rows * kvh * 2 * (hd + hd)
     b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
     return dict(hd=hd, group=g, window=window, m_rows=m_rows, int8=quant,
-                fills=fills, max_abs_err=err, tol=tol, ms=ms,
+                fills=fills, n_split=n_split, max_abs_err=err, tol=tol, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=b_by)
 

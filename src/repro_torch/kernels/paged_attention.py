@@ -2,9 +2,14 @@
 (``csrc/paged_attention.cu``).
 
 Replaces the TPU kernel ``paged_attention_pallas``
-(src/repro/kernels/paged_attention.py). The source's header says what
-bounds it on the H100 and what the design does about it; its plain
-version is ``kernels/ref.py::paged_attention_ref``.
+(src/repro/kernels/paged_attention.py). A launch is one thread-block
+cluster per (slot, kv head, chunk of up to 8 query rows): its ``n_split``
+blocks split the slot's live pages and merge their partial softmaxes in
+rank order through distributed shared memory. ``plan_paged`` picks
+``n_split`` from host-known shapes; ``geometry`` mirrors the source's
+shared-memory layout. The source's header says what bounds it on the
+H100 and what the design does about it; its plain version is
+``kernels/ref.py::paged_attention_ref``.
 
 ``launches`` counts the kernel's launches in this process (reset it by
 assigning 0); nothing but the launch below adds to it.
@@ -13,16 +18,80 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.packed_operands import MAX_SMEM, SMS
 
 launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float]
-             + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+# the source's geometry (csrc/paged_attention.cu): threads a block (4
+# warps, each taking 8 tokens of a tile), tokens a tile, tiles in the
+# ring, the cluster's largest size, the widest value row a lane's 4
+# columns cover, the merges' scratch (f32 a row)
+THREADS = 128
+WARPS = 4
+TILE_TOKENS = 32
+STAGES = 3
+MAX_SPLIT = 8
+MAX_HDV = 128
+RED = 3 * WARPS + 3 + MAX_SPLIT
+# the planner: about 3 blocks an SM over the launch, and at least 64
+# tokens of table (2 tiles) a split (tools/paged_sweep.py on the H100)
+TARGET_BLOCKS = 3 * SMS
+MIN_SPLIT_TOKENS = 64
+
+
+class Geometry(NamedTuple):
+    smem: int       # dynamic shared memory, bytes
+    rc: int         # rows a block (2, 4, 6 or 8)
+    chunks: int     # row chunks (the grid's z)
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def geometry(rows: int, hd: int, hd_v: int, w: int,
+             quant: bool) -> Geometry:
+    """The source's ``geometry``: shared memory and row chunks of a launch
+    (ring of STAGES tiles, q, the warps' probabilities, the merges'
+    scratch, the token tables, the block-table row)."""
+    es = 1 if quant else 4
+    u0 = hd * es // 16
+    ksb = 16 * (u0 + (12 - u0 % 8) % 8)
+    vsb = hd_v * es
+    stage = TILE_TOKENS * (ksb + vsb) + (2 * TILE_TOKENS * 4 if quant
+                                         else 0)
+    rc = 2 if rows <= 2 else 4 if rows <= 4 else 6 if rows <= 6 else 8
+    ring = STAGES * stage
+    part = WARPS * rc * hd_v * 4
+    smem = (_align16(max(ring, part)) + _align16(rc * hd * 4)
+            + TILE_TOKENS * -(-rc // 4) * 4 * 4 + _align16(RED * rc * 4)
+            + (STAGES + 1) * TILE_TOKENS * 4 + _align16(4 * w))
+    return Geometry(smem, rc, -(-rows // rc))
+
+
+def plan_paged(s: int, kvh: int, w: int, page_size: int, rows: int,
+               hd: int, hd_v: int, quant: bool) -> int:
+    """Blocks a (slot, kv head, row chunk)'s walk is split over (the
+    cluster size): about TARGET_BLOCKS over the launch, at least
+    MIN_SPLIT_TOKENS of table a split (a short table stays at 1-2), at
+    most MAX_SPLIT. Reads no fill count: only shapes the host knows.
+    Raises ValueError on a shape the kernel does not take."""
+    geo = geometry(rows, hd, hd_v, w, quant)
+    if geo.smem > MAX_SMEM or hd_v > MAX_HDV:
+        raise ValueError(
+            f"paged_attention: hd {hd}/{hd_v} with a {w}-page table needs "
+            f"{geo.smem} bytes of shared memory and hd_v <= {MAX_HDV} (at "
+            f"most {MAX_SMEM} bytes)")
+    n = -(-TARGET_BLOCKS // max(1, s * kvh * geo.chunks))
+    return max(1, min(n, MAX_SPLIT, w * page_size // MIN_SPLIT_TOKENS))
 
 
 def _lib():
@@ -44,7 +113,8 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     """q (S, KVH, m_rows*G, hd) f32 m-major; pools (P, page, KVH, hd[_v])
     f32, or int8 with (P, page, KVH) f32 scale pools; block_table (S, W)
     int32; kv_len (S,) int32 -> (S, KVH, m_rows*G, hd_v) f32, on the card.
-    Raises on anything the kernel does not take."""
+    One launch: a cluster of ``plan_paged``'s n_split blocks per (slot, kv
+    head, row chunk). Raises on anything the kernel does not take."""
     global launches
     quant = k_scale_pool is not None
     if not q.is_cuda:
@@ -93,18 +163,37 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                          "device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention: operands must be contiguous")
+    mult = 16 if quant else 4
+    if hd % mult or hd_v % mult:
+        raise ValueError(f"paged_attention: hd {hd} and hd_v {hd_v} must "
+                         f"be multiples of {mult} with {pool_dtype} pools")
+    if (k_pool.data_ptr() | v_pool.data_ptr()) % 16:
+        raise ValueError("paged_attention: pools must start on 16 bytes")
     out = torch.empty((s, kvh, rows, hd_v), dtype=torch.float32,
                       device=q.device)
     if s == 0:
         return out
+    w = block_table.shape[1]
+    n_split = plan_paged(s, kvh, w, page_size, rows, hd, hd_v, quant)
+    _launch(q, k_pool, v_pool, block_table, kv_len, k_scale_pool,
+            v_scale_pool, out, window, m_rows, n_split)
+    launches += 1
+    return out
+
+
+def _launch(q, k_pool, v_pool, block_table, kv_len, k_scale_pool,
+            v_scale_pool, out, window, m_rows, n_split) -> None:
+    """One launch at a given split, on operands the wrapper checked
+    (``tools/paged_sweep.py`` times splits other than the plan's)."""
+    s, kvh, rows, hd = q.shape
+    quant = k_scale_pool is not None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = _lib()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                   k_scale_pool.data_ptr() if quant else None,
                   v_scale_pool.data_ptr() if quant else None,
                   block_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-                  s, kvh, rows, hd, hd_v, page_size, block_table.shape[1],
-                  m_rows, -1 if window is None else int(window),
-                  1.0 / math.sqrt(hd), int(quant), stream)
+                  s, kvh, rows, hd, v_pool.shape[-1], k_pool.shape[1],
+                  block_table.shape[1], m_rows,
+                  -1 if window is None else int(window),
+                  1.0 / math.sqrt(hd), int(quant), n_split, stream)
     build.check("paged_attention", code)
-    launches += 1
-    return out

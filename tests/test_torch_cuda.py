@@ -84,6 +84,54 @@ def test_paged_attention_kernel_matches_plain(gen, m_rows, quant, window,
     assert torch.all(got[0] == 0)                 # empty slot: exact zeros
 
 
+# (S, KVH, page, W, G, hd, fills, window, m_rows, n_split): Mixtral's hd
+# 128 and GQA 6 over a 1000-token window with enough pages that the
+# planner takes the full cluster of 8; llama's hd 64 at 4 splits with
+# slots of 1-3 live pages (splits with no live page), at m_rows 1 and 4
+SPLIT_CASES = [(4, 2, 16, 72, 6, 128, [0, 100, 1000, 1152], 1000, 1, 8),
+               (6, 2, 16, 16, 4, 64, [0, 1, 17, 40, 200, 256], None, 1, 4),
+               (6, 2, 16, 16, 4, 64, [0, 4, 17, 40, 200, 256], None, 4, 4)]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_paged_attention_split_walk_matches_plain(gen, case, quant):
+    """The walk split over a cluster and merged in rank order: the plain
+    version's result, exact zeros for the empty slot, and the same bits
+    from a second call."""
+    from repro_torch.kernels.paged_attention import plan_paged
+
+    s, kvh, ps, w, g, hd, fills, window, m_rows, n_split = case
+    assert plan_paged(s, kvh, w, ps, m_rows * g, hd, hd, quant) == n_split
+    n_pages = 1 + s * w
+    perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+            + 1).cpu()
+    bt = torch.full((s, w), -1, dtype=torch.int32)
+    nxt = 0
+    for si, f in enumerate(fills):
+        need = -(-f // ps)
+        bt[si, :need] = perm[nxt:nxt + need].to(torch.int32)
+        nxt += need
+    kf = torch.randn((n_pages, ps, kvh, hd), generator=gen, device="cuda")
+    vf = torch.randn((n_pages, ps, kvh, hd), generator=gen, device="cuda")
+    ks = vs = None
+    if quant:
+        ks = kf.abs().amax(-1) / 127.0
+        vs = vf.abs().amax(-1) / 127.0
+        kf = torch.round(kf / ks[..., None]).to(torch.int8)
+        vf = torch.round(vf / vs[..., None]).to(torch.int8)
+    q = torch.randn((s, kvh, m_rows * g, hd), generator=gen, device="cuda")
+    args = (q, kf, vf, bt.cuda(), torch.tensor(fills, dtype=torch.int32,
+                                              device="cuda"), ks, vs)
+    got = paged_attention_cuda(*args, window=window, m_rows=m_rows)
+    want = ref.paged_attention_ref(*args, window=window, m_rows=m_rows)
+    # f32 on both sides, rounding in another order only
+    assert float((got - want).abs().max()) <= 1e-4
+    assert torch.all(got[0] == 0)                 # empty slot: exact zeros
+    again = paged_attention_cuda(*args, window=window, m_rows=m_rows)
+    assert torch.equal(got, again)                # a fixed merge order
+
+
 def test_engine_serves_through_the_kernels(gen):
     """SMOKE-size serving on the card launches both kernels, and its greedy
     tokens agree with the CPU engine (plain versions) wherever the CPU
