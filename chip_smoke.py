@@ -157,26 +157,33 @@ class Timer:
     each run (on the serving path every weight and page is read cold). The
     flush writes 256 MiB (~80 us on an H100), long enough that the host has
     enqueued the timed call before the device reaches the start event, so
-    host launch overhead stays out of the reading."""
+    host launch overhead stays out of the reading. ``flush=False`` times
+    the runs back to back with nothing flushed."""
 
-    def __init__(self, iters: int = 20):
+    def __init__(self, iters: int = 20, flush: bool = True):
         self.iters = iters
-        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        self.flush = (torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+                      if flush else None)
 
-    def __call__(self, fn) -> float:
+    def runs(self, fn) -> list[float]:
+        """Device ms of each of ``iters`` runs, after 3 warm-up runs."""
         for _ in range(3):
             fn()
-        total = 0.0
+        times = []
         for _ in range(self.iters):
-            self.flush.zero_()
+            if self.flush is not None:
+                self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
             end.record()
             end.synchronize()
-            total += start.elapsed_time(end)
-        return total / self.iters
+            times.append(start.elapsed_time(end))
+        return times
+
+    def __call__(self, fn) -> float:
+        return sum(self.runs(fn)) / self.iters
 
 
 def sync(device) -> None:
@@ -508,11 +515,14 @@ def check_expert_w8a8_matmul(timer, gen):
 def check_quantize_pack(timer, gen):
     from repro_torch.core.quant.types import compute_scales
     from repro_torch.kernels import ref
-    from repro_torch.kernels.quantize_pack import quantize_pack_cuda
+    from repro_torch.kernels.quantize_pack import (plan_pack,
+                                                   quantize_pack_cuda,
+                                                   vector_ok)
 
     # (shape, bits, group, dtype): bits {2, 3, 4, 8} x group {-1, 32, 64,
     # 128} on a 2048 x 2048 weight; a group of 3, K = 2050 (not a multiple
-    # of a packed group at W2 and W3), bf16 weights; llama3.2-1b's MLP
+    # of a packed group at W2 and W3), N = 2050 (not a multiple of the
+    # 4-column vector: the scalar path), bf16 weights; llama3.2-1b's MLP
     # stack (16 layers of 2048 x 8192, what serve_w4's deploy packs in one
     # launch: the main case) and one Mixtral layer's expert stack (8 x
     # 6144 x 16384)
@@ -521,6 +531,7 @@ def check_quantize_pack(timer, gen):
     cases += [((768, 512), 4, 3, torch.float32),
               ((2050, 512), 3, -1, torch.float32),
               ((2050, 512), 2, -1, torch.float32),
+              ((2048, 2050), 4, 128, torch.float32),
               ((2048, 8192), 4, 128, torch.bfloat16),
               ((16, 2048, 8192), 4, 128, torch.float32),
               ((MOE_E, MOE_D, MOE_FF), 4, 128, torch.float32)]
@@ -531,6 +542,9 @@ def check_quantize_pack(timer, gen):
         scale = compute_scales(w.float(), bits, group)
         got = quantize_pack_cuda(w, scale, bits=bits)
         want = ref.quantize_pack_ref(w, scale, bits=bits)
+        b = math.prod(shape[:-2])
+        plan = dict(plan_pack(b, *shape[-2:], bits)
+                    ._asdict(), vec=vector_ok(shape[-1], w, scale, got))
         torch.cuda.synchronize()
         # exact: the same IEEE f32 quotient, rounding and packing
         diff = int((got != want).sum())
@@ -546,7 +560,7 @@ def check_quantize_pack(timer, gen):
         r = dict(shape=list(shape), bits=bits, group=group,
                  dtype=str(dtype).split(".")[-1], bytes_differing=diff,
                  max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                 bound_ms=b_ms, bound_by=b_by)
+                 bound_ms=b_ms, bound_by=b_by, plan=plan)
         print("quantize_pack", json.dumps(r))
         results.append(r)
         del w, scale, got, want
@@ -555,16 +569,20 @@ def check_quantize_pack(timer, gen):
 
 def check_channel_stats(timer, gen):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.channel_stats import channel_stats_cuda
+    from repro_torch.kernels.channel_stats import (channel_stats_cuda,
+                                                   plan_stats, vector_ok)
 
     # (T, C, dtype, mean): one tweak step's output (sample_batch 8 x 2048
     # tokens at llama3.2-1b's d 2048: the main case), the whole 128 x 2048
-    # calibration set, bf16, ragged T and C, TINY's d 192, and a mean of
-    # 1e3 at std 1, where sum(x^2) / T - mean^2 in f32 fails
+    # calibration set, bf16, ragged T and C (C = 70, 33 and 1030 not a
+    # multiple of the vector width: the scalar slots), TINY's d 192, and a
+    # mean of 1e3 at std 1, where sum(x^2) / T - mean^2 in f32 fails
     cases = [(16384, 2048, torch.float32, 0.0),
              (262144, 2048, torch.float32, 0.0),
              (16384, 2048, torch.bfloat16, 0.0),
+             (262144, 2048, torch.bfloat16, 0.0),
              (1000, 70, torch.float32, 0.5), (257, 33, torch.bfloat16, 0.5),
+             (4097, 1030, torch.bfloat16, 0.5),
              (320, 192, torch.float32, 0.5),
              (16384, 2048, torch.float32, 1e3)]
     results = []
@@ -574,6 +592,9 @@ def check_channel_stats(timer, gen):
         mu, var = channel_stats_cuda(x)
         want_mu, want_var = ref.channel_stats_ref(x)
         lib_var, lib_mu = torch.var_mean(x.float(), dim=0, correction=0)
+        bf16 = dtype == torch.bfloat16
+        plan = dict(plan_stats(t, c, bf16)._asdict(),
+                    vec=vector_ok(c, bf16, x.data_ptr()))
         torch.cuda.synchronize()
         # f32 sums in other orders (tiles of 256 rows merged by Chan's
         # formula; torch's reductions): the mean within 1e-6 of max(|mean|,
@@ -606,7 +627,8 @@ def check_channel_stats(timer, gen):
                  rel_err_vs_plain=errs["plain"],
                  rel_err_vs_var_mean=errs["var_mean"],
                  one_pass_var_rel_err=one_pass_err, ms=ms, plain_ms=plain_ms,
-                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                 plan=plan)
         print("channel_stats", json.dumps(r))
         results.append(r)
         if mean == 1e3 and not one_pass_err > 1e-5:

@@ -19,12 +19,14 @@ machine without ``nvcc`` or a card (the CPU tests import them all).
     PYTHONPATH=src python3 -m repro_torch.kernels.build --resource-usage
 
 builds the kernels and prints ptxas's registers, spills and shared memory
-for every kernel (``nvcc -Xptxas -v``), and the resident blocks per SM of
-both bodies of the dense kernels (1 and 3) on the card at hand.
+for every kernel (``nvcc -Xptxas -v``), the resident blocks per SM of
+both bodies of the dense kernels (1 and 3) and the clusters of 1-8 blocks
+of the channel statistics (7) the card at hand holds at once.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -53,6 +55,12 @@ def _nvcc() -> str:
     return path
 
 
+def nvcc_command(src: Path, out: Path, *extra: str) -> list[str]:
+    """The command that compiles ``src`` into the library ``out`` with
+    this module's flags (and ``extra`` ones)."""
+    return [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(out), str(src)]
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update((SRC_DIR / f"{name}.cu").read_bytes())
@@ -68,11 +76,10 @@ def build(names=SOURCES) -> list[str]:
     if not stale:
         return []
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs = []
     for name in stale:
         tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        cmd = nvcc_command(SRC_DIR / f"{name}.cu", tmp)
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []
@@ -93,12 +100,32 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _loaded[name] = lib
+        lib = _loaded[name] = _open(name, library_path(name))
     return lib
+
+
+def _open(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+@contextlib.contextmanager
+def library_from(name: str, path: Path):
+    """Inside the block, the kernels of ``csrc/<name>.cu`` launch from
+    the library at ``path`` (a variant's build, say) in place of the
+    committed one."""
+    saved = _loaded.get(name)
+    _loaded[name] = _open(name, path)
+    try:
+        yield
+    finally:
+        if saved is None:
+            _loaded.pop(name)
+        else:
+            _loaded[name] = saved
 
 
 def check(name: str, code: int) -> None:
@@ -118,9 +145,8 @@ def resource_usage(names=SOURCES) -> str:
     for name in names:
         tmp = BUILD_DIR / f"ptxas-{name}.{os.getpid()}.tmp"
         procs.append((name, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-             str(SRC_DIR / f"{name}.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)))
+            nvcc_command(SRC_DIR / f"{name}.cu", tmp, "-Xptxas", "-v"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     lines = []
     for name, tmp, proc in procs:
         _, err = proc.communicate()
@@ -148,11 +174,22 @@ def blocks_per_sm(name: str, body: int, bits: int) -> int:
     return blocks.value
 
 
+def max_clusters(ranks: int, bf16: bool) -> int:
+    """Clusters of ``ranks`` blocks of the channel-statistics kernel (7)
+    that the current card holds at once (CUDA's occupancy calculator)."""
+    clusters = ctypes.c_int(0)
+    fn = load("channel_stats").channel_stats_max_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    check("channel_stats", fn(ranks, int(bf16), ctypes.byref(clusters)))
+    return clusters.value
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--resource-usage", action="store_true",
-                    help="print ptxas's report and the dense kernels' "
-                         "resident blocks per SM")
+                    help="print ptxas's report, the dense kernels' "
+                         "resident blocks per SM and kernel 7's clusters")
     args = ap.parse_args()
     print("compiled:", ", ".join(build()) or "none, cached")
     if args.resource_usage:
@@ -162,6 +199,10 @@ def main() -> None:
                 for bits in (2, 3, 4, 8):
                     print(f"{name} {label} W{bits}: "
                           f"{blocks_per_sm(name, body, bits)} blocks per SM")
+        for bf16 in (False, True):
+            print(f"channel_stats {'bf16' if bf16 else 'f32'}: clusters "
+                  f"of 1-8 blocks at once: "
+                  f"{[max_clusters(r, bf16) for r in range(1, 9)]}")
 
 
 if __name__ == "__main__":

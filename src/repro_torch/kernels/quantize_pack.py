@@ -2,8 +2,11 @@
 (``csrc/quantize_pack.cu``).
 
 Replaces the TPU kernel ``quantize_pack_pallas``
-(src/repro/kernels/quantize.py). The source's header says what bounds it
-on the H100 and what the design does about it; its plain version is
+(src/repro/kernels/quantize.py). A thread owns 4 columns and a run of
+RUN_ROWS rows of K; a block walks tiles of QUADS column quads x RUNS runs
+over a grid of a few waves. ``plan_pack`` gives the tiles and the grid
+from the shape. The source's header says what bounds it on the H100 and
+what the design does about it; its plain version is
 ``kernels/ref.py::quantize_pack_ref``.
 
 ``launches`` counts the kernel's launches in this process (reset it by
@@ -13,19 +16,64 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.quant.types import pack_layout, packed_rows
 from repro_torch.kernels import build
+from repro_torch.kernels.packed_operands import SMS
 
 launches = 0
+
+# the source's geometry (csrc/quantize_pack.cu): column quads and runs a
+# tile (the block is QUADS x RUNS threads), columns a thread, rows of K a
+# thread's run
+QUADS = 32
+RUNS = 8
+COLS = 4
+RUN_ROWS = 8
+# the planner: a grid of 16 blocks for each SM (8 waves of 2), 2112 on the
+# H100; fewer were slower there and more gained nothing
+# (tools/stats_pack_sweep.py)
+GRID_BLOCKS = 16 * SMS
+
+
+class PackPlan(NamedTuple):
+    run: int           # packed groups a thread's run
+    quad_blocks: int   # tiles across N
+    run_blocks: int    # tiles down the packed groups of K
+    tiles: int         # every stack index's tiles
+    blocks: int        # the grid
+
+
+def plan_pack(b: int, k: int, n: int, bits: int) -> PackPlan:
+    """The tiles of a (b, K, N) stack, and the grid that walks them:
+    GRID_BLOCKS blocks, or one a tile when there are fewer tiles."""
+    values = pack_layout(bits)[1]
+    run = RUN_ROWS // values
+    quad_blocks = -(-n // (QUADS * COLS))
+    run_blocks = -(-(-(-k // values)) // (run * RUNS))
+    tiles = b * run_blocks * quad_blocks
+    if tiles >= 2 ** 31:
+        raise ValueError(f"quantize_pack: {tiles} tiles, want < 2^31")
+    return PackPlan(run, quad_blocks, run_blocks, tiles,
+                    min(tiles, GRID_BLOCKS))
+
+
+def vector_ok(n: int, w: torch.Tensor, scale: torch.Tensor,
+              out: torch.Tensor) -> bool:
+    """Vector loads and stores: N a multiple of 4, w on 16 bytes (8 for
+    bf16), scale on 16 and out on 4."""
+    align = 8 if w.dtype == torch.bfloat16 else 16
+    return (n % COLS == 0 and w.data_ptr() % align == 0
+            and scale.data_ptr() % 16 == 0 and out.data_ptr() % 4 == 0)
 
 
 def _lib():
     fn = build.load("quantize_pack").quantize_pack
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -54,17 +102,16 @@ def quantize_pack_cuda(w: torch.Tensor, scale: torch.Tensor, *,
     if scale.device != w.device:
         raise ValueError("quantize_pack: w and scale must be on one device")
     b = math.prod(lead)
-    if max(b, -(-k // pack_layout(bits)[1])) > 65535:
-        raise ValueError(f"quantize_pack: at most 65535 stacked weights and "
-                         f"packed groups of K, got {b} and K={k}")
     w, scale = w.contiguous(), scale.contiguous()
     out = torch.empty(lead + (packed_rows(k, bits), n), dtype=torch.uint8,
                       device=w.device)
     if out.numel() == 0:
         return out
+    p = plan_pack(b, k, n, bits)
     stream = torch.cuda.current_stream(w.device).cuda_stream
     code = _lib()(w.data_ptr(), scale.data_ptr(), out.data_ptr(), b, k, n, g,
-                  bits, int(w.dtype == torch.bfloat16), stream)
+                  bits, int(w.dtype == torch.bfloat16),
+                  int(vector_ok(n, w, scale, out)), p.blocks, stream)
     build.check("quantize_pack", code)
     launches += 1
     return out

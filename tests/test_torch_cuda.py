@@ -604,3 +604,98 @@ def test_channel_stats_gradient_matches_the_cpu(gen):
         grads[dev] = g.cpu()
     assert float((grads["cuda"] - grads["cpu"]).abs().max()) <= 1e-5 * float(
         grads["cpu"].abs().max())
+
+
+# kernel 6 off its vector path: N not a multiple of 4 (scalar loads and
+# 1-byte stores), and contiguous views whose data pointers sit 4 bytes past
+# 16 (w) or past a 4-byte boundary (scale), with bf16 weights 2 bytes past
+QP_SCALAR_CASES = [((2, 256, 1030), 128), ((96, 37), 3), ((2050, 22), -1),
+                   ((3, 64, 6), 16)]
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("shape,group", QP_SCALAR_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_pack_kernel_odd_n_matches_plain(gen, shape, group, bits,
+                                                  dtype):
+    """N not a multiple of the 4-column vector: byte-equal to the plain
+    version, one launch."""
+    from repro_torch.core.quant.types import compute_scales
+    from repro_torch.kernels.quantize_pack import quantize_pack_cuda
+
+    w = (torch.randn(shape, generator=gen, device="cuda") * 0.1).to(dtype)
+    scale = compute_scales(w.float(), bits, group)
+    before = ops.launch_counts()["quantize_pack"]
+    got = quantize_pack_cuda(w, scale, bits=bits)
+    assert ops.launch_counts()["quantize_pack"] == before + 1
+    assert torch.equal(got, ref.quantize_pack_ref(w, scale, bits=bits))
+
+
+@pytest.mark.parametrize("bits", [3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("misaligned", ["w", "scale"])
+def test_quantize_pack_kernel_unaligned_views_match_plain(gen, bits, dtype,
+                                                          misaligned):
+    """A contiguous view one element into its storage: the vector path's
+    alignment fails and the scalar path gives the same bytes; the aligned
+    copy of the same values gives them too."""
+    from repro_torch.core.quant.types import compute_scales
+    from repro_torch.kernels.quantize_pack import quantize_pack_cuda
+
+    k, n, group = 256, 512, 32
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.1).to(dtype)
+    scale = compute_scales(w.float(), bits, group)
+    if misaligned == "w":
+        base = torch.empty(w.numel() + 1, dtype=dtype, device="cuda")
+        base[1:] = w.flatten()
+        w_in, s_in = base[1:].view(k, n), scale
+        assert w_in.is_contiguous() and w_in.data_ptr() % 16
+    else:
+        base = torch.empty(scale.numel() + 1, device="cuda")
+        base[1:] = scale.flatten()
+        w_in, s_in = w, base[1:].view(scale.shape)
+        assert s_in.is_contiguous() and s_in.data_ptr() % 16
+    want = ref.quantize_pack_ref(w, scale, bits=bits)
+    assert torch.equal(quantize_pack_cuda(w_in, s_in, bits=bits), want)
+    assert torch.equal(quantize_pack_cuda(w, scale, bits=bits), want)
+
+
+# kernel 7 at the whole calibration set's 262,144 rows, and at C not a
+# multiple of the vector width (4 f32, 8 bf16: the scalar slots), also
+# from a view whose pointer is off 16 bytes
+CS_MORE_SHAPES = [(262144, 2048), (4097, 1030), (3000, 2047), (129, 6)]
+
+
+@pytest.mark.parametrize("t,c", CS_MORE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_channel_stats_kernel_more_shapes_match_plain(gen, t, c, dtype):
+    """The same limits as test_channel_stats_kernel_matches_plain, and a
+    second call bit-equal to the first."""
+    from repro_torch.kernels.channel_stats import channel_stats_cuda
+
+    x = (torch.randn((t, c), generator=gen, device="cuda") + 0.5).to(dtype)
+    mu, var = channel_stats_cuda(x)
+    want_mu, want_var = ref.channel_stats_ref(x)
+    scale = torch.maximum(want_mu.abs(), want_var.sqrt())
+    assert torch.all((mu - want_mu).abs() <= 1e-6 * scale + 1e-7)
+    assert torch.all((var - want_var).abs() <= 1e-5 * want_var + 1e-9)
+    mu2, var2 = channel_stats_cuda(x)
+    assert torch.equal(mu, mu2) and torch.equal(var, var2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_channel_stats_kernel_unaligned_view_same_bits(gen, dtype):
+    """A contiguous view one element into its storage takes the scalar
+    slots; they fill the same slots in the same order as the 16-byte
+    copies, so the bits equal the aligned copy's."""
+    from repro_torch.kernels.channel_stats import channel_stats_cuda
+
+    t, c = 2000, 512
+    x = (torch.randn((t, c), generator=gen, device="cuda") + 0.5).to(dtype)
+    base = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+    base[1:] = x.flatten()
+    view = base[1:].view(t, c)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    mu, var = channel_stats_cuda(x)
+    mu_v, var_v = channel_stats_cuda(view)
+    assert torch.equal(mu, mu_v) and torch.equal(var, var_v)

@@ -1,14 +1,18 @@
 """A/B of a kernel between two checkouts on one card.
 
-    python3 tools/kernel_ab.py dense|paged OTHER_TREE [--out FILE]
+    python3 tools/kernel_ab.py dense|paged|stats|pack OTHER_TREE \
+        [--out FILE]
 
 Runs each tree's own ``chip_smoke.py`` checks of the dense kernels (1 and
-3) or of paged attention (kernel 2) -- its kernels, built in that tree,
+3), of paged attention (kernel 2), of the channel statistics (kernel 7)
+or of the quantize-pack (kernel 6) -- its kernels, built in that tree,
 its cases, its timer and tolerances -- in a fresh process per turn, in
 the order other, this, this, other, and prints one JSON line per turn
 with the device ms of every case the two trees share (dense: same M, K,
 N, bits and group; paged: same head dim, m_rows and pool type, with
-SDPA's ms on the same inputs beside).
+SDPA's ms on the same inputs beside; stats: same T, C, dtype and mean,
+with ``torch.var_mean``'s ms beside; pack: same shape, bits, group and
+dtype).
 """
 from __future__ import annotations
 
@@ -23,7 +27,11 @@ THIS_TREE = Path(__file__).resolve().parents[1]
 # each kind's chip_smoke.py checks, as {kernel name: check function}
 CHECKS = {"dense": {"dequant_matmul": "check_dequant_matmul",
                     "w8a8_matmul": "check_w8a8_matmul"},
-          "paged": {"paged_attention": "check_paged_attention"}}
+          "paged": {"paged_attention": "check_paged_attention"},
+          "stats": {"channel_stats": "check_channel_stats"},
+          "pack": {"quantize_pack": "check_quantize_pack"}}
+# the library call timed beside a kind's kernel, by its name in the lines
+LIBRARY = {"paged": "sdpa_ms", "stats": "var_mean_ms"}
 
 TURN = r"""
 import json, sys
@@ -47,6 +55,11 @@ print("AB " + json.dumps(out))
 def case_key(name: str, c: dict) -> str:
     if name == "paged_attention":
         return f"hd{c['hd']} m_rows{c['m_rows']} int8={c['int8']}"
+    if name == "channel_stats":
+        return f"{c['shape'][0]}x{c['shape'][1]} {c['dtype']} mean{c['mean']}"
+    if name == "quantize_pack":
+        return " ".join(map(str, (*c["shape"], f"W{c['bits']}",
+                                  f"g{c['group']}", c["dtype"])))
     return " ".join(map(str, (name, *c["shape"], c["bits"], c["group"])))
 
 
@@ -79,8 +92,8 @@ def main() -> None:
     shared = sorted(set.intersection(*(set(r) for _, r in results)))
     for label, r in results:
         row = {"tree": label, "ms": {key: r[key][0] for key in shared}}
-        if args.kind == "paged":
-            row["sdpa_ms"] = {key: r[key][1] for key in shared}
+        if args.kind in LIBRARY:
+            row[LIBRARY[args.kind]] = {key: r[key][1] for key in shared}
         line = json.dumps(row)
         print(line, flush=True)
         lines.append(line)
