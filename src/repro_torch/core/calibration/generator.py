@@ -81,3 +81,17 @@ def random_calibration(cfg: ModelConfig, generator: torch.Generator, *,
     return torch.randint(0, cfg.vocab_size, (n_samples, token_length),
                          generator=generator, device=generator.device,
                          dtype=torch.int32)
+
+
+def real_calibration(corpus: np.ndarray, generator: torch.Generator, *,
+                     n_samples: int, token_length: int) -> torch.Tensor:
+    """``n_samples`` corpus windows of ``token_length`` tokens, at
+    window-aligned starts drawn uniformly from the generator, as int32 on
+    its device."""
+    n_windows = (len(corpus) - 1) // token_length
+    idx = torch.randint(0, n_windows, (n_samples,), generator=generator,
+                        device=generator.device)
+    starts = idx.cpu().numpy() * token_length
+    return torch.as_tensor(
+        np.stack([corpus[s:s + token_length] for s in starts]),
+        dtype=torch.int32, device=generator.device)

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def adam_init(params) -> dict:
@@ -45,3 +45,21 @@ def adam_update(grads, state: dict, params, *, lr: float, b1: float = 0.9,
 
     new_params = tree_map(upd, params, new_m, new_v)
     return new_params, {"m": new_m, "v": new_v, "step": step}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """The f32 2-norm over every leaf, the leaves summed in the JAX
+    package's order (its tree leaves come in sorted key order)."""
+    total = 0
+    for x in tree_leaves(tree):
+        total = total + torch.sum(torch.square(x.to(torch.float32)))
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float):
+    """Returns (grads scaled to a global norm of at most ``max_norm``, the
+    norm before scaling)."""
+    gn = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    return tree_map(lambda g: g * scale, grads), gn

@@ -71,6 +71,16 @@ def tree_map(fn: Callable, *trees: Tree) -> Tree:
     return fn(*trees)
 
 
+def tree_leaves(tree: Tree) -> list:
+    """The leaves of a nested dict in sorted key order (``jax.tree.leaves``'
+    order for dicts); None places are skipped."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
 def tree_stack(trees: list) -> Tree:
     """Stack per-layer trees along a new leading layer dim (packed weights
     included)."""

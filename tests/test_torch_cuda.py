@@ -699,3 +699,57 @@ def test_channel_stats_kernel_unaligned_view_same_bits(gen, dtype):
     mu, var = channel_stats_cuda(x)
     mu_v, var_v = channel_stats_cuda(view)
     assert torch.equal(mu, mu_v) and torch.equal(var, var_v)
+
+
+# TINY's quality path (Table 2): its two linear shapes at the tweak's M
+# (4 samples x 64 tokens) and the evaluation's (8 windows x 64), W2 g64
+# and W4 per-channel
+@pytest.mark.parametrize("bits,group", [(2, 64), (4, -1)])
+@pytest.mark.parametrize("m,k,n", [(256, 192, 576), (256, 576, 192),
+                                   (512, 192, 576), (512, 576, 192)])
+def test_dequant_matmul_quality_path_shapes_match_plain(gen, m, k, n, bits,
+                                                        group):
+    x, qt = _dense_case(gen, m, k, n, bits, group)
+    kw = dict(bits=bits, group_size=group, k=k)
+    got = dequant_matmul_cuda(x, qt.qw, qt.scale, **kw)
+    want = ref.dequant_matmul_ref(x, qt.qw, qt.scale, **kw)
+    bound = (x.to(torch.bfloat16).float().abs()
+             @ dequantize(qt).to(torch.bfloat16).float().abs()).max()
+    assert float((got - want).abs().max()) <= 4e-5 * float(bound)
+
+
+def test_train_step_on_the_card_matches_the_cpu(gen):
+    """One training step of TINY (2 layers) on the card against the same
+    step on the CPU, from the same params and batch: the loss within 1e-5
+    relative, and each param's move within 1e-3 lr, except where the
+    gradient is within the two devices' gradient noise of 0 (1e-3 of the
+    leaf's largest |g|), where Adam's first step, nearly sign(g) * lr, may
+    move it up to 2 lr the other way (tests/test_torch_train.py)."""
+    from repro_torch.configs import TINY
+    from repro_torch.device import resolve_device
+    from repro_torch.models.transformer import init_lm, lm_loss
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.train_step import (_grads_of, init_opt_state,
+                                              make_train_step)
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    resolve_device("cuda")                  # full-f32 products, no TF32
+    cfg, lr = TINY.replace(n_repeats=2), 1e-3
+    cpu = init_lm(cfg, seed=0, device="cpu")
+    card = tree_map(lambda t: t.cuda(), cpu)
+    toks = np.random.default_rng(0).integers(4, 256, (16, 65))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).int(),
+             "labels": torch.from_numpy(toks[:, 1:]).int()}
+    step = make_train_step(cfg, lr_schedule=constant(lr))
+    want_p, _, want_m = step(cpu, init_opt_state(cfg, cpu), batch, 0)
+    got_p, _, got_m = step(card, init_opt_state(cfg, card),
+                           {k: v.cuda() for k, v in batch.items()}, 0)
+    assert abs(float(got_m["loss"]) / float(want_m["loss"]) - 1) <= 1e-5
+    _, _, grads = _grads_of(cfg, lm_loss, cpu, batch)
+    for g, p0, got, want in zip(tree_leaves(grads), tree_leaves(cpu),
+                                tree_leaves(got_p), tree_leaves(want_p)):
+        near0 = g.abs() <= 1e-3 * g.abs().max()
+        err = (got.cpu() - want).abs()
+        assert float(err[~near0].max()) <= 1e-3 * lr
+        assert float(err.max()) <= 2 * lr + 1e-6
+        assert not torch.equal(got.cpu(), p0)

@@ -13,8 +13,10 @@ from repro.core.quant.deploy import quantize_params_for_serving as jquant
 from repro.models.transformer import init_lm as jinit
 import repro_torch.configs as tc
 from repro_torch.checkpoint.convert import params_from_numpy
+from repro_torch.checkpoint.store import load_tree, save_tree
 from repro_torch.core.quant.deploy import quantize_params_for_serving
 from repro_torch.core.quant.types import QuantizedTensor
+from repro_torch.launch import train as train_launcher
 from repro_torch.models.transformer import init_lm
 from repro_torch.serve.engine import ContinuousEngine
 
@@ -44,7 +46,7 @@ def test_port_has_files():
     assert len(PORT_FILES) > 20 and (ROOT / "chip_smoke.py").exists()
 
 
-def test_entry_points_refuse_cpu_without_asking(monkeypatch):
+def test_entry_points_refuse_cpu_without_asking(monkeypatch, tmp_path):
     """Without CUDA, an entry point left at its default device raises; it
     never drops to the CPU quietly."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -58,7 +60,14 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch):
         quantize_params_for_serving(cfg, params, bits=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy({"w": np.zeros(3, np.float32)})
+    save_tree(str(tmp_path / "ck"), params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_tree(str(tmp_path / "ck"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_launcher.main(["--ckpt-dir", str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
     ContinuousEngine(cfg, params, device="cpu")
+    load_tree(str(tmp_path / "ck"), device="cpu")
 
 
 def test_deploy_per_channel_fallback_matches_jax():
