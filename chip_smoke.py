@@ -5,11 +5,13 @@
 
 Builds the seven CUDA kernels from src/repro_torch/kernels/csrc/ (nvcc,
 at first use, all in parallel) and holds each against its plain PyTorch
-version on the card at the shapes the main paths give it. Then it drives
-twelve paths, each with the kernels' launch counts set to 0 just before it
-and read just after. First the paper's quality path on TINY (d 192, 8
-layers, the model the JAX package measures quality on), modelled on the
-JAX package's benchmarks/common.py, nt_common.py and table2_weight_only.py:
+version on the card at the shapes the main paths give it (the paged read
+also at the verify's and a prefill chunk's rows, and at fills below
+them). Then it drives fifteen paths, each with the kernels' launch counts
+set to 0 just before it and read just after. First the paper's quality
+path on TINY (d 192, 8 layers, the model the JAX package measures quality
+on), modelled on the JAX package's benchmarks/common.py, nt_common.py and
+table2_weight_only.py:
 
   1. train_tiny: the synthetic corpus (its sha256 against the JAX
      package's), 700 training steps through the port's training launcher
@@ -24,23 +26,35 @@ JAX package's benchmarks/common.py, nt_common.py and table2_weight_only.py:
      channel-statistics kernel exactly twice a tweak step, the
      quantize-pack kernel never), the best W2 g64 + NT outlier model again
      with every kernel's plain version, and through save_tree / load_tree
-     (the same logits bit for bit).
+     (the same logits bit for bit);
+  3. spec_tiny: the trained model served speculatively, a W4 per-channel
+     target with W2 and then W3 per-channel drafts (spec_k 4) on 8
+     held-out prompts of 64 tokens, 64 new tokens each: the drafts'
+     acceptance rate and mean accepted length.
 
 Then on llama3.2-1b at full width and depth, with seeded random weights:
 
-  3. serving W4 g128 (RTN-packed by the engine's deploy, one quantize-pack
+  4. serving W4 g128 (RTN-packed by the engine's deploy, one quantize-pack
      launch per stacked linear) through the port's ContinuousEngine (16
      requests, 8 slots);
-  4. the paper's pipeline through the launcher's ``build_params`` — 8 x 32
+  5. the same with prefix sharing and chunked prefill (64 tokens a call):
+     16 prompts that start with one 160-token system prompt, the first
+     served alone, then the other 15 reusing its 10 pages and prefilling
+     only their tails; later chunks and suffixes read their context
+     through the paged kernel at m_rows = the padded chunk;
+  6. speculative serving: a W4 g128 target and a W2 g128 draft packed from
+     the same float params (8 requests), each round the draft's k + 1
+     decode steps and the target's one verify at m_rows k + 1;
+  7. the paper's pipeline through the launcher's ``build_params`` — 8 x 32
      self-generated calibration tokens, then GPTQ W4 g128 + norm
-     tweaking, then SmoothQuant W4A8 + norm tweaking — with layer 0
-     quantized and tweaked again on a CPU copy of its inputs and held
-     against the card;
-  5. serving the SmoothQuant W4A8 + NT model (the same workload), every
-     quantized linear on the W8A8 kernel;
-  6. AWQ W4 g128 + NT through the same ``build_params``, layer 0 again on
+     tweaking on 4 of the 16 layers (path 10 runs all 16), then
+     SmoothQuant W4A8 + norm tweaking — with layer 0 quantized and
+     tweaked again on a CPU copy of its inputs and held against the card;
+  8. serving the SmoothQuant W4A8 + NT model (the same workload as 4),
+     every quantized linear on the W8A8 kernel;
+  9. AWQ W4 g128 + NT through the same ``build_params``, layer 0 again on
      the CPU;
-  7. the paper's own configuration: 128 self-generated samples of 2048
+  10. the paper's own configuration: 128 self-generated samples of 2048
      tokens, GPTQ W4 g128 + NT with the reference defaults (the chunked
      attention core in every apply and tweak step, the channel-statistics
      kernel twice a tweak step), layer 0 run again on the card with every
@@ -58,8 +72,12 @@ are asserted exactly.
 
 Every served greedy token is held against a plain forward over the same
 sequence. On llama3.2-1b it runs on a CPU copy of the served params, one
-right-padded batch. An MoE routes with a capacity that counts a prefill's
-padded tokens, so there the plain forward replays what the engine
+right-padded batch (paths 5 and 6: the same forward on the card with
+every kernel replaced by its plain version). Every serving path's decode
+steps' launches are asserted exactly, and on paths 3, 5 and 6 every
+prefill call's and speculative round's too. An MoE routes with a
+capacity that counts a prefill's padded tokens, so there the plain
+forward replays what the engine
 computed: each prompt prefilled alone, padded to its bucket, then the
 served tokens fed through batched decode steps; it runs on the card with
 every kernel replaced by its plain version (the CPU would take minutes
@@ -100,6 +118,24 @@ SEED = 0
 # all submitted at t = 0, 8 slots, pages of 16, prompts padded to 16
 LLAMA_WORK = dict(n_requests=16, prompt_lens=(32, 257), new_lens=(32, 65),
                   max_len=320)
+# the 8 x 32 GPTQ + NT pipeline on llama3.2-1b runs 4 of its 16 layers:
+# the paper-sized GPTQ + NT pipeline runs all 16, and nothing later serves
+# these params
+GPTQ_8X32_LAYERS = 4
+# prefix-shared, chunked serving on llama3.2-1b: one 160-token system prompt
+# (10 pages) ahead of every prompt's own tail of 32-128 tokens, 32-64 new
+# tokens; the first request runs alone (it registers the system prompt, as
+# the launcher's first warm-up wave does), then the other 15 arrive together
+PREFIX_WORK = dict(n_requests=16, system_len=160, tail_lens=(32, 129),
+                   new_lens=(32, 65), max_len=352)
+PREFIX_ENGINE = dict(prefix_share=True, chunked_prefill=64)
+# speculative serving on llama3.2-1b: 8 requests of LLAMA_WORK's shapes, a
+# W4 g128 target, a W2 g128 draft proposing up to 4 tokens a round
+SPEC_WORK = dict(LLAMA_WORK, n_requests=8)
+SPEC_ENGINE = dict(spec_decode=True, draft_bits=2, spec_k=4)
+# speculative serving on the trained TINY: 8 prompts of 64 held-out tokens,
+# 64 new tokens each; a W4 per-channel target, W2 and W3 per-channel drafts
+SPEC_TINY = dict(n_requests=8, prompt_len=64, new=64, max_len=128)
 # the Mixtral one: fewer and shorter requests, one prompt a prefill, so the
 # plain replay routes each prompt as the engine did
 MOE_WORK = dict(n_requests=8, prompt_lens=(16, 129), new_lens=(16, 33),
@@ -694,23 +730,29 @@ def _paged_case(gen, s, w, ps, kvh, g, hd, fills, quant):
 
 
 def check_paged_attention(timer, gen):
-    # (kv heads, G, hd, table width, window, fills, m_rows), page 16, 8
-    # slots with an empty slot and ragged fills, f32 and int8 pools:
-    # llama3.2-1b (GQA 32/8, hd 64) with a full table, at m_rows 1
-    # (decode) and 4 (verify / chunked-prefill rows); Mixtral (GQA 48/8,
-    # hd 128) at decode, with its 4096-token window and fills on both
-    # sides of it
+    # (kv heads, G, hd, table width, window, fills, m_rows, fills clamped
+    # to at least m_rows), page 16, 8 slots with an empty slot and ragged
+    # fills, f32 and int8 pools: llama3.2-1b (GQA 32/8, hd 64) with a full
+    # table, at m_rows 1 (decode), 2, 3 and 5 (the verify at spec_k 1, 2,
+    # 4), 4 and 64 (a chunk of 64 tokens); at m_rows 5, 16 and 64 again
+    # with fills below m_rows (a prompt shorter than its padded chunk: rows
+    # at fill positions < 0, which read nothing); Mixtral (GQA 48/8, hd
+    # 128) at decode, with its 4096-token window and fills on both sides of
+    # it
     ps = 16
     configs = [(8, 4, 64, 20, None, [0, 1, 16, 37, 100, 256, 300, 320],
-                (1, 4)),
+                (1, 2, 3, 4, 5, 64), True),
+               (8, 4, 64, 20, None, [0, 1, 3, 9, 16, 40, 63, 200],
+                (5, 16, 64), False),
                (8, 6, 128, 288, 4096,
-                [0, 1, 16, 160, 2000, 4096, 4097, 4608], (1,))]
+                [0, 1, 16, 160, 2000, 4096, 4097, 4608], (1,), True)]
     results = []
-    for kvh, g, hd, w, window, fills, m_rows_set in configs:
+    for kvh, g, hd, w, window, fills, m_rows_set, clamp in configs:
         s = len(fills)
         for m_rows in m_rows_set:
             for quant in (False, True):
-                f = [x if x == 0 or x >= m_rows else m_rows for x in fills]
+                f = [x if x == 0 or x >= m_rows or not clamp else m_rows
+                     for x in fills]
                 r = _check_paged_case(timer, gen, s, kvh, g, hd, ps, w,
                                       window, f, m_rows, quant)
                 print("paged_attention", json.dumps(r))
@@ -738,9 +780,17 @@ def _check_paged_case(timer, gen, s, kvh, g, hd, ps, w, window, fills,
     # values and differ only by rounding in another order
     tol = 1e-4
     err = float((got - want).abs().max())
-    if not err <= tol or not torch.all(got[0] == 0):
+    # rows at fill positions < 0 (and the empty slot) read nothing: exact
+    # zeros, as the plain version gives
+    rows = torch.arange(m_rows * g, device="cuda")
+    lim = kl[:, None].long() - (m_rows - 1 - rows // g)[None]     # (S, R)
+    dead = (lim <= 0)[:, None, :].expand(s, kvh, m_rows * g)
+    if (not err <= tol or not torch.all(got[0] == 0)
+            or not torch.all(got[dead] == 0)
+            or not torch.all(want[dead] == 0)):
         raise AssertionError(f"paged_attention hd={hd} G={g} window={window} "
-                             f"m_rows={m_rows} int8={quant}: max |err| {err}")
+                             f"m_rows={m_rows} int8={quant} fills={fills}: "
+                             f"max |err| {err}")
     # the split walk's partials merge in rank order, never by atomics
     if not torch.equal(paged_attention_cuda(*args, **kw), got):
         raise AssertionError("paged_attention: two calls differ")
@@ -755,8 +805,6 @@ def _check_paged_case(timer, gen, s, kvh, g, hd, ps, w, window, fills,
         vg = vg * vs[idx][..., None]
     kg = kg.reshape(s, w * ps, kvh, hd).permute(0, 2, 1, 3)
     vg = vg.reshape(s, w * ps, kvh, hd).permute(0, 2, 1, 3)
-    rows = torch.arange(m_rows * g, device="cuda")
-    lim = kl[:, None].long() - (m_rows - 1 - rows // g)[None]     # (S, R)
     pos = torch.arange(w * ps, device="cuda")
     mask = pos[None, None, None, :] < lim[:, None, :, None]
     if window is not None:
@@ -782,21 +830,51 @@ def _check_paged_case(timer, gen, s, kvh, g, hd, ps, w, window, fills,
     flops = live_rows * kvh * 2 * (hd + hd)
     b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
     return dict(hd=hd, group=g, window=window, m_rows=m_rows, int8=quant,
-                fills=fills, n_split=n_split, max_abs_err=err, tol=tol, ms=ms,
+                fills=fills, dead_rows=int(dead[:, 0].sum()),
+                n_split=n_split, max_abs_err=err, tol=tol, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=b_by)
 
 
 # ---------------------------------------------------------- serving phase
 
-def serve(cfg, params, label, work, device="cuda", **quant):
-    """Serve the workload ``work`` (LLAMA_WORK or MOE_WORK) on ``params``
-    (packed by the engine when ``quant`` gives quant_bits); returns
-    (engine, finished requests, metrics). The launch counts are reset just
-    before the engine is built (its deploy packs through the quantize-pack
-    kernel) and read just after the run: ``launches`` counts the deploy and
-    the run, ``run_launches`` the run alone."""
+def make_waves(cfg, work):
+    """The requests of ``work`` as waves of (prompt, max_new), seeded: an
+    explicit list (``requests``); a system prompt ahead of each request's
+    own tail, the first request alone in a wave of its own (``system_len``);
+    else independent prompts and budgets in one wave."""
+    if "requests" in work:
+        return [work["requests"]]
+    rng = np.random.default_rng(SEED)
+    if "system_len" in work:
+        system = rng.integers(0, cfg.vocab_size, work["system_len"])
+        reqs = []
+        for _ in range(work["n_requests"]):
+            tail = rng.integers(0, cfg.vocab_size,
+                                int(rng.integers(*work["tail_lens"])))
+            reqs.append((np.concatenate([system, tail]),
+                         int(rng.integers(*work["new_lens"]))))
+        return [reqs[:1], reqs[1:]]
+    reqs = []
+    for _ in range(work["n_requests"]):
+        plen = int(rng.integers(*work["prompt_lens"]))
+        max_new = int(rng.integers(*work["new_lens"]))
+        reqs.append((rng.integers(0, cfg.vocab_size, plen), max_new))
+    return [reqs]
+
+
+def serve(cfg, params, label, work, device="cuda", **engine_kw):
+    """Serve the workload ``work`` (see make_waves; each wave submitted at
+    once and run to its end) on ``params`` (packed by the engine when
+    ``engine_kw`` gives quant_bits); returns (engine, finished requests,
+    metrics). The launch counts are reset just before the engine is built
+    (its deploy packs through the quantize-pack kernel) and read just
+    after the run: ``launches`` counts the deploy and the run,
+    ``run_launches`` the run alone. Each decode block, prefill call and
+    speculative round records its own launches (``calls``; the paged
+    reads by m_rows) for the assertions on them."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa_mod
     from repro_torch.serve.engine import ContinuousEngine
 
     ops.reset_launch_counts()
@@ -804,54 +882,82 @@ def serve(cfg, params, label, work, device="cuda", **quant):
     engine = ContinuousEngine(cfg, params, n_slots=8, page_size=16,
                               prefill_bucket=16, max_len=work["max_len"],
                               prefill_batch=work.get("prefill_batch", 8),
-                              seed=SEED, device=device, **quant)
+                              seed=SEED, device=device, **engine_kw)
     del params                  # the float tree, when the engine packed it
     sync(device)
     setup_launches = ops.launch_counts()
     print(f"{label} setup: {time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(SEED)
-    reqs = []
-    for _ in range(work["n_requests"]):
-        plen = int(rng.integers(*work["prompt_lens"]))
-        max_new = int(rng.integers(*work["new_lens"]))
-        prompt = rng.integers(0, cfg.vocab_size, plen)
-        reqs.append(engine.submit(prompt, max_new=max_new, arrival=0.0))
 
-    # launches made inside the run's decode blocks, for the per-step counts
+    # launches made inside the run's decode blocks, for the per-step
+    # counts; each prefill call's and speculative round's launches, and
+    # the m_rows of each paged read among them
     decode_launches = dict.fromkeys(ops.launch_counts(), 0)
-    decode_block = engine._decode_block
+    calls = []
+    m_rows_seen = []
+    real_paged = pa_mod.paged_attention_cuda
 
-    def counted_decode_block():
-        before = ops.launch_counts()
-        toks = decode_block()
-        for name, n in ops.launch_counts().items():
-            decode_launches[name] += n - before[name]
-        return toks
+    def paged_cuda(*a, **kw):
+        m_rows_seen.append(kw.get("m_rows", 1))
+        return real_paged(*a, **kw)
 
-    engine._decode_block = counted_decode_block
+    def counted(kind, fn, info=lambda *a: {}):
+        def wrapper(*a):
+            before, n_seen = ops.launch_counts(), len(m_rows_seen)
+            out = fn(*a)
+            delta = {name: n - before[name]
+                     for name, n in ops.launch_counts().items()}
+            if kind == "decode":
+                for name, n in delta.items():
+                    decode_launches[name] += n
+            calls.append(dict(kind=kind, launches=delta,
+                              m_rows=m_rows_seen[n_seen:], **info(*a)))
+            return out
+        return wrapper
+
+    engine._decode_block = counted("decode", engine._decode_block)
+    engine._prefill_chunk = counted(
+        "prefill", engine._prefill_chunk,
+        lambda items, padded, has_ctx, now: dict(
+            rows=len(items), padded=padded, has_ctx=has_ctx))
+    engine._spec_block = counted("spec", engine._spec_block)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    t_start = time.perf_counter()
-    done = engine.run(clock=lambda: time.perf_counter() - t_start)
-    sync(device)
-    wall = time.perf_counter() - t_start
+    pa_mod.paged_attention_cuda = paged_cuda
+    done, wall, waves = [], 0.0, make_waves(cfg, work)
+    try:
+        for wave in waves:
+            reqs = [engine.submit(prompt, max_new=max_new, arrival=0.0)
+                    for prompt, max_new in wave]
+            t_start = time.perf_counter()
+            done += engine.run(clock=lambda: time.perf_counter() - t_start)
+            sync(device)
+            wall += time.perf_counter() - t_start
+            assert all(r.done for r in reqs)
+    finally:
+        pa_mod.paged_attention_cuda = real_paged
     launches = ops.launch_counts()
-    per_step = {name: n / engine.n_decode_steps
-                for name, n in decode_launches.items()}
+    steps = max(engine.n_decode_steps, 1)
+    per_step = {name: n / steps for name, n in decode_launches.items()}
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
 
-    n_req = work["n_requests"]
+    n_req = sum(map(len, waves))
     assert len(done) == n_req and all(r.done for r in done)
     n_tok = sum(len(r.tokens) for r in done)
     for r in done:
         assert len(r.tokens) == r.max_new
         assert all(0 <= t < cfg.vocab_size for t in r.tokens)
     engine.pool.check_invariants()
+    cached = engine.pool.clear_prefix_cache()
+    engine.pool.check_invariants()
     assert engine.pool.n_free == engine.spec.n_pages - 1
     ttft = np.array([r.ttft for r in done]) * 1e3
     tpot = np.array([r.tpot for r in done]) * 1e3
-    stats = dict(path=label, requests=n_req, tokens=n_tok, wall_s=wall,
-                 tokens_per_s=n_tok / wall,
+    by_kind = {}
+    for c in calls:
+        k = c["kind"] + ("_ctx" if c.get("has_ctx") else "")
+        by_kind[k] = by_kind.get(k, 0) + 1
+    stats = dict(path=label, requests=n_req, waves=len(waves), tokens=n_tok,
+                 wall_s=wall, tokens_per_s=n_tok / wall,
                  ttft_ms_p50=float(np.percentile(ttft, 50)),
                  ttft_ms_p99=float(np.percentile(ttft, 99)),
                  tpot_ms_p50=float(np.percentile(tpot, 50)),
@@ -859,12 +965,17 @@ def serve(cfg, params, label, work, device="cuda", **quant):
                  decode_steps=engine.n_decode_steps,
                  prefill_calls=engine.n_prefills,
                  prefill_tokens=engine.n_prefill_tokens,
+                 shared_tokens=engine.n_shared_tokens,
+                 prefix_pages_cached=cached, calls=by_kind,
                  peak_mem_gib=peak / 2**30, launches=launches,
                  run_launches={name: n - setup_launches[name]
                                for name, n in launches.items()},
                  decode_launches=decode_launches,
                  launches_per_decode_step=per_step)
+    if engine.spec_decode:
+        stats["spec"] = engine.spec_stats()
     print("serve", json.dumps(stats))
+    stats["call_records"] = calls
     return engine, done, stats
 
 
@@ -883,16 +994,69 @@ def assert_decode_launches(stats, want):
                              f"steps (got, want): {bad}")
 
 
-def assert_deploy_launches(stats):
+def assert_deploy_launches(stats, want=7):
     """The engine's deploy packed each of the 7 stacked linears (layers,
-    and experts, in one tensor) with one quantize-pack launch."""
+    and experts, in one tensor) with one quantize-pack launch: ``want`` 7,
+    or 14 when it packs a speculative draft too."""
     got = stats["launches"]["quantize_pack"] - stats["run_launches"][
         "quantize_pack"]
-    if got != 7 or stats["run_launches"]["quantize_pack"]:
+    if got != want or stats["run_launches"]["quantize_pack"]:
         raise AssertionError(f"{stats['path']}: deploy launched "
-                             f"quantize_pack {got} times, want 7 (and the "
-                             f"run {stats['run_launches']['quantize_pack']},"
-                             " want 0)")
+                             f"quantize_pack {got} times, want {want} (and "
+                             f"the run {stats['run_launches']['quantize_pack']}"
+                             ", want 0)")
+
+
+def assert_call_launches(stats, dense, n_lin, n_attn, spec_k=None):
+    """Every prefill call and speculative round of the run launched
+    exactly (a path's engine runs ``dense`` on each of n_lin stacked
+    linears and one paged read in each of n_attn attention layers):
+
+      * a prefill call: n_lin dense launches (twice with a speculative
+        draft, whose cache takes every chunk too), and n_attn paged reads
+        at m_rows = the padded chunk when the chunk reads earlier context
+        (a later chunk, a suffix after shared pages), none otherwise;
+      * a speculative round with effective k (1 a power of two up to
+        spec_k, or 0): the draft's k + 1 decode steps and the target's one
+        verify, (k + 2) x n_lin dense and (k + 2) x n_attn paged launches,
+        n_attn of them the verify's at m_rows k + 1, the rest at 1;
+
+    and the run launched nothing outside its decode blocks, prefill calls
+    and rounds. Returns the rounds' k by count and the prefill calls by
+    (padded, has_ctx)."""
+    draft = 2 if spec_k else 1
+    total = dict.fromkeys(stats["run_launches"], 0)
+    ks, prefills, bad = {}, {}, []
+    for c in stats["call_records"]:
+        got = c["launches"]
+        for name, n in got.items():
+            total[name] += n
+        if c["kind"] == "prefill":
+            key = f"{c['padded']}{'_ctx' if c['has_ctx'] else ''}"
+            prefills[key] = prefills.get(key, 0) + 1
+            paged = draft * n_attn if c["has_ctx"] else 0
+            want = {dense: draft * n_lin, "paged_attention": paged}
+            m_rows = [c["padded"]] * paged
+        elif c["kind"] == "spec":
+            k = got[dense] // n_lin - 2
+            ks[k] = ks.get(k, 0) + 1
+            want = {dense: (k + 2) * n_lin,
+                    "paged_attention": (k + 2) * n_attn}
+            m_rows = sorted([1] * (k + 1) * n_attn + [k + 1] * n_attn)
+            if not (k == 0 or (k & (k - 1) == 0 and k <= spec_k)):
+                bad.append(("k", k))
+        else:
+            continue
+        want_all = {name: want.get(name, 0) for name in got}
+        if got != want_all or sorted(c["m_rows"]) != m_rows:
+            bad.append((c["kind"], c.get("padded"), got, want_all,
+                        sorted(set(c["m_rows"]))))
+    if total != stats["run_launches"]:
+        bad.append(("outside the calls", total, stats["run_launches"]))
+    if bad or not stats["call_records"]:
+        raise AssertionError(f"{stats['path']}: launches by call: "
+                             f"{bad[:5]}")
+    return dict(spec_rounds_by_k=ks, prefill_calls=prefills)
 
 
 @contextlib.contextmanager
@@ -1007,17 +1171,19 @@ def _llama_logits(cfg, params, done):
 
 
 def check_against_plain(cfg, engine, done, measure_margin=False,
-                        replay=False):
+                        replay=False, plain_on_card=False):
     """Every served greedy token equals the plain forward's argmax wherever
     that forward's top-2 margin exceeds the margin: MARGIN, or with
     ``measure_margin`` the margin measured on these sequences (see NOISE).
 
     The plain forward: without ``replay`` (llama3.2-1b) one right-padded
     full-sequence forward on a CPU copy of the served packed params, where
-    every quantized linear runs its kernel's plain version; with
-    ``replay`` (an MoE, whose capacity makes routing depend on the padded
-    prefill) ``replay_served`` on the card with every kernel replaced by
-    its plain version (``plain_kernels``).
+    every quantized linear runs its kernel's plain version, or with
+    ``plain_on_card`` the same forward on the card with every kernel
+    replaced by its plain version (``plain_kernels``; the host CPU takes
+    ~45 s for a llama workload); with ``replay`` (an MoE, whose capacity
+    makes routing depend on the padded prefill) ``replay_served`` on the
+    card with every kernel replaced by its plain version.
 
     With ``measure_margin`` (W4A8), also:
       * band: every served token's plain logit lies within the margin of
@@ -1042,6 +1208,12 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
         def plain(p):
             with plain_kernels():
                 return replay_served(cfg, p, done)
+    elif plain_on_card:
+        params = engine.params
+
+        def plain(p):
+            with plain_kernels():
+                return _llama_logits(cfg, p, done)
     else:
         params = to_device(engine.params, "cpu")
 
@@ -1125,7 +1297,8 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
                   or not card_shift <= (CARD_SHIFT_MOE if replay else margin)
                   or control_in >= control_total
                   or served_flips > noise_flips)
-    line.update(device="cuda, plain versions" if replay else "cpu",
+    line.update(device="cuda, plain versions" if replay or plain_on_card
+                else "cpu",
                 seconds=time.perf_counter() - t0)
     print("plain_check", json.dumps(line))
     if failed:
@@ -1887,17 +2060,139 @@ def quality_tiny_phase(params, meta, held, tmp):
     return line
 
 
+def spec_tiny_phase(params, held):
+    """Speculative serving on the trained TINY: a W4 per-channel target
+    with W2 and W3 per-channel drafts (spec_k 4) on SPEC_TINY's prompts,
+    64-token windows spread over the held-out split, and the target alone
+    on the same prompts for the baseline. The acceptance rate and mean
+    accepted length measure what the draft buys on a model with real
+    structure (on random weights drafts are almost never accepted). Each
+    run's rounds, decode steps, prefill calls and deploy are asserted
+    exactly and its tokens held against the target's plain forward; the
+    requests whose spec stream equals the target-only one are counted
+    (they may part at a near-tie: the verify's rows reach other kernel
+    bodies than decode's)."""
+    from repro_torch.configs import TINY
+
+    n = SPEC_TINY["n_requests"]
+    stride = len(held) // n
+    reqs = [(np.asarray(held[i * stride:i * stride + SPEC_TINY[
+        "prompt_len"]], np.int64), SPEC_TINY["new"]) for i in range(n)]
+    work = dict(requests=reqs, max_len=SPEC_TINY["max_len"])
+    n_lin, n_attn = 7 * TINY.n_repeats, TINY.n_repeats
+    line = dict(path="spec_tiny", target="W4 per-channel", spec_k=4,
+                prompts=n, prompt_len=SPEC_TINY["prompt_len"],
+                new_tokens=SPEC_TINY["new"])
+    engine, done, stats = serve(TINY, params, "spec_tiny_target", work,
+                                quant_bits=4, quant_group=-1)
+    check_against_plain(TINY, engine, done)
+    assert_decode_launches(stats, {"dequant_matmul": n_lin,
+                                   "paged_attention": n_attn})
+    assert_deploy_launches(stats)
+    target_toks = [r.tokens for r in done]
+    line["target_only"] = dict(tpot_ms_p50=stats["tpot_ms_p50"],
+                               tokens_per_s=stats["tokens_per_s"],
+                               decode_steps=stats["decode_steps"])
+    launches = stats["launches"]
+    del engine, done
+    for bits in (2, 3):
+        label = f"spec_tiny_w{bits}"
+        engine, done, stats = serve(
+            TINY, params, label, work, quant_bits=4, quant_group=-1,
+            spec_decode=True, draft_bits=bits, spec_k=4)
+        check_against_plain(TINY, engine, done)
+        by_call = assert_call_launches(stats, "dequant_matmul", n_lin,
+                                       n_attn, spec_k=4)
+        assert_deploy_launches(stats, want=14)
+        st = stats["spec"]
+        line[f"w{bits}"] = dict(
+            acceptance_rate=st["acceptance_rate"],
+            mean_accepted_len=st["mean_accepted_len"],
+            rounds=st["rounds"], draft_tokens=st["draft_tokens"],
+            accepted_draft_tokens=st["accepted_draft_tokens"],
+            tpot_ms_p50=stats["tpot_ms_p50"], tokens_per_s=stats[
+                "tokens_per_s"], rounds_by_k=by_call["spec_rounds_by_k"],
+            requests_equal_to_target_only=sum(
+                r.tokens == t for r, t in zip(done, target_toks)))
+        launches = {k: v + launches[k] for k, v in stats["launches"].items()}
+        del engine, done
+    line["launches"] = launches
+    print("spec_tiny", json.dumps(line))
+    return line
+
+
 def tiny_paths():
-    """The quality path on TINY at full width and depth; returns its
-    metrics by path name."""
+    """The quality path on TINY at full width and depth, then speculative
+    serving on the trained model; returns their metrics by path name."""
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         with phase("train_tiny"):
             params, meta, held, out["train_tiny"] = train_tiny_phase(tmp)
         with phase("quality_tiny"):
             out["quality_tiny"] = quality_tiny_phase(params, meta, held, tmp)
+    with phase("spec_tiny"):
+        out["spec_tiny"] = spec_tiny_phase(params, held)
     release()
     return out
+
+
+def serve_prefix_phase(cfg):
+    """llama3.2-1b served with prefix sharing and chunked prefill (RTN W4
+    g128 by the engine's deploy): PREFIX_WORK's 15 requests after the
+    first each reuse the 10 pages of the system prompt and prefill only
+    their tails, the later chunks and the suffixes reading their context
+    through the paged kernel's multi-row read. Asserted exactly: the
+    shared and prefilled tokens, every decode step's and prefill call's
+    launches, the deploy's; the pool whole once the index is cleared."""
+    from repro_torch.models.transformer import init_lm
+
+    n_lin, n_attn = 7 * cfg.n_repeats, cfg.n_repeats
+    engine, done, stats = serve(
+        cfg, init_lm(cfg, seed=SEED, device="cuda"), "serve_prefix_w4",
+        PREFIX_WORK, quant_bits=4, quant_group=128, **PREFIX_ENGINE)
+    system = PREFIX_WORK["system_len"]
+    first, rest = done[0], done[1:]
+    want = dict(shared_tokens=(PREFIX_WORK["n_requests"] - 1) * system,
+                prefill_tokens=first.n_prompt + sum(r.n_prompt - system
+                                                    for r in rest))
+    got = {k: stats[k] for k in want}
+    if got != want or any(r.n_shared != system for r in rest):
+        raise AssertionError(f"serve_prefix_w4: sharing {got}, want {want}")
+    check_against_plain(cfg, engine, done, plain_on_card=True)
+    assert_decode_launches(stats, {"dequant_matmul": n_lin,
+                                   "paged_attention": n_attn})
+    stats["by_call"] = assert_call_launches(stats, "dequant_matmul", n_lin,
+                                            n_attn)
+    if not any(k.endswith("_ctx") for k in stats["by_call"]["prefill_calls"]):
+        raise AssertionError("serve_prefix_w4: no prefill call read context")
+    assert_deploy_launches(stats)
+    print("serve_calls", json.dumps(dict(path=stats["path"],
+                                         **stats["by_call"])))
+    del stats["call_records"]
+    return stats
+
+
+def serve_spec_phase(cfg):
+    """llama3.2-1b served speculatively: float params, a W4 g128 target and
+    a W2 g128 draft both packed by the engine's deploy (14 quantize-pack
+    launches), SPEC_WORK. Asserted exactly: every round's launches (the
+    draft's k + 1 decode steps, the target's one verify at m_rows k + 1)
+    and every prefill call's (mirrored into the draft's cache). The
+    tokens are the target's stream: held against its plain forward."""
+    from repro_torch.models.transformer import init_lm
+
+    n_lin, n_attn = 7 * cfg.n_repeats, cfg.n_repeats
+    engine, done, stats = serve(
+        cfg, init_lm(cfg, seed=SEED, device="cuda"), "serve_spec_w4",
+        SPEC_WORK, quant_bits=4, quant_group=128, **SPEC_ENGINE)
+    check_against_plain(cfg, engine, done, plain_on_card=True)
+    stats["by_call"] = assert_call_launches(
+        stats, "dequant_matmul", n_lin, n_attn, spec_k=SPEC_ENGINE["spec_k"])
+    assert_deploy_launches(stats, want=14)
+    print("serve_calls", json.dumps(dict(path=stats["path"],
+                                         **stats["by_call"])))
+    del stats["call_records"]
+    return stats
 
 
 def llama_paths(cfg):
@@ -1918,10 +2213,18 @@ def llama_paths(cfg):
         assert_deploy_launches(out["serve_w4"])
         del engine, done
         release()
-    # path 2: the paper's pipeline, GPTQ W4 g128 + NT, SmoothQuant W4A8 + NT
+    # slice 10: prefix-shared, chunked serving, then speculative serving
+    with phase("serve_prefix_w4"):
+        out["serve_prefix_w4"] = serve_prefix_phase(cfg)
+        release()
+    with phase("serve_spec_w4"):
+        out["serve_spec_w4"] = serve_spec_phase(cfg)
+        release()
+    # path 2: the paper's pipeline, GPTQ W4 g128 + NT (4 of the 16 layers),
+    # SmoothQuant W4A8 + NT
     with phase("pipeline_gptq"):
-        params, out["pipeline_gptq"] = pipeline_phase(cfg, "gptq",
-                                                      "pipeline_gptq")
+        params, out["pipeline_gptq"] = pipeline_phase(
+            cfg.replace(n_repeats=GPTQ_8X32_LAYERS), "gptq", "pipeline_gptq")
         del params
         release()
     with phase("pipeline_smoothquant"):

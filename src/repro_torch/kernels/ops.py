@@ -170,3 +170,34 @@ def paged_rows_read(q: torch.Tensor, k_pool: torch.Tensor,
     hd_v = v_pool.shape[-1]
     o = o.reshape(s, kvh, m, g, hd_v).permute(0, 2, 1, 3, 4)
     return o.reshape(s, m, h, hd_v)
+
+
+def paged_attention_verify(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_table: torch.Tensor,
+                           kv_len: torch.Tensor, *,
+                           k_scale_pool: Optional[torch.Tensor] = None,
+                           v_scale_pool: Optional[torch.Tensor] = None,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """The speculative verify read: the M rows are a slot's pending token
+    and its M - 1 draft tokens (``paged_rows_read``). M == 1 is the decode
+    read."""
+    return paged_rows_read(q, k_pool, v_pool, block_table, kv_len,
+                           k_scale_pool=k_scale_pool,
+                           v_scale_pool=v_scale_pool, window=window)
+
+
+def paged_attention_prefill(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, block_table: torch.Tensor,
+                            kv_len: torch.Tensor, *,
+                            k_scale_pool: Optional[torch.Tensor] = None,
+                            v_scale_pool: Optional[torch.Tensor] = None,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """The chunked or suffix prefill read: the M rows are a slot's
+    left-padded prefill chunk, row j at fill position kv_len - M + j
+    whatever the chunk's real length (``paged_rows_read``). Earlier
+    context (the slot's prior chunks, shared prefix pages) streams through
+    the page walk. A pad row whose fill limit is <= 0 reads nothing and
+    comes out as exact zeros."""
+    return paged_rows_read(q, k_pool, v_pool, block_table, kv_len,
+                           k_scale_pool=k_scale_pool,
+                           v_scale_pool=v_scale_pool, window=window)

@@ -13,13 +13,19 @@ samples of 32 tokens, then ``norm_tweak_ptq`` — ``--method smoothquant``
 is W4A8 (per-token int8 activations, the W8A8 kernel), ``--no-tweak``
 the plain quantizer. Traffic shapes come from serve/traffic.py
 (``--trace poisson|bursty|uniform``; ``--batch-frac`` labels that share of
-requests batch-class). ``--virtual-clock`` drives the run on the
-deterministic step clock instead of wall time.
+requests batch-class; ``--shared-prefix N`` starts every prompt with the
+same N tokens). ``--virtual-clock`` drives the run on the deterministic
+step clock instead of wall time.
+
+``--prefix-share`` reuses full prompt-prefix pages across requests and
+``--chunked-prefill N`` caps a prefill call at N tokens a slot;
+``--spec-decode`` (float params: ``--method none``) serves with a packed
+``--draft-bits`` 2 or 3 draft of the same params proposing up to
+``--spec-k`` tokens a round, and the report gives its acceptance.
 
 The JAX launcher's flags for features that later slices of the port
-bring (speculative decoding, tensor parallelism, preemption, faults,
-snapshots, prefix sharing, chunked prefill, deadlines, the static engine)
-are refused with the slice's name, never ignored.
+bring (tensor parallelism, preemption, faults, snapshots, deadlines, the
+static engine) are refused with the slice's name, never ignored.
 """
 from __future__ import annotations
 
@@ -40,14 +46,11 @@ from repro_torch.serve.engine import ContinuousEngine
 
 # flag -> (its default, the later slice that brings it; ROADMAP.md queue 1)
 _LATER = {
-    "spec_decode": (False, "self-speculative decoding"),
     "tp": (1, "multi-device serving"),
     "preempt": (False, "overload and faults"),
     "deadline": (None, "overload and faults"),
     "faults": (None, "overload and faults"),
     "snapshot_every": (0, "overload and faults"),
-    "prefix_share": (False, "chunked prefill and prefix sharing"),
-    "chunked_prefill": (0, "chunked prefill and prefix sharing"),
 }
 
 
@@ -107,23 +110,44 @@ def make_workload(cfg, args):
 
 
 def run_continuous(cfg, params, work, args, device):
-    """Warm the engine on every prefill bucket of the workload, reset its
-    counters, then replay the trace. Returns (engine, report)."""
+    """Warm the engine on every prefill bucket of the workload (with
+    ``--prefix-share`` in two waves, the second hitting the shared-prefix
+    floor so the suffix-prefill shapes run too), reset its counters and
+    the prefix index, then replay the trace. Returns (engine, report)."""
     plen_max = max(len(it.prompt) for it in work)
     bucket_up = -(-plen_max // args.prefill_bucket) * args.prefill_bucket
     eng = ContinuousEngine(cfg, params, n_slots=args.slots,
                            max_len=bucket_up + args.max_new_max,
                            page_size=args.page_size,
                            prefill_bucket=args.prefill_bucket,
+                           prefix_share=args.prefix_share,
+                           chunked_prefill=args.chunked_prefill,
+                           spec_decode=args.spec_decode,
+                           draft_bits=args.draft_bits, spec_k=args.spec_k,
                            seed=args.seed, device=device)
     buckets = sorted({eng._bucket(len(it.prompt)) for it in work})
-    for b in buckets:
-        for mn in sorted({2, args.max_new_max}):
-            eng.submit(np.zeros(b, np.int64), max_new=mn)
-    eng.run(max_steps=10_000)
-    print(f"warmed {len(buckets)} prefill buckets: {buckets}")
+    waves = 2 if args.prefix_share else 1
+    shared_floor = ((args.shared_prefix // args.page_size) * args.page_size
+                    if args.prefix_share else 0)
+    for wave in range(waves):
+        for b in buckets:
+            for mn in sorted({2, args.max_new_max}):
+                p = np.zeros(b, np.int64)
+                if wave > 0 and 0 < shared_floor < b:
+                    p[shared_floor:] = 1
+                eng.submit(p, max_new=mn)
+        eng.run(max_steps=10_000)
+    print(f"warmed {len(buckets)} prefill buckets ({waves} "
+          f"wave{'s' if waves > 1 else ''}): {buckets}")
+    # the report covers the timed run alone: counters, clock and the
+    # warm-up prompts' prefix registrations go
     eng.t = 0
     eng.n_decode_steps = eng.n_prefills = eng.n_prefill_tokens = 0
+    eng.n_shared_tokens = 0
+    eng.n_spec_rounds = eng.n_draft_tokens = eng.n_spec_emitted = 0
+    eng.spec_accept_sum[:] = 0
+    eng.spec_round_count[:] = 0
+    eng.pool.clear_prefix_cache()
     if device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -135,10 +159,20 @@ def run_continuous(cfg, params, work, args, device):
     total_tok = sum(len(r.tokens) for r in done)
     print(f"continuous: {len(done)} requests, {total_tok} tokens in "
           f"{dt:.2f}s ({total_tok / dt:.1f} tok/s; {eng.n_decode_steps} "
-          f"decode steps, {eng.n_prefills} prefills, "
-          f"{eng.n_prefill_tokens} prompt tokens)")
+          f"decode steps, {eng.n_prefills} prefills)")
+    print(f"  prefilled {eng.n_prefill_tokens} prompt tokens, "
+          f"{eng.n_shared_tokens} reused from the prefix cache "
+          f"({eng.pool.n_cached} pages cached)")
     print(traffic.format_report(report,
                                 unit="steps" if args.virtual_clock else "s"))
+    if args.spec_decode:
+        st = eng.spec_stats()
+        print(f"  spec     {st['rounds']} rounds, {st['draft_tokens']} draft "
+              f"tokens proposed, {st['accepted_draft_tokens']} accepted "
+              f"(rate {st['acceptance_rate']:.3f})")
+        print(f"  accepted len  mean {st['mean_accepted_len']:.2f} "
+              f"tokens/slot-round, per slot "
+              f"{st['per_slot_mean_accepted_len']}")
     print("request 0:", done[0].tokens)
     return eng, report
 
@@ -186,16 +220,26 @@ def parse_args(argv=None):
     ap.add_argument("--max-new-min", type=int, default=8)
     ap.add_argument("--max-new-max", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--prefix-share", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="reuse full prompt-prefix pages across requests")
+    ap.add_argument("--chunked-prefill", type=int, default=0,
+                    help="max tokens a prefill call takes a slot, rounded "
+                         "to pages (0 = the whole prompt in one call)")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="self-speculative decoding: a packed draft of the "
+                         "same params proposes, the target verifies "
+                         "(greedy output is the target-only stream)")
+    ap.add_argument("--draft-bits", type=int, default=2, choices=(2, 3),
+                    help="the draft's weight width")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="most draft proposals a round")
     # the JAX launcher's flags of later slices (refused unless default)
-    ap.add_argument("--spec-decode", action="store_true")
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--preempt", action="store_true")
     ap.add_argument("--deadline", type=float, default=None)
     ap.add_argument("--faults", type=int, default=None, metavar="SEED")
     ap.add_argument("--snapshot-every", type=int, default=0)
-    ap.add_argument("--prefix-share", action=argparse.BooleanOptionalAction,
-                    default=False)
-    ap.add_argument("--chunked-prefill", type=int, default=0)
     args = ap.parse_args(argv)
     for name, (default, later) in _LATER.items():
         if getattr(args, name) != default:
@@ -206,6 +250,11 @@ def parse_args(argv=None):
         raise SystemExit(f"--engine {args.engine}: the static-batch engine "
                          "is not ported yet (a later slice; ROADMAP.md, "
                          "queue 1)")
+    if args.spec_decode and args.method != "none":
+        # the pipeline hands back packed weights; the engine packs its own
+        # draft from the float params and refuses a packed tree
+        raise SystemExit("--spec-decode quantizes its own low-bit draft "
+                         "from the float params; use --method none")
     return args
 
 

@@ -1,6 +1,6 @@
 """GQA attention with a paged KV cache (port of ``repro.models.attention``).
 
-Four calls reach ``apply_attention``:
+Five calls reach ``apply_attention``:
 
   * no cache (``lm_forward``, the quantization pipeline): causal
     self-attention over the sequence; ``taps`` then captures each
@@ -14,7 +14,12 @@ Four calls reach ``apply_attention``:
     attends to itself (pad rows carry position -1, masked everywhere);
   * fused decode (``paged`` holds "block_table", one token per slot): the
     new token's K/V are scattered first, then the paged-attention kernel
-    walks each slot's block table with kv_len = fill + 1.
+    walks each slot's block table with kv_len = fill + 1;
+  * fused multi-row read (``paged`` holds "bt_rows" and "kv_len"): a later
+    prefill chunk, a suffix after shared prefix pages, or with "verify"
+    the speculative verify rows. The S rows are scattered first, then the
+    paged-attention kernel reads all of them in one page walk, row j at
+    fill position kv_len - S + j.
 
 Page pools are f32 ``(P, page, KVH, hd)`` tensors, or int8 with
 ``(P, page, KVH)`` f32 scale pools when ``cfg.kv_cache_bits == 8``. The
@@ -296,13 +301,26 @@ def apply_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
             q[:, 0], cache["k_pool"], cache["v_pool"], paged["block_table"],
             paged["kv_len"], k_scale_pool=cache.get("k_scale_pool"),
             v_scale_pool=cache.get("v_scale_pool"), window=window)[:, None]
+    elif "bt_rows" in paged and "kv_len" in paged:
+        # a later chunk, a suffix after shared prefix pages, or the
+        # speculative verify ("verify" in paged): scatter the S rows (pad
+        # rows and idle slots carry positions < 0 and land on the scratch
+        # page), then read all S rows in one page walk, row j at fill
+        # position kv_len - S + j
+        _paged_write_prefill(cache, k, v, positions, paged["bt_rows"])
+        read = (ops.paged_attention_verify if "verify" in paged
+                else ops.paged_attention_prefill)
+        o = read(q, cache["k_pool"], cache["v_pool"], paged["bt_rows"],
+                 paged["kv_len"], k_scale_pool=cache.get("k_scale_pool"),
+                 v_scale_pool=cache.get("v_scale_pool"), window=window)
     elif "bt_rows" in paged:
         # fresh full prompt: write the pages, self-attend to the prompt
         _paged_write_prefill(cache, k, v, positions, paged["bt_rows"])
         o = _core(cfg, q, k, v, positions, positions)
     else:
         raise ValueError("a paged cache needs 'block_table' (decode) or "
-                         "'bt_rows' (prefill) indices")
+                         "'bt_rows' (prefill, with 'kv_len' when the rows "
+                         "read earlier context) indices")
     o = o.reshape(b, s, h * hd)
     if taps is not None:
         taps[tap_prefix + "wo"] = o

@@ -127,12 +127,29 @@ def lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                paged: dict) -> torch.Tensor:
     """Prompt ingestion into the paged cache. tokens, positions (B, S), pads
     left with position -1 so the real last token sits at index -1; paged
-    holds the slots' block-table rows ("bt_rows"). Returns last-token
-    logits (B, V)."""
+    holds the slots' block-table rows ("bt_rows") and, for a later chunk
+    or a suffix after shared prefix pages, the fill counts after this call
+    ("kv_len"). Returns the logits of the last row, the chunk's last real
+    token (B, V)."""
     x = _embed(params, tokens)
     x, _ = _run_stack(cfg, params, x, positions=positions, cache=cache,
                       paged=paged)
     return _head(cfg, params, x[:, -1:, :])[:, 0, :]
+
+
+def lm_verify(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+              cache: dict, positions: torch.Tensor,
+              paged: dict) -> torch.Tensor:
+    """The speculative verify forward: score M tokens a slot in one pass.
+    tokens (B, M) = [the pending token, d_1..d_{M-1}]; positions (B, M),
+    -1 for idle slots; paged holds "bt_rows", "kv_len" (the fill counting
+    all M tokens) and the "verify" marker. Returns the logits of all M
+    rows (B, M, V): row m is the next-token distribution after the prefix
+    and tokens[:, :m + 1]."""
+    x = _embed(params, tokens)
+    x, _ = _run_stack(cfg, params, x, positions=positions, cache=cache,
+                      paged=paged)
+    return _head(cfg, params, x)
 
 
 def lm_decode(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

@@ -8,6 +8,12 @@ hits pool exhaustion mid-decode. A request whose budget exceeds the
 block-table width can never be admitted; it is retired as ``rejected``
 instead of blocking the queue.
 
+With ``prefix_share=True`` admission consults the pool's prefix index:
+the pages of the prompt's cached full-page prefix are stitched into the
+slot's block table (referenced, not copied), only the rest of the budget
+takes fresh pages, and ``req.n_shared`` tells the engine how many prompt
+tokens it need not prefill.
+
 Model-free: the execution core lives in serve/engine.py.
 """
 from __future__ import annotations
@@ -36,6 +42,7 @@ class Request:
     slot: int = -1
     done: bool = False
     rejected: bool = False          # structurally un-admittable (too wide)
+    n_shared: int = 0               # prompt tokens served from the prefix cache
     admitted_at: Optional[float] = None
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
@@ -69,13 +76,18 @@ class Request:
 class Scheduler:
     """FIFO admission over a fixed slot pool backed by a PagePool."""
 
-    def __init__(self, n_slots: int, pool: PagePool):
+    def __init__(self, n_slots: int, pool: PagePool,
+                 prefix_share: bool = False):
         self.n_slots = n_slots
         self.pool = pool
+        self.prefix_share = prefix_share
         self._pending: list[Request] = []     # submitted, sorted by arrival
         self.queue: deque[Request] = deque()  # arrived, waiting for a slot
         self.slots: list[Optional[Request]] = [None] * n_slots
         self._retired: list[Request] = []
+        # ((rid, pool generation), shared pages) of the blocked queue head,
+        # so a head waiting for pages does not hash its prompt every tick
+        self._hol_lookup: Optional[tuple[tuple[int, int], list[int]]] = None
 
     def submit(self, req: Request) -> None:
         # ties keep submission order
@@ -101,12 +113,24 @@ class Scheduler:
                 req.finished_at = now
                 self._retired.append(req)
                 continue
+            shared: list[int] = []
+            if self.prefix_share:
+                state = (req.rid, self.pool.generation)
+                if self._hol_lookup and self._hol_lookup[0] == state:
+                    shared = self._hol_lookup[1]
+                else:
+                    # safe across blocked ticks: eviction runs only inside
+                    # alloc, and every index change bumps the generation
+                    shared = self.pool.lookup_prefix(req.prompt)
+                    self._hol_lookup = (state, shared)
             free = [s for s, r in enumerate(self.slots) if r is None]
-            if not free or not self.pool.can_alloc(req.budget):
+            if not free or not self.pool.can_alloc(req.budget,
+                                                   shared_pages=shared):
                 break
             self.queue.popleft()
             slot = free[0]
-            self.pool.alloc(slot, req.budget)
+            self.pool.alloc(slot, req.budget, shared_pages=shared)
+            req.n_shared = len(shared) * self.pool.spec.page_size
             req.admitted_at = now
             req.slot = slot
             self.slots[slot] = req

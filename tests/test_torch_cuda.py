@@ -84,6 +84,121 @@ def test_paged_attention_kernel_matches_plain(gen, m_rows, quant, window,
     assert torch.all(got[0] == 0)                 # empty slot: exact zeros
 
 
+# the engine's multi-row reads: verify rows (M 2, 3, 5) and prefill chunks
+# (M 16, 64) at llama3.2-1b's GQA 4, hd 64, pages of 16, with fills below M
+# (rows at fill positions < 0 read nothing: exact zeros, as the plain
+# version gives)
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("m_rows,fills", [
+    (2, [0, 1, 2, 40, 77]), (3, [0, 2, 16, 33, 100]),
+    (5, [0, 3, 5, 64, 200]), (16, [0, 7, 16, 48, 129]),
+    (64, [0, 9, 63, 64, 300])])
+def test_multi_row_reads_match_plain(gen, m_rows, fills, quant):
+    s, kvh, ps, w, g, hd = 5, 2, 16, 20, 4, 64
+    n_pages = 1 + s * w
+    perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+            + 1).cpu()
+    bt = torch.full((s, w), -1, dtype=torch.int32)
+    nxt = 0
+    for si, f in enumerate(fills):
+        need = -(-f // ps)
+        bt[si, :need] = perm[nxt:nxt + need].to(torch.int32)
+        nxt += need
+    kf = torch.randn((n_pages, ps, kvh, hd), generator=gen, device="cuda")
+    vf = torch.randn((n_pages, ps, kvh, hd), generator=gen, device="cuda")
+    ks = vs = None
+    if quant:
+        ks = kf.abs().amax(-1) / 127.0
+        vs = vf.abs().amax(-1) / 127.0
+        kf = torch.round(kf / ks[..., None]).to(torch.int8)
+        vf = torch.round(vf / vs[..., None]).to(torch.int8)
+    q = torch.randn((s, m_rows, kvh * g, hd), generator=gen, device="cuda")
+    kl = torch.tensor(fills, dtype=torch.int32, device="cuda")
+    kw = dict(k_scale_pool=ks, v_scale_pool=vs)
+    before = ops.launch_counts()["paged_attention"]
+    got = ops.paged_attention_prefill(q, kf, vf, bt.cuda(), kl, **kw)
+    again = ops.paged_attention_verify(q, kf, vf, bt.cuda(), kl, **kw)
+    assert ops.launch_counts()["paged_attention"] == before + 2
+    cpu = {k: None if v is None else v.cpu() for k, v in kw.items()}
+    want = ops.paged_attention_prefill(q.cpu(), kf.cpu(), vf.cpu(), bt,
+                                       kl.cpu(), **cpu)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert torch.equal(got, again)
+    for si, f in enumerate(fills):
+        dead = torch.arange(m_rows) < m_rows - f
+        assert torch.all(got[si, dead.cuda()] == 0)
+
+
+def _smoke_engines(**engine_kw):
+    """SMOKE llama3.2-1b served on the CPU (plain versions) and on the card:
+    (the CPU run's tokens, the card's, the CPU engine, the card engine,
+    the card run's launch counts, the requests). The prompts share a
+    32-token head."""
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import ContinuousEngine
+
+    cfg = get_smoke_config("llama3.2-1b")
+    params = init_lm(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    head = rng.integers(0, cfg.vocab_size, 32)
+    reqs = [(np.concatenate([head, rng.integers(0, cfg.vocab_size,
+                                                int(rng.integers(4, 40)))]),
+             int(rng.integers(3, 12))) for _ in range(6)]
+    out, engines = {}, {}
+    for device in ("cpu", "cuda"):
+        eng = ContinuousEngine(cfg, params, n_slots=4, max_len=96,
+                               page_size=8, prefill_bucket=8, device=device,
+                               **engine_kw)
+        for i, (prompt, max_new) in enumerate(reqs):
+            eng.submit(prompt, max_new=max_new, arrival=float(i))
+        ops.reset_launch_counts()
+        out[device] = [r.tokens for r in eng.run(max_steps=500)]
+        engines[device] = eng
+        eng.pool.check_invariants()
+    return out, engines, ops.launch_counts(), reqs, cfg
+
+
+def _agree_but_near_ties(cfg, params, reqs, cpu_out, gpu_out):
+    """The card's tokens equal the CPU's up to the first flip, and a flip
+    sits at a near-tie of the CPU forward (it ends the comparable
+    prefix)."""
+    from repro_torch.models.transformer import lm_forward
+
+    for (prompt, _), cpu_toks, gpu_toks in zip(reqs, cpu_out, gpu_out):
+        seq = torch.tensor(np.concatenate([prompt, cpu_toks])[None])
+        logits = lm_forward(cfg, params, seq)[0][0, len(prompt) - 1:-1]
+        top2 = torch.topk(logits, 2, dim=-1).values
+        for i, (a, b) in enumerate(zip(cpu_toks, gpu_toks)):
+            if a != b:
+                assert float(top2[i, 0] - top2[i, 1]) <= 1e-3
+                break
+
+
+def test_prefix_chunked_engine_on_the_card_matches_the_cpu(gen):
+    """Prefix sharing and chunked prefill on the card: the same sharing as
+    the CPU run, the multi-row read launched, tokens as the CPU's but at
+    near-ties."""
+    out, eng, counts, reqs, cfg = _smoke_engines(
+        prefix_share=True, chunked_prefill=16, quant_bits=4, quant_group=32)
+    assert eng["cuda"].n_shared_tokens == eng["cpu"].n_shared_tokens > 0
+    assert eng["cuda"].n_prefills == eng["cpu"].n_prefills
+    assert counts["paged_attention"] > 0 and counts["dequant_matmul"] > 0
+    _agree_but_near_ties(cfg, eng["cpu"].params, reqs, out["cpu"],
+                         out["cuda"])
+
+
+def test_spec_engine_on_the_card_matches_the_cpu(gen):
+    """Speculative serving on the card (W4 g32 target, W2 draft): tokens as
+    the CPU's but at near-ties, every kernel of the round launched."""
+    out, eng, counts, reqs, cfg = _smoke_engines(
+        spec_decode=True, draft_bits=2, spec_k=4, quant_bits=4,
+        quant_group=32)
+    assert eng["cuda"].spec_stats()["rounds"] > 0
+    assert counts["paged_attention"] > 0 and counts["dequant_matmul"] > 0
+    _agree_but_near_ties(cfg, eng["cpu"].params, reqs, out["cpu"],
+                         out["cuda"])
+
+
 # (S, KVH, page, W, G, hd, fills, window, m_rows, n_split): Mixtral's hd
 # 128 and GQA 6 over a 1000-token window with enough pages that the
 # planner takes the full cluster of 8; llama's hd 64 at 4 splits with

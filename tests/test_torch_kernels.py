@@ -12,7 +12,9 @@ from repro.core.quant import types as jt
 from repro.kernels import ref as jref
 from repro.kernels.dequant_matmul import dequant_matmul_pallas
 from repro.kernels.paged_attention import paged_attention_pallas
-from repro.kernels.paged_harness import build_paged_case, build_verify_case
+from repro.kernels.paged_harness import (build_paged_case,
+                                        build_prefill_case,
+                                        build_verify_case)
 from repro_torch.core.quant import types as tt
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.channel_stats import channel_stats_cuda
@@ -140,6 +142,61 @@ def test_paged_attention_ref_matches_pallas(case):
     for si, f in enumerate(fills):
         if f == 0:
             assert np.all(o_t[si] == 0.0)
+
+
+# (S, W, page, KVH, G, hd, fills, window, kv_bits, M, pallas): the verify
+# rows (M 2, 3, 5: spec_k 1, 2, 4) and chunk rows (M 16, 64) of the
+# engine's reads, with fills below M (a chunk padded past its prompt: rows
+# at fill positions < 0, which read nothing and come out as zeros), an
+# empty slot, windows, f32 and int8 pools. Pallas interpret runs the
+# smaller cases (it walks each row chunk in Python); the JAX package's
+# jnp page walk runs all of them
+MULTI_ROW_CASES = [
+    (3, 4, 8, 2, 4, 64, [0, 2, 27], None, 0, 2, True),
+    (3, 4, 8, 2, 4, 64, [0, 1, 30], None, 8, 3, True),
+    (2, 6, 8, 2, 2, 16, [45, 4], 12, 8, 5, True),
+    (3, 4, 16, 2, 4, 64, [0, 9, 40], None, 0, 16, True),
+    (3, 6, 16, 2, 4, 64, [5, 64, 90], None, 8, 64, False),
+    (2, 8, 16, 2, 2, 16, [30, 128], 24, 0, 64, False),
+]
+
+
+@pytest.mark.parametrize("read", ["verify", "prefill"])
+@pytest.mark.parametrize("case", MULTI_ROW_CASES)
+def test_multi_row_reads_match_jax(case, read):
+    """``paged_attention_verify`` / ``paged_attention_prefill`` (the engine's
+    (S, M, H, hd) reads) against the JAX package's page walk and, where
+    cheap, Pallas interpret; rows whose fill limit is <= 0 and empty slots
+    are exact zeros on every side."""
+    s, w, ps, kvh, g, hd, fills, window, kv_bits, m, pallas = case
+    q, pools, bt, kv_len = build_prefill_case(5, s, m, w, ps, kvh, g, hd,
+                                              fills, kv_bits)
+    qg = q.reshape(s, m, kvh, g, hd).transpose(0, 2, 1, 3, 4).reshape(
+        s, kvh, m * g, hd)
+    jargs = (qg, pools["k_pool"], pools["v_pool"], bt, kv_len,
+             pools["k_scale_pool"], pools["v_scale_pool"])
+    want = [np.asarray(jref.paged_attention_ref(*jargs, window=window,
+                                                m_rows=m))]
+    if pallas:
+        want.append(np.asarray(paged_attention_pallas(
+            *jargs, window=window, m_rows=m, interpret=True)))
+    tp = _pools_f32(pools)
+    fn = (ops.paged_attention_verify if read == "verify"
+          else ops.paged_attention_prefill)
+    o = fn(torch.from_numpy(np.array(q)), tp["k_pool"], tp["v_pool"],
+           torch.from_numpy(np.array(bt)), torch.from_numpy(np.array(kv_len)),
+           k_scale_pool=tp["k_scale_pool"], v_scale_pool=tp["v_scale_pool"],
+           window=window).numpy()
+    assert o.shape == (s, m, kvh * g, hd)
+    o_g = o.reshape(s, m, kvh, g, hd).transpose(0, 2, 1, 3, 4).reshape(
+        s, kvh, m * g, hd)
+    for w_ in want:
+        # as test_paged_attention_ref_matches_pallas: 2e-5 absolute
+        np.testing.assert_allclose(o_g, w_, rtol=0, atol=2e-5)
+    for si, f in enumerate(fills):
+        dead = np.arange(m) < m - f          # fill position < 0
+        assert np.all(o[si, dead] == 0.0)
+    assert ops.launch_counts()["paged_attention"] == 0
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

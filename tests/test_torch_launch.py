@@ -1,5 +1,6 @@
 """The port's traffic harness and serving launcher: traces identical to the
-JAX package's, the launcher's pipeline end to end on the CPU, refusals of
+JAX package's, the launcher's pipeline end to end on the CPU, its prefix
+sharing, chunked prefill and speculative serving on the CPU, refusals of
 later slices' flags, and greedy W4A8 serving equal to the JAX engine's on
 the same norm-tweaked weights."""
 import jax
@@ -99,19 +100,66 @@ def test_launcher_runs_mixtral_on_cpu(method):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--spec-decode"], "self-speculative decoding"),
     (["--tp", "2"], "multi-device serving"),
     (["--preempt"], "overload and faults"),
     (["--faults", "3"], "overload and faults"),
     (["--snapshot-every", "4"], "overload and faults"),
     (["--deadline", "5"], "overload and faults"),
-    (["--prefix-share"], "chunked prefill and prefix sharing"),
-    (["--chunked-prefill", "16"], "chunked prefill and prefix sharing"),
     (["--engine", "static"], "static-batch engine"),
 ])
 def test_launcher_refuses_later_slices(flags, slice_name):
     with pytest.raises(SystemExit, match=slice_name):
         launcher.parse_args(LAUNCH + flags)
+
+
+def test_launcher_serves_with_prefix_sharing_and_chunks(capsys):
+    """``--prefix-share --chunked-prefill 16 --shared-prefix 16``: after the
+    two-wave warm-up the index is cleared, and with arrivals spread over
+    the virtual clock every request after the first reuses the 16-token
+    system prompt's page and prefills only the rest."""
+    eng, report, _ = launcher.main(
+        LAUNCH + ["--method", "none", "--prefix-share", "--chunked-prefill",
+                  "16", "--shared-prefix", "16", "--rate", "0.5",
+                  "--trace", "uniform"])
+    done = report["requests"]
+    assert len(done) == 5 and all(len(r.tokens) == r.max_new for r in done)
+    assert eng.prefix_share and eng.chunk_tokens == 16
+    assert [r.n_shared for r in done] == [0] + [16] * 4
+    assert eng.n_shared_tokens == 16 * 4
+    assert eng.n_prefill_tokens + eng.n_shared_tokens == sum(
+        r.n_prompt for r in done)
+    eng.pool.check_invariants()
+    out = capsys.readouterr().out
+    assert "(2 waves)" in out
+    assert "64 reused from the prefix cache" in out
+
+
+def test_launcher_serves_speculatively(capsys):
+    """``--spec-decode --method none``: the engine packs a W3 draft of the
+    float params and the report gives the acceptance counters."""
+    eng, report, stats = launcher.main(
+        LAUNCH + ["--method", "none", "--spec-decode", "--draft-bits", "3",
+                  "--spec-k", "2"])
+    assert stats is None and eng.spec_decode and eng.spec_k == 2
+    assert all(isinstance(lin["w"], QuantizedTensor) and lin["w"].bits == 3
+               for sub in ("attn", "mlp")
+               for lin in eng.draft_params["stack"]["p0"][sub].values())
+    done = report["requests"]
+    assert all(len(r.tokens) == r.max_new for r in done)
+    st = eng.spec_stats()
+    assert st["emitted_tokens"] == sum(len(r.tokens) for r in done) - 5
+    out = capsys.readouterr().out
+    assert "draft tokens proposed" in out and "accepted len" in out
+
+
+def test_launcher_refuses_spec_on_a_pipeline():
+    """The pipeline hands back packed weights, and the draft is packed from
+    the float params: --spec-decode needs --method none."""
+    with pytest.raises(SystemExit, match="--method none"):
+        launcher.parse_args(LAUNCH + ["--spec-decode", "--method", "gptq"])
+    with pytest.raises(SystemExit):
+        launcher.parse_args(LAUNCH + ["--spec-decode", "--method", "none",
+                                      "--draft-bits", "4"])
 
 
 # tests/test_torch_engine.py's shrunken TINY in both packages
