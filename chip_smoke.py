@@ -7,7 +7,7 @@ Builds the seven CUDA kernels from src/repro_torch/kernels/csrc/ (nvcc,
 at first use, all in parallel) and holds each against its plain PyTorch
 version on the card at the shapes the main paths give it (the paged read
 also at the verify's and a prefill chunk's rows, and at fills below
-them). Then it drives fifteen paths, each with the kernels' launch counts
+them). Then it drives eighteen paths, each with the kernels' launch counts
 set to 0 just before it and read just after. First the paper's quality
 path on TINY (d 192, 8 layers, the model the JAX package measures quality
 on), modelled on the JAX package's benchmarks/common.py, nt_common.py and
@@ -45,16 +45,34 @@ Then on llama3.2-1b at full width and depth, with seeded random weights:
   6. speculative serving: a W4 g128 target and a W2 g128 draft packed from
      the same float params (8 requests), each round the draft's k + 1
      decode steps and the target's one verify at m_rows k + 1;
-  7. the paper's pipeline through the launcher's ``build_params`` — 8 x 32
+  7. overload (modelled on the JAX package's benchmarks/overload_bench.py):
+     W4 g128 packed once, one bursty trace of 24 requests (half batch
+     class) on the step clock through 4 slots and 32 pages, class-blind
+     and then with priorities, preemption (owned KV pages spilled to host
+     RAM, scattered back on restore, the restored slot's decode reading
+     them through the paged kernel) and aging; the scheduler's events
+     held against the same trace through the port on the host CPU at the
+     shrunk TINY;
+  8. faults: the same params, geometry and trace with a 20-step deadline,
+     through ``run_resilient`` with each fault kind once (a NaN slot
+     quarantined, a corrupt spill caught by its checksum, a pool hold, a
+     latency spike, and two crashes: a step exception and a kernel fault,
+     which has no fallback read), snapshots every 8 steps through the
+     disk and the debug check after every step; events and counters held
+     against the host CPU's run of the same plan; snapshot, restore, save
+     and load timed at this size;
+  9. the static ServeEngine on the same params: 8 prompts of 64 tokens,
+     32 new, over a contiguous cache (no paged read);
+  10. the paper's pipeline through the launcher's ``build_params`` — 8 x 32
      self-generated calibration tokens, then GPTQ W4 g128 + norm
-     tweaking on 4 of the 16 layers (path 10 runs all 16), then
+     tweaking on 4 of the 16 layers (path 13 runs all 16), then
      SmoothQuant W4A8 + norm tweaking — with layer 0 quantized and
      tweaked again on a CPU copy of its inputs and held against the card;
-  8. serving the SmoothQuant W4A8 + NT model (the same workload as 4),
+  11. serving the SmoothQuant W4A8 + NT model (the same workload as 4),
      every quantized linear on the W8A8 kernel;
-  9. AWQ W4 g128 + NT through the same ``build_params``, layer 0 again on
+  12. AWQ W4 g128 + NT through the same ``build_params``, layer 0 again on
      the CPU;
-  10. the paper's own configuration: 128 self-generated samples of 2048
+  13. the paper's own configuration: 128 self-generated samples of 2048
      tokens, GPTQ W4 g128 + NT with the reference defaults (the chunked
      attention core in every apply and tweak step, the channel-statistics
      kernel twice a tweak step), layer 0 run again on the card with every
@@ -71,11 +89,10 @@ the CPU), and serving the W4A8 + NT model. Each MoE decode step's launches
 are asserted exactly.
 
 Every served greedy token is held against a plain forward over the same
-sequence. On llama3.2-1b it runs on a CPU copy of the served params, one
-right-padded batch (paths 5 and 6: the same forward on the card with
-every kernel replaced by its plain version). Every serving path's decode
-steps' launches are asserted exactly, and on paths 3, 5 and 6 every
-prefill call's and speculative round's too. An MoE routes with a
+sequence. On llama3.2-1b it is one right-padded batch on the card with
+every kernel replaced by its plain version (``plain_kernels``). Every
+serving path's decode steps' launches are asserted exactly, and on paths
+3, 5 and 6 every prefill call's and speculative round's too. An MoE routes with a
 capacity that counts a prefill's padded tokens, so there the plain
 forward replays what the engine
 computed: each prompt prefilled alone, padded to its bucket, then the
@@ -136,6 +153,36 @@ SPEC_ENGINE = dict(spec_decode=True, draft_bits=2, spec_k=4)
 # speculative serving on the trained TINY: 8 prompts of 64 held-out tokens,
 # 64 new tokens each; a W4 per-channel target, W2 and W3 per-channel drafts
 SPEC_TINY = dict(n_requests=8, prompt_len=64, new=64, max_len=128)
+# overload and faults on llama3.2-1b (modelled on the JAX package's
+# benchmarks/overload_bench.py): one bursty trace of 24 requests (bursts
+# at 8x the rate for 1 step, 12 idle steps between), half of them batch
+# class; prompts 32-128 tokens, interactive requests 8-16 new tokens, batch
+# ones 64, so a batch budget is up to 12 pages of 16 tokens. 4 slots and 32
+# allocatable pages (1 MiB each in f32 at llama's 16 layers x 8 kv heads x
+# hd 64): four batch budgets cannot fit at once, so preemption must fire
+OVERLOAD_WORK = dict(n=24, rate=1.0, burst_len=1.0, idle_len=12.0,
+                     burst_rate_mult=8.0, batch_frac=0.5,
+                     prompt_len=(32, 128), max_new=(8, 16))
+OVERLOAD_BATCH_NEW = 64
+OVERLOAD_ENGINE = dict(n_slots=4, page_size=16, n_pages=33,
+                       prefill_bucket=16)
+AGE_PROMOTE = 200.0
+# the fault run: every request's deadline 20 steps after its arrival (the
+# host run sheds 1 request and cancels 4); a snapshot every 8 steps through
+# save_snapshot / load_snapshot; each fault kind once, at steps a host run
+# of the same trace and geometry (the shrunk TINY on the CPU) shows reach
+# its path: the corrupt spill before the first preemption, the NaN on a
+# slot that decodes then. Fields: (step, kind, slot, pages, duration)
+FAULTS_DEADLINE = 20.0
+SNAPSHOT_EVERY = 8
+FAULTS_PLAN = [(1, "spill_corrupt"), (6, "nan_logits", 0),
+               (11, "step_exception"), (16, "pool_exhaust", -1, 6, 5),
+               (22, "kernel_fault"), (30, "latency_spike", -1, 0, 6)]
+# the static engine on llama3.2-1b: 8 prompts of 64 tokens, 32 new, greedy
+STATIC_WORK = dict(n_prompts=8, prompt_len=64, new=32)
+# the tests' shrunk TINY (d 64, 2 layers): the host CPU runs the overload
+# and fault traces on it to hold the card's scheduling decisions against
+HOST_TINY = dict(n_repeats=2, d_model=64, head_dim=16, d_ff=128)
 # the Mixtral one: fewer and shorter requests, one prompt a prefill, so the
 # plain replay routes each prompt as the engine did
 MOE_WORK = dict(n_requests=8, prompt_lens=(16, 129), new_lens=(16, 33),
@@ -189,6 +236,9 @@ CARD_SHIFT_MOE = 1.0
 # seconds of each phase (path with its checks), printed on the "phases"
 # line so a phase that drifts between machines shows by name
 PHASE_S: dict = {}
+# the card's name and power limit (nvidia-smi), set by main(): every line
+# of the overload, fault and static phases carries it
+CARD = ""
 
 
 @contextlib.contextmanager
@@ -1198,7 +1248,10 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
       * the same forward with the kernels (every linear on its kernel)
         moves no served position's logits by more than the margin from
         the plain ones. With ``replay`` the margin is twice that shift
-        instead, and the shift is held to CARD_SHIFT_MOE (see NOISE)."""
+        instead, and the shift is held to CARD_SHIFT_MOE (see NOISE).
+
+    Returns the plain forward's logits at the served positions, per
+    request."""
     from repro_torch.core.quant.deploy import to_device
 
     t0 = time.perf_counter()
@@ -1304,6 +1357,7 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
     if failed:
         raise AssertionError(f"served tokens disagree with the plain "
                              f"forward: {line}")
+    return preds
 
 
 # --------------------------------------------------------- pipeline phase
@@ -2195,6 +2249,403 @@ def serve_spec_phase(cfg):
     return stats
 
 
+# ------------------------------------------- overload, faults, static
+#
+# Slice 11: the preempting scheduler with KV spill and restore, deadlines,
+# fault injection with snapshots and crash recovery, and the static engine,
+# on llama3.2-1b W4 g128. A restored slot's decode reads its scattered-back
+# pages through the paged kernel.
+
+def overload_trace(vocab: int, deadline=None):
+    """OVERLOAD_WORK's seeded trace, batch requests stretched to
+    OVERLOAD_BATCH_NEW new tokens (the overload's source)."""
+    from repro_torch.serve import traffic
+
+    trace = traffic.make_trace(kind="bursty", seed=SEED, vocab_size=vocab,
+                               deadline=deadline, **OVERLOAD_WORK)
+    for it in trace:
+        if it.priority == 1:
+            it.max_new = OVERLOAD_BATCH_NEW
+    return trace
+
+
+def overload_geometry(trace) -> dict:
+    """The engine geometry of the overload and fault runs: OVERLOAD_ENGINE
+    and slots as long as the trace's longest budget plus a page."""
+    page = OVERLOAD_ENGINE["page_size"]
+    return dict(OVERLOAD_ENGINE, max_len=max(len(it.prompt) + it.max_new
+                                             for it in trace) + page)
+
+
+def host_tiny():
+    """(the shrunk TINY, its seeded float params on the CPU)."""
+    from repro_torch.configs import TINY
+    from repro_torch.models.transformer import init_lm
+
+    cfg = TINY.replace(**HOST_TINY)
+    return cfg, init_lm(cfg, seed=SEED, device="cpu")
+
+
+def host_trace(trace, vocab: int):
+    """The trace with its prompt tokens taken modulo ``vocab``: with
+    eos_id -1 no scheduling decision depends on a token."""
+    import dataclasses
+
+    return [dataclasses.replace(it, prompt=np.asarray(it.prompt) % vocab)
+            for it in trace]
+
+
+def _submit_trace(engine, trace, class_blind=False):
+    return [engine.submit(it.prompt, max_new=it.max_new, arrival=it.arrival,
+                          priority=0 if class_blind else it.priority,
+                          deadline=it.deadline) for it in trace]
+
+
+def host_overload_events(trace, class_blind, **engine_kw):
+    """The scheduler's events and stats of ``trace`` through the port's
+    engine on the host CPU at the shrunk TINY, same geometry."""
+    from repro_torch.serve.engine import ContinuousEngine
+
+    cfg, params = host_tiny()
+    eng = ContinuousEngine(cfg, params, seed=SEED, device="cpu",
+                           **overload_geometry(trace), **engine_kw)
+    _submit_trace(eng, host_trace(trace, cfg.vocab_size), class_blind)
+    eng.run(max_steps=100_000)
+    return list(eng.sched.events), eng.sched.stats()
+
+
+def serve_trace(cfg, params, label, trace, class_blind=False, **engine_kw):
+    """Replay ``trace`` on the virtual clock through a ContinuousEngine on
+    the card (``params`` already packed), OVERLOAD_ENGINE's geometry;
+    ``class_blind`` submits every request as interactive (the requests
+    keep their class label for the report). Launch counts are reset just
+    before and read just after; each decode block's are summed, and a
+    decode block that steps a slot restored from a spill counts apart.
+    Returns (engine, finished requests, stats)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import traffic
+    from repro_torch.serve.engine import ContinuousEngine
+
+    engine = ContinuousEngine(cfg, params, seed=SEED, device="cuda",
+                              **overload_geometry(trace), **engine_kw)
+    ops.reset_launch_counts()
+    decode_launches = dict.fromkeys(ops.launch_counts(), 0)
+    restored_slots: set = set()
+    restored_reads = dict(blocks=0, paged_attention=0)
+    real_decode, real_restore = engine._decode_block, engine._restore_slot
+
+    def decode_block():
+        before = ops.launch_counts()
+        reads_restored = bool(restored_slots & set(
+            np.nonzero(engine.active)[0].tolist()))
+        out = real_decode()
+        for name, n in ops.launch_counts().items():
+            decode_launches[name] += n - before[name]
+        if reads_restored:
+            restored_reads["blocks"] += 1
+            restored_reads["paged_attention"] += (
+                ops.launch_counts()["paged_attention"]
+                - before["paged_attention"])
+        return out
+
+    def restore_slot(slot, req, now):
+        real_restore(slot, req, now)
+        if req.error is None:
+            restored_slots.add(slot)
+
+    engine._decode_block = decode_block
+    engine._restore_slot = restore_slot
+    reqs = _submit_trace(engine, trace, class_blind)
+    t0 = time.perf_counter()
+    done = engine.run(max_steps=100_000)
+    sync("cuda")
+    wall = time.perf_counter() - t0
+    for r, it in zip(reqs, trace):
+        r.priority = it.priority            # the class label, for the report
+    launches = ops.launch_counts()
+    if len(done) != len(trace) or not all(r.done for r in done):
+        raise AssertionError(f"{label}: {len(done)} of {len(trace)} done")
+    engine.pool.check_invariants()
+    if (engine.pool.n_free != engine.spec.n_pages - 1
+            or np.any(engine.pool.tables != -1)):
+        raise AssertionError(f"{label}: the pool is not whole after the "
+                             f"drain")
+    report = traffic.summarize(done)
+    n_tok = sum(len(r.tokens) for r in done)
+    cls = {name: dict(ttft_p50_steps=m["ttft_p50"],
+                      ttft_p95_steps=m["ttft_p95"],
+                      tpot_p50_steps=m["tpot_p50"], n=m["n"],
+                      n_served=m["n_served"], tokens=m["tokens"])
+           for name, m in report["classes"].items()}
+    stats = dict(path=label, card=CARD, requests=len(done), tokens=n_tok,
+                 wall_s=wall, tokens_per_s=n_tok / wall,
+                 virtual_steps=engine.t, classes=cls,
+                 scheduler=engine.sched.stats(),
+                 spilled_pages=engine.n_spilled_pages,
+                 restored_pages=engine.n_restored_pages,
+                 preempted_rids=[r.rid for r in done if r.n_preempts],
+                 decode_steps=engine.n_decode_steps,
+                 prefill_calls=engine.n_prefills, launches=launches,
+                 run_launches=launches, decode_launches=decode_launches,
+                 restored_decode_blocks=restored_reads)
+    print("serve_trace", json.dumps(stats))
+    return engine, done, stats
+
+
+def same_tokens_but_near_ties(label, got, want, preds, rids):
+    """Each request's tokens in ``got`` equal ``want``'s (the run the plain
+    logits ``preds`` were taken over, by rid) up to the first position
+    where they differ, and there the plain forward's top-2 margin is at
+    most MARGIN: the runs batch their requests differently (other prefill
+    groups, so other dense bodies; other read widths, so other page-walk
+    splits), and on the card a last-bit difference may flip a near-tie
+    and the rest of that stream with it. Returns (requests equal
+    throughout, the flips as (rid, position, margin))."""
+    same, flips, bad = 0, [], []
+    for rid in rids:
+        a, b = got[rid], want[rid]
+        if a == b:
+            same += 1
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        top2 = torch.topk(preds[rid][i], 2).values
+        gap = float(top2[0] - top2[1])
+        flips.append((rid, i, gap))
+        if gap > MARGIN or len(a) != len(b):
+            bad.append((rid, i, gap, len(a), len(b)))
+    line = dict(path=label, card=CARD, requests=len(rids), identical=same,
+                flips=flips)
+    print("token_identity", json.dumps(line))
+    if bad:
+        raise AssertionError(f"{label}: tokens differ away from a near-tie: "
+                             f"{bad}")
+    return same, flips
+
+
+def serve_overload_phase(cfg):
+    """llama3.2-1b W4 g128 (packed once) serving one bursty trace twice,
+    as benchmarks/overload_bench.py does: class-blind (every request
+    interactive, no preemption) and with priorities, preemption and aging.
+    Asserted: the same greedy tokens in both runs for every request; at
+    least one preemption, each restored, the spilled pages all scattered
+    back, a decode block stepping a restored slot through the paged
+    kernel; every decode step 112 dense and 16 paged launches; the pool
+    whole after each drain; the served tokens against the plain forward on
+    the card; each run's events equal the host CPU's run of the trace at
+    the shrunk TINY. The two runs batch their requests differently, so
+    a request's tokens may part at a near-tie of the plain forward
+    (``same_tokens_but_near_ties``). Returns (packed params, the preempting
+    run's tokens and plain logits by rid, stats)."""
+    from repro_torch.core.quant.deploy import quantize_params_for_serving
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+
+    n_lin, n_attn = 7 * cfg.n_repeats, cfg.n_repeats
+    ops.reset_launch_counts()
+    params = quantize_params_for_serving(
+        cfg, init_lm(cfg, seed=SEED, device="cuda"), bits=4, group_size=128,
+        device="cuda")
+    pack_launches = ops.launch_counts()
+    trace = overload_trace(cfg.vocab_size)
+    runs, stats = {}, dict(path="serve_overload_w4", card=CARD)
+    total = dict(pack_launches)
+    for name, kw in (("class_blind", dict(class_blind=True)),
+                     ("preempt", dict(preempt=True,
+                                      age_promote=AGE_PROMOTE))):
+        engine, done, st = serve_trace(cfg, params,
+                                       f"serve_overload_w4/{name}", trace,
+                                       **kw)
+        assert_decode_launches(st, {"dequant_matmul": n_lin,
+                                    "paged_attention": n_attn})
+        host_kw = {k: v for k, v in kw.items() if k != "class_blind"}
+        host = host_overload_events(trace, kw.get("class_blind", False),
+                                    **host_kw)
+        if (list(engine.sched.events), engine.sched.stats()) != host:
+            raise AssertionError(f"serve_overload_w4/{name}: the card's "
+                                 f"events differ from the host run's")
+        runs[name] = (engine, done)
+        stats[name] = st
+        total = {k: total[k] + st["launches"][k] for k in total}
+    toks = {name: {r.rid: list(r.tokens) for r in done}
+            for name, (_, done) in runs.items()}
+    engine, done = runs["preempt"]
+    preds = dict(zip((r.rid for r in done),
+                     check_against_plain(cfg, engine, done,
+                                         plain_on_card=True)))
+    stats["identical"], stats["flips"] = same_tokens_but_near_ties(
+        "serve_overload_w4", toks["class_blind"], toks["preempt"], preds,
+        sorted(toks["preempt"]))
+    pre = stats["preempt"]
+    sc = pre["scheduler"]
+    if not (sc["n_preemptions"] >= 1
+            and sc["n_restored"] == sc["n_preemptions"]
+            and pre["spilled_pages"] == pre["restored_pages"] > 0
+            and pre["restored_decode_blocks"]["paged_attention"] > 0):
+        raise AssertionError(f"serve_overload_w4: preemption {sc}, pages "
+                             f"{pre['spilled_pages']} / "
+                             f"{pre['restored_pages']}, restored reads "
+                             f"{pre['restored_decode_blocks']}")
+    stats.update(launches=total, pack_launches=pack_launches)
+    print("serve_overload", json.dumps({k: stats[k] for k in (
+        "path", "card", "pack_launches")} | {
+        name: {k: stats[name][k] for k in ("classes", "wall_s",
+                                           "tokens_per_s", "virtual_steps",
+                                           "scheduler", "spilled_pages",
+                                           "restored_pages")}
+        for name in runs}))
+    return params, (toks["preempt"], preds), stats
+
+
+def serve_faults_phase(cfg, params, want):
+    """The same packed params, geometry and trace with a deadline of
+    FAULTS_DEADLINE steps, through run_resilient with FAULTS_PLAN (each
+    fault kind once), snapshots every SNAPSHOT_EVERY steps through the
+    disk, and the debug check after every step. Asserted: two crashes
+    recovered (the step_exception and the kernel_fault: the port has no
+    fallback read), each fault's path reached, every request no fault
+    touched with the tokens of the preempting overload run, no leaked or
+    held page after the drain (a request's tokens may part from that
+    run's at a near-tie, as in the overload phase); events, scheduler
+    stats and fault stats
+    equal the host CPU's run of the same plan at the shrunk TINY. Then
+    snapshot(), restore(), save and load are timed at this engine size."""
+    from repro_torch.checkpoint.store import load_snapshot, save_snapshot
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ContinuousEngine
+    from repro_torch.serve.faults import Fault, FaultPlan, run_resilient
+
+    ops.reset_launch_counts()
+    trace = overload_trace(cfg.vocab_size, deadline=FAULTS_DEADLINE)
+    kw = dict(overload_geometry(trace), preempt=True,
+              age_promote=AGE_PROMOTE, debug=True, seed=SEED)
+
+    def plan():
+        return FaultPlan([Fault(*f) for f in FAULTS_PLAN])
+
+    def build():
+        return ContinuousEngine(cfg, params, device="cuda", **kw)
+
+    hcfg, hparams = host_tiny()
+    host = run_resilient(
+        lambda: ContinuousEngine(hcfg, hparams, device="cpu", **kw),
+        host_trace(trace, hcfg.vocab_size), faults=plan(),
+        snapshot_every=SNAPSHOT_EVERY)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = run_resilient(build, trace, faults=plan(),
+                            snapshot_every=SNAPSHOT_EVERY,
+                            store_dir=str(Path(tmp) / "snap"))
+        sync("cuda")
+        wall = time.perf_counter() - t0
+        eng = res["engine"]
+        fs = eng.fault_stats()
+        crashes = sorted(f.kind for f in res["crashes"])
+        done = res["requests"]
+        untouched = [r.rid for r in done
+                     if not (r.error or r.shed or r.cancelled)]
+        same, flips = same_tokens_but_near_ties(
+            "serve_faults_w4", {r.rid: list(r.tokens) for r in done},
+            want[0], want[1], untouched)
+        eng.pool.check_invariants()
+        got = (list(eng.sched.events), eng.sched.stats(), fs)
+        want = (list(host["engine"].sched.events),
+                host["engine"].sched.stats(), host["engine"].fault_stats())
+        failed = []
+        if crashes != ["kernel_fault", "step_exception"]:
+            failed.append(("crashes", crashes))
+        if ((fs["n_spill_corruptions"], fs["n_spill_checksum_fails"],
+                fs["n_nonfinite"]) != (1, 1, 1)
+                or not fs["n_shed"] or not fs["n_cancelled"]):
+            failed.append(("paths", fs))
+        if not untouched:
+            failed.append(("untouched", untouched))
+        if (np.any(eng.pool.tables != -1) or fs["held_pages"]
+                or eng.pool.n_free != eng.spec.n_pages - 1):
+            failed.append(("pages", fs["held_pages"], eng.pool.n_free))
+        if got != want:
+            failed.append(("host", got[1:], want[1:]))
+        # the state operations at this engine's size, medians of 3
+        times = {k: [] for k in ("snapshot", "save", "load", "restore")}
+        path = str(Path(tmp) / "timed")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            snap = eng.snapshot()
+            times["snapshot"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            save_snapshot(path, snap)
+            times["save"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            snap = load_snapshot(path)
+            times["load"].append(time.perf_counter() - t0)
+            fresh = build()
+            sync("cuda")
+            t0 = time.perf_counter()
+            fresh.restore(snap)
+            sync("cuda")
+            times["restore"].append(time.perf_counter() - t0)
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for p in eng.cache["stack"].values() for t in p.values())
+    stats = dict(path="serve_faults_w4", card=CARD, wall_s=wall,
+                 n_crashes=res["n_crashes"], crashes=crashes,
+                 n_snapshots=res["n_snapshots"], fault_stats=fs,
+                 scheduler=eng.sched.stats(), requests=len(done),
+                 untouched=len(untouched), identical=same, flips=flips,
+                 shed=sum(r.shed for r in done),
+                 cancelled=sum(r.cancelled for r in done),
+                 errors=sorted((r.rid, r.error) for r in done if r.error),
+                 kv_pool_bytes=kv_bytes,
+                 state_ms={k: float(np.median(v)) * 1e3
+                           for k, v in times.items()},
+                 launches=ops.launch_counts())
+    print("serve_faults", json.dumps(stats))
+    if failed:
+        raise AssertionError(f"serve_faults_w4: {failed}")
+    return stats
+
+
+def serve_static_phase(cfg, params):
+    """The static ServeEngine on the packed params: STATIC_WORK's prompts
+    prefilled together into a contiguous cache, then lockstep greedy
+    decode. Asserted: the tokens against the plain forward on the card;
+    112 dense launches a forward (the prefill and each of the new - 1
+    decode steps) and no paged read."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import Request
+
+    n_lin = 7 * cfg.n_repeats
+    w = STATIC_WORK
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (w["n_prompts"], w["prompt_len"])).astype(
+                               np.int32)
+    engine = ServeEngine(cfg, params, device="cuda")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, max_new=w["new"])
+    sync("cuda")
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want["dequant_matmul"] = n_lin * w["new"]
+    done = []
+    for i, p in enumerate(prompts):
+        r = Request(rid=i, prompt=p, max_new=w["new"])
+        r.tokens = [int(t) for t in res.tokens[i]]
+        done.append(r)
+    stats = dict(path="serve_static_w4", card=CARD, wall_s=wall,
+                 tokens=int(res.tokens.size),
+                 tokens_per_s=res.tokens.size / wall, launches=launches,
+                 run_launches=launches)
+    print("serve_static", json.dumps(stats))
+    if launches != want:
+        raise AssertionError(f"serve_static_w4: launches {launches}, want "
+                             f"{want}")
+    check_against_plain(cfg, engine, done, plain_on_card=True)
+    return stats
+
+
 def llama_paths(cfg):
     """The llama3.2-1b paths; returns their metrics by path name."""
     from repro_torch.models.transformer import init_lm
@@ -2206,7 +2657,7 @@ def llama_paths(cfg):
         engine, done, out["serve_w4"] = serve(
             cfg, init_lm(cfg, seed=SEED, device="cuda"), "serve_w4",
             LLAMA_WORK, quant_bits=4, quant_group=128)
-        check_against_plain(cfg, engine, done)
+        check_against_plain(cfg, engine, done, plain_on_card=True)
         assert_decode_launches(out["serve_w4"], {"dequant_matmul": n_lin,
                                                  "paged_attention":
                                                  cfg.n_repeats})
@@ -2219,6 +2670,21 @@ def llama_paths(cfg):
         release()
     with phase("serve_spec_w4"):
         out["serve_spec_w4"] = serve_spec_phase(cfg)
+        release()
+    # slice 11: overload (preemption with KV spill and restore), faults
+    # (deadlines, injection, snapshots, crash recovery), the static engine
+    with phase("serve_overload_w4"):
+        params, preempt_run, out["serve_overload_w4"] = (
+            serve_overload_phase(cfg))
+        release()
+    with phase("serve_faults_w4"):
+        out["serve_faults_w4"] = serve_faults_phase(cfg, params,
+                                                    preempt_run)
+        del preempt_run
+        release()
+    with phase("serve_static_w4"):
+        out["serve_static_w4"] = serve_static_phase(cfg, params)
+        del params
         release()
     # path 2: the paper's pipeline, GPTQ W4 g128 + NT (4 of the 16 layers),
     # SmoothQuant W4A8 + NT
@@ -2235,7 +2701,8 @@ def llama_paths(cfg):
         engine, done, out["serve_w4a8"] = serve(cfg, params, "serve_w4a8",
                                                 LLAMA_WORK)
         del params
-        check_against_plain(cfg, engine, done, measure_margin=True)
+        check_against_plain(cfg, engine, done, measure_margin=True,
+                            plain_on_card=True)
         assert_decode_launches(out["serve_w4a8"], {"w8a8_matmul": n_lin,
                                                    "paged_attention":
                                                    cfg.n_repeats})
@@ -2313,8 +2780,10 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
 
+    global CARD
     resolve_device("cuda")            # pins full-f32 matmuls (no TF32)
-    print(nvidia_smi())
+    CARD = nvidia_smi()
+    print(CARD)
     t_all = time.perf_counter()
     with phase("kernel_build"):
         built = build.build()

@@ -17,8 +17,15 @@ shape below the layer dim for a weight under "stack/", what the
 reference's pipeline writes; ``load_tree`` reads either, taking the
 leading dims from the codes and the trailing (K, N) from the shape.
 
-The engine snapshots (``save_snapshot`` / ``load_snapshot``) come with the
-overload and faults slice (ROADMAP.md queue 1 item 4).
+Engine snapshots (``save_snapshot`` / ``load_snapshot``) have a codec of
+their own, the JAX package's: ``ContinuousEngine.snapshot()`` is a nested
+structure (dicts with int keys, tuples, bytes, arrays at any depth) that
+'/'-joined paths cannot hold, so the arrays go into one npz and the rest
+into a tagged JSON manifest that decodes to the same structure, key types
+and tuples included (format tag ``engine-snapshot-v1``). A bf16 array is
+stored as its uint16 bits, tagged "bfloat16", as the JAX package stores
+it; numpy has no bf16, so the port reads such an array back as a bf16
+tensor. A snapshot written by either package decodes in the other.
 """
 from __future__ import annotations
 
@@ -115,6 +122,99 @@ def _from_plain(tree: Any, dev: torch.device) -> Any:
     if isinstance(tree, np.ndarray):
         return torch.from_numpy(tree).to(dev)
     return tree
+
+
+# ------------------------------------------------------- engine snapshots
+
+_ND, _TUP, _BYTES, _ITEMS, _BF16 = ("__nd__", "__tuple__", "__bytes__",
+                                    "__items__", "bfloat16")
+_SNAP_FORMAT = "engine-snapshot-v1"
+
+
+def _snap_encode(obj: Any, arrays: list) -> Any:
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
+        arrays.append(obj)
+        return {_ND: len(arrays) - 1}
+    if isinstance(obj, np.generic):
+        return _snap_encode(obj.item(), arrays)
+    if isinstance(obj, bytes):
+        return {_BYTES: obj.hex()}
+    if isinstance(obj, tuple):
+        return {_TUP: [_snap_encode(v, arrays) for v in obj]}
+    if isinstance(obj, list):
+        return [_snap_encode(v, arrays) for v in obj]
+    if isinstance(obj, dict):
+        # (key, value) pairs: int slot and rid keys stay ints
+        return {_ITEMS: [[_snap_encode(k, arrays), _snap_encode(v, arrays)]
+                         for k, v in obj.items()]}
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    raise TypeError(f"snapshot codec cannot serialize {type(obj)!r}")
+
+
+def _snap_decode(obj: Any, arrays: dict) -> Any:
+    if isinstance(obj, dict):
+        if _ND in obj:
+            return arrays[f"a{obj[_ND]}"]
+        if _BYTES in obj:
+            return bytes.fromhex(obj[_BYTES])
+        if _TUP in obj:
+            return tuple(_snap_decode(v, arrays) for v in obj[_TUP])
+        if set(obj) != {_ITEMS}:
+            raise ValueError(f"unknown snapshot node {set(obj)}")
+        return {_snap_decode(k, arrays): _snap_decode(v, arrays)
+                for k, v in obj[_ITEMS]}
+    if isinstance(obj, list):
+        return [_snap_decode(v, arrays) for v in obj]
+    return obj
+
+
+def save_snapshot(path: str, snap: Any) -> None:
+    """Write an engine snapshot (host numpy arrays or tensors on any
+    device at any depth) to the directory ``path``, atomically."""
+    arrays: list = []
+    manifest = _snap_encode(snap, arrays)
+    named, dtypes = {}, {}
+    for i, a in enumerate(arrays):
+        if isinstance(a, torch.Tensor):
+            a = a.detach().to("cpu")
+            if a.dtype == torch.bfloat16:
+                dtypes[f"a{i}"] = _BF16
+                a = a.view(torch.int16).numpy().view(np.uint16)
+            else:
+                a = a.numpy()
+        named[f"a{i}"] = a
+    parent = os.path.dirname(path) or "."
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=parent, prefix=".snap_tmp_")
+    try:
+        np.savez(os.path.join(tmp, "arrays.npz"), **named)
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump({"manifest": manifest, "dtypes": dtypes,
+                       "format": _SNAP_FORMAT}, f)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def load_snapshot(path: str) -> Any:
+    """Inverse of ``save_snapshot``: the structure ``snapshot()`` returned,
+    arrays as numpy (a bf16 one as a CPU bf16 tensor)."""
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    if meta.get("format") != _SNAP_FORMAT:
+        raise ValueError(f"{path}: not an engine snapshot")
+    arrays = {}
+    with np.load(os.path.join(path, "arrays.npz")) as npz:
+        for k in npz.files:
+            a = npz[k]
+            if meta["dtypes"].get(k) == _BF16:
+                a = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+            arrays[k] = a
+    return _snap_decode(meta["manifest"], arrays)
 
 
 def load_tree(path: str, device="cuda") -> tuple[Any, dict]:

@@ -23,9 +23,21 @@ step clock instead of wall time.
 ``--draft-bits`` 2 or 3 draft of the same params proposing up to
 ``--spec-k`` tokens a round, and the report gives its acceptance.
 
-The JAX launcher's flags for features that later slices of the port
-bring (tensor parallelism, preemption, faults, snapshots, deadlines, the
-static engine) are refused with the slice's name, never ignored.
+Overload and faults (serve/scheduler.py, serve/faults.py): ``--preempt``
+arms priority scheduling with KV spill (interactive requests evict batch
+victims under pressure, ``--age-promote`` bounds batch starvation) and the
+report gives the preemption and spill counters; ``--deadline T`` gives
+every request an SLO of T time units after its arrival (missed: shed from
+the queue or cancelled mid-run); ``--faults SEED`` injects a seeded chaos
+schedule (NaN logits, pool exhaustion, kernel faults, corrupt spills,
+latency spikes, one crash) and serves through it with ``run_resilient``,
+each crash recovered from the last snapshot; ``--snapshot-every N``
+snapshots the engine every N steps. Faults and snapshots run on the
+virtual clock. ``--engine static`` runs the static-batch ``ServeEngine``
+on the same workload (groups of one prompt length, lockstep decode),
+``--engine both`` the two side by side.
+
+``--tp`` (tensor parallelism) is not ported and is refused, never ignored.
 """
 from __future__ import annotations
 
@@ -42,15 +54,12 @@ from repro_torch.core.normtweak.pipeline import NTConfig, norm_tweak_ptq
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import init_lm
 from repro_torch.serve import traffic
-from repro_torch.serve.engine import ContinuousEngine
+from repro_torch.serve.engine import ContinuousEngine, ServeEngine
+from repro_torch.serve.faults import FaultPlan, run_resilient
 
 # flag -> (its default, the later slice that brings it; ROADMAP.md queue 1)
 _LATER = {
     "tp": (1, "multi-device serving"),
-    "preempt": (False, "overload and faults"),
-    "deadline": (None, "overload and faults"),
-    "faults": (None, "overload and faults"),
-    "snapshot_every": (0, "overload and faults"),
 }
 
 
@@ -106,55 +115,90 @@ def make_workload(cfg, args):
         batch_frac=args.batch_frac,
         burst_len=args.burst_len, idle_len=args.idle_len,
         burst_rate_mult=args.burst_rate_mult,
-        shared_prefix=args.shared_prefix)
+        shared_prefix=args.shared_prefix, deadline=args.deadline)
 
 
 def run_continuous(cfg, params, work, args, device):
     """Warm the engine on every prefill bucket of the workload (with
     ``--prefix-share`` in two waves, the second hitting the shared-prefix
-    floor so the suffix-prefill shapes run too), reset its counters and
-    the prefix index, then replay the trace. Returns (engine, report)."""
+    floor so the suffix-prefill shapes run too), reset its counters, clock,
+    step index and the prefix index, then replay the trace: plainly, or
+    with ``--faults`` / ``--snapshot-every`` through ``run_resilient``
+    (which builds, and after a crash rebuilds, the engine this way).
+    Returns (engine, report)."""
     plen_max = max(len(it.prompt) for it in work)
     bucket_up = -(-plen_max // args.prefill_bucket) * args.prefill_bucket
-    eng = ContinuousEngine(cfg, params, n_slots=args.slots,
-                           max_len=bucket_up + args.max_new_max,
-                           page_size=args.page_size,
-                           prefill_bucket=args.prefill_bucket,
-                           prefix_share=args.prefix_share,
-                           chunked_prefill=args.chunked_prefill,
-                           spec_decode=args.spec_decode,
-                           draft_bits=args.draft_bits, spec_k=args.spec_k,
-                           seed=args.seed, device=device)
-    buckets = sorted({eng._bucket(len(it.prompt)) for it in work})
-    waves = 2 if args.prefix_share else 1
-    shared_floor = ((args.shared_prefix // args.page_size) * args.page_size
-                    if args.prefix_share else 0)
-    for wave in range(waves):
-        for b in buckets:
-            for mn in sorted({2, args.max_new_max}):
-                p = np.zeros(b, np.int64)
-                if wave > 0 and 0 < shared_floor < b:
-                    p[shared_floor:] = 1
-                eng.submit(p, max_new=mn)
-        eng.run(max_steps=10_000)
-    print(f"warmed {len(buckets)} prefill buckets ({waves} "
-          f"wave{'s' if waves > 1 else ''}): {buckets}")
-    # the report covers the timed run alone: counters, clock and the
-    # warm-up prompts' prefix registrations go
-    eng.t = 0
-    eng.n_decode_steps = eng.n_prefills = eng.n_prefill_tokens = 0
-    eng.n_shared_tokens = 0
-    eng.n_spec_rounds = eng.n_draft_tokens = eng.n_spec_emitted = 0
-    eng.spec_accept_sum[:] = 0
-    eng.spec_round_count[:] = 0
-    eng.pool.clear_prefix_cache()
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    clock = None if args.virtual_clock else (
-        lambda: time.perf_counter() - t0)
-    report = traffic.replay(eng, work, clock=clock, max_steps=1_000_000)
-    dt = time.perf_counter() - t0
+
+    def build():
+        eng = ContinuousEngine(cfg, params, n_slots=args.slots,
+                               max_len=bucket_up + args.max_new_max,
+                               page_size=args.page_size,
+                               prefill_bucket=args.prefill_bucket,
+                               prefix_share=args.prefix_share,
+                               chunked_prefill=args.chunked_prefill,
+                               spec_decode=args.spec_decode,
+                               draft_bits=args.draft_bits,
+                               spec_k=args.spec_k, preempt=args.preempt,
+                               age_promote=args.age_promote,
+                               seed=args.seed, device=device)
+        buckets = sorted({eng._bucket(len(it.prompt)) for it in work})
+        waves = 2 if args.prefix_share else 1
+        shared_floor = ((args.shared_prefix // args.page_size)
+                        * args.page_size if args.prefix_share else 0)
+        for wave in range(waves):
+            for b in buckets:
+                for mn in sorted({2, args.max_new_max}):
+                    p = np.zeros(b, np.int64)
+                    if wave > 0 and 0 < shared_floor < b:
+                        p[shared_floor:] = 1
+                    eng.submit(p, max_new=mn)
+            eng.run(max_steps=10_000)
+        print(f"warmed {len(buckets)} prefill buckets ({waves} "
+              f"wave{'s' if waves > 1 else ''}): {buckets}")
+        # the report covers the timed run alone: counters, the clock, the
+        # step index (fault plans are step-indexed), the event log and the
+        # warm-up prompts' prefix registrations go
+        eng.t = 0
+        eng.n_steps_total = 0
+        eng.n_decode_steps = eng.n_prefills = eng.n_prefill_tokens = 0
+        eng.n_shared_tokens = 0
+        eng.n_spilled_pages = eng.n_restored_pages = 0
+        eng.n_spec_rounds = eng.n_draft_tokens = eng.n_spec_emitted = 0
+        eng.spec_accept_sum[:] = 0
+        eng.spec_round_count[:] = 0
+        eng.sched.events.clear()
+        for k in eng.sched._COUNTERS:
+            setattr(eng.sched, k, 0)
+        eng.pool.clear_prefix_cache()
+        return eng
+
+    resilient = args.faults is not None or args.snapshot_every > 0
+    if resilient:
+        plan = (FaultPlan.seeded(args.faults, n_steps=max(64, 4 * len(work)),
+                                 n_slots=args.slots, crashes=1)
+                if args.faults is not None else None)
+        t0 = time.perf_counter()
+        res = run_resilient(build, work, faults=plan,
+                            snapshot_every=args.snapshot_every,
+                            max_steps=1_000_000)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0       # includes the warm-ups
+        eng, report = res["engine"], res["report"]
+        print(f"resilient: {res['n_crashes']} crash(es) recovered from "
+              f"snapshot, {res['n_snapshots']} periodic snapshots"
+              + (f", fault plan {plan!r}" if plan is not None else ""))
+    else:
+        eng = build()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clock = None if args.virtual_clock else (
+            lambda: time.perf_counter() - t0)
+        report = traffic.replay(eng, work, clock=clock, max_steps=1_000_000)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     done = report["requests"]
     total_tok = sum(len(r.tokens) for r in done)
     print(f"continuous: {len(done)} requests, {total_tok} tokens in "
@@ -163,8 +207,15 @@ def run_continuous(cfg, params, work, args, device):
     print(f"  prefilled {eng.n_prefill_tokens} prompt tokens, "
           f"{eng.n_shared_tokens} reused from the prefix cache "
           f"({eng.pool.n_cached} pages cached)")
-    print(traffic.format_report(report,
-                                unit="steps" if args.virtual_clock else "s"))
+    if args.preempt:
+        sc, sp = report["scheduler"], report["spill"]
+        print(f"  overload {sc['n_preemptions']} preemptions "
+              f"({sp['spilled_pages']} pages spilled, "
+              f"{sp['restored_pages']} restored), "
+              f"{sc['n_rejected']} rejected, "
+              f"{sc['n_finished_preempted']} finished after preemption")
+    virtual = args.virtual_clock or resilient
+    print(traffic.format_report(report, unit="steps" if virtual else "s"))
     if args.spec_decode:
         st = eng.spec_stats()
         print(f"  spec     {st['rounds']} rounds, {st['draft_tokens']} draft "
@@ -175,6 +226,32 @@ def run_continuous(cfg, params, work, args, device):
               f"{st['per_slot_mean_accepted_len']}")
     print("request 0:", done[0].tokens)
     return eng, report
+
+
+def run_static(cfg, params, work, args, device):
+    """The static-batch baseline on the same workload: requests grouped by
+    prompt length, up to ``--slots`` a batch, each batch decoded in
+    lockstep to its longest budget. Returns (engine, report: requests,
+    useful tokens, seconds, tokens per second)."""
+    eng = ServeEngine(cfg, params, device=device)
+    groups: dict[int, list] = {}
+    for it in work:
+        groups.setdefault(len(it.prompt), []).append((it.prompt, it.max_new))
+    t0 = time.perf_counter()
+    total = 0
+    for _, items in sorted(groups.items()):
+        for i in range(0, len(items), args.slots):
+            chunk = items[i:i + args.slots]
+            eng.generate(np.stack([p for p, _ in chunk]),
+                         max_new=max(m for _, m in chunk))
+            total += sum(m for _, m in chunk)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"static: {len(work)} requests, {total} useful tokens in "
+          f"{dt:.2f}s ({total / dt:.1f} tok/s, first calls included)")
+    return eng, dict(requests=len(work), tokens=total, seconds=dt,
+                     tokens_per_s=total / dt)
 
 
 def parse_args(argv=None):
@@ -234,22 +311,35 @@ def parse_args(argv=None):
                     help="the draft's weight width")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="most draft proposals a round")
-    # the JAX launcher's flags of later slices (refused unless default)
+    ap.add_argument("--preempt", action="store_true",
+                    help="priority scheduling with KV spill: interactive "
+                         "arrivals evict batch victims to host RAM under "
+                         "slot or page pressure")
+    ap.add_argument("--age-promote", type=float, default=None,
+                    help="promote a batch request to interactive standing "
+                         "after waiting this long (starvation bound)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-request SLO: shed from the queue or cancel "
+                         "mid-run a request unfinished this many time "
+                         "units after its arrival")
+    ap.add_argument("--faults", type=int, default=None, metavar="SEED",
+                    help="inject a seeded chaos schedule and serve through "
+                         "it with the crash-recovery driver (virtual "
+                         "clock)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="snapshot the engine every N steps (0 = off); a "
+                         "crash recovers from the latest")
+    # the JAX launcher's flag of a later slice (refused unless default)
     ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--preempt", action="store_true")
-    ap.add_argument("--deadline", type=float, default=None)
-    ap.add_argument("--faults", type=int, default=None, metavar="SEED")
-    ap.add_argument("--snapshot-every", type=int, default=0)
     args = ap.parse_args(argv)
     for name, (default, later) in _LATER.items():
         if getattr(args, name) != default:
             raise SystemExit(
                 f"--{name.replace('_', '-')} is not ported yet: it comes "
                 f"with the {later} slice (ROADMAP.md, queue 1)")
-    if args.engine != "continuous":
-        raise SystemExit(f"--engine {args.engine}: the static-batch engine "
-                         "is not ported yet (a later slice; ROADMAP.md, "
-                         "queue 1)")
+    if args.spec_decode and args.engine != "continuous":
+        raise SystemExit("--spec-decode applies to the continuous engine "
+                         "only (use --engine continuous)")
     if args.spec_decode and args.method != "none":
         # the pipeline hands back packed weights; the engine packs its own
         # draft from the float params and refuses a packed tree
@@ -259,13 +349,23 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Run the launcher; returns (engine, report, pipeline stats)."""
+    """Run the launcher; returns (engine, report, pipeline stats): the
+    continuous engine's when it runs (with ``--engine both`` the static
+    run's report under report["static"]), else the static engine's."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params, stats = build_params(cfg, args, device)
     work = make_workload(cfg, args)
-    eng, report = run_continuous(cfg, params, work, args, device)
+    eng = report = None
+    if args.engine in ("continuous", "both"):
+        eng, report = run_continuous(cfg, params, work, args, device)
+    if args.engine in ("static", "both"):
+        s_eng, s_report = run_static(cfg, params, work, args, device)
+        if report is None:
+            eng, report = s_eng, s_report
+        else:
+            report["static"] = s_report
     return eng, report, stats
 
 

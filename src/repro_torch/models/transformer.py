@@ -124,13 +124,14 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
 
 def lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                cache: dict, positions: torch.Tensor,
-               paged: dict) -> torch.Tensor:
-    """Prompt ingestion into the paged cache. tokens, positions (B, S), pads
-    left with position -1 so the real last token sits at index -1; paged
-    holds the slots' block-table rows ("bt_rows") and, for a later chunk
-    or a suffix after shared prefix pages, the fill counts after this call
-    ("kv_len"). Returns the logits of the last row, the chunk's last real
-    token (B, V)."""
+               paged: Optional[dict] = None) -> torch.Tensor:
+    """Prompt ingestion into the cache. tokens, positions (B, S), pads left
+    with position -1 so the real last token sits at index -1. With page
+    pools, paged holds the slots' block-table rows ("bt_rows") and, for a
+    later chunk or a suffix after shared prefix pages, the fill counts
+    after this call ("kv_len"); without ``paged`` the cache is contiguous
+    (``init_contiguous_cache``, the static engine's). Returns the logits of
+    the last row, the chunk's last real token (B, V)."""
     x = _embed(params, tokens)
     x, _ = _run_stack(cfg, params, x, positions=positions, cache=cache,
                       paged=paged)

@@ -1,12 +1,21 @@
-"""Continuous-batching serving engine (port of ``repro.serve.engine``'s
-``ContinuousEngine`` core).
+"""Serving engines (port of ``repro.serve.engine``): the static-batch
+``ServeEngine`` and the continuous-batching ``ContinuousEngine``.
 
-Requests are admitted FIFO into a fixed pool of slots backed by a paged KV
-cache; each ``step()``:
+``ServeEngine`` is the baseline: one prompt length, lockstep decode to
+max_new over a contiguous cache, and ``score`` for log-likelihoods.
 
+``ContinuousEngine`` admits requests into a fixed pool of slots backed by
+a paged KV cache, by SLO class (interactive before batch, FIFO within a
+class, aging against starvation; serve/scheduler.py). Each ``step()``:
+
+  0. fires the fault plan's faults for this step, and cancels running
+     requests past their deadline;
   1. admits queued requests into free slots while the page pool covers
-     their whole budget, less the pages of a prefix-cache hit
-     (serve/scheduler.py);
+     their whole budget, less the pages of a prefix-cache hit; with
+     ``preempt`` an interactive request that does not fit evicts a batch
+     request, whose owned live KV pages spill to host RAM, and a preempted
+     request re-admitted gets its pages scattered back and resumes where
+     it stopped;
   2. advances every slot still ingesting its prompt by one prefill chunk
      (the whole rest of the prompt unless ``chunked_prefill`` caps it):
      chunks are left-padded (pad positions -1, routed to the scratch page
@@ -20,11 +29,12 @@ cache; each ``step()``:
   3. runs one block of K decode steps over all slots with sampling on the
      device and one host sync per block. K adapts to the smallest
      remaining budget (power of two, at most ``decode_block``) so slots
-     retire at a block boundary. With ``spec_decode`` the block is one
-     speculative round instead: a W2/W3 draft packed from the same float
-     params proposes up to ``spec_k`` tokens a slot, the target scores
-     them in one (S, k + 1)-row verify forward, and each slot emits its
-     accepted prefix plus one target token. Greedy output is the
+     retire at a block boundary. A slot whose logits turn non-finite
+     freezes inside the block and is quarantined. With ``spec_decode`` the
+     block is one speculative round instead: a W2/W3 draft packed from the
+     same float params proposes up to ``spec_k`` tokens a slot, the target
+     scores them in one (S, k + 1)-row verify forward, and each slot emits
+     its accepted prefix plus one target token. Greedy output is the
      target-only stream.
 
 Weights may be float or packed (``quant_bits`` packs a float tree through
@@ -32,17 +42,24 @@ Weights may be float or packed (``quant_bits`` packs a float tree through
 activations). On the card every quantized linear runs a CUDA matmul
 kernel — the dequant matmul, or the W8A8 matmul for A8 weights, and
 their expert-batched forms for MoE experts — and every paged attention
-read (decode, later chunks, verify) the CUDA paged-attention kernel; with
-``device="cpu"`` they run their plain versions. There is no fallback from
-a kernel to another read: a kernel that fails raises. An MoE's capacity
-is cross-token: a prefill batch routes its padded tokens' count, so with
-``prefill_batch`` > 1 which tokens are dropped depends on the co-batched
-prompts. Tensor parallelism, preemption, fault injection and snapshots
-come in later slices and are not accepted here.
+read (decode, later chunks, verify, and a restored slot's decode over its
+scattered-back pages) the CUDA paged-attention kernel; with
+``device="cpu"`` they run their plain versions. The spill's page gather
+and scatter are library index ops (as in the JAX package, outside any
+kernel). There is no fallback from a kernel to another read: a kernel
+that fails raises, and an injected ``kernel_fault`` raises
+``FaultInjected`` (a crash that ``serve.faults.run_resilient`` recovers
+from a snapshot). An MoE's capacity is cross-token: a prefill batch
+routes its padded tokens' count, so with ``prefill_batch`` > 1 which
+tokens are dropped depends on the co-batched prompts. Tensor parallelism
+is not ported.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+import time
+import zlib
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,12 +68,223 @@ from repro_torch.core.quant.deploy import (quantize_params_for_serving,
                                            to_device)
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (init_cache, is_quantized,
-                                            lm_decode, lm_prefill, lm_verify)
+from repro_torch.models.transformer import (init_cache, init_contiguous_cache,
+                                            is_quantized, lm_decode,
+                                            lm_forward, lm_prefill, lm_verify)
+from repro_torch.serve.faults import Fault, FaultInjected, FaultPlan
 from repro_torch.serve.kvcache import PagePool, PageSpec, default_page_spec
 from repro_torch.serve.sampling import (sample, spec_accept_greedy,
                                         spec_accept_sample)
 from repro_torch.serve.scheduler import Request, Scheduler
+
+# the paged pool leaves of a cache tree; each is (L, P, page, KVH[, hd]),
+# its page axis 1
+POOL_KEYS = ("k_pool", "v_pool", "k_scale_pool", "v_scale_pool")
+_PAGE_AXIS = 1
+
+
+def _serving_params(cfg: ModelConfig, params: dict, quant_bits: int,
+                    quant_group: int, act_bits: int,
+                    device: torch.device) -> dict:
+    """``params`` on ``device``, packed when ``quant_bits`` is set."""
+    if quant_bits:
+        if is_quantized(params):
+            raise ValueError("params already hold packed weights; pass "
+                             "quant_bits=0")
+        return quantize_params_for_serving(
+            cfg, params, bits=quant_bits, group_size=quant_group,
+            act_bits=act_bits, device=device)
+    if act_bits:
+        raise ValueError("act_bits needs quant_bits (the A8 tag lives on "
+                         "packed weights)")
+    return to_device(params, device)
+
+
+@dataclasses.dataclass
+class GenerateResult:
+    tokens: np.ndarray          # (B, max_new)
+    n_prompt: int
+    steps: int
+
+
+class ServeEngine:
+    """Static batch: prompts of one length prefilled together into a
+    contiguous cache, then lockstep decode to ``max_new``. Its linears run
+    the matmul kernels; its attention is the contiguous read (no paged
+    kernel), as in the JAX package."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, *, eos_id: int = -1,
+                 quant_bits: int = 0, quant_group: int = 0,
+                 act_bits: int = 0, device="cuda"):
+        cfg.validate()
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = _serving_params(cfg, params, quant_bits, quant_group,
+                                      act_bits, self.device)
+        self.eos_id = eos_id
+
+    @torch.no_grad()
+    def generate(self, prompts: np.ndarray, *, max_new: int = 32,
+                 temperature: float = 0.0, top_k: int = 0,
+                 generator: Optional[torch.Generator] = None
+                 ) -> GenerateResult:
+        """prompts (B, S) -> (B, max_new) tokens; a row that emitted
+        ``eos_id`` emits it from then on. The last token needs no decode
+        step, so ``max_new - 1`` steps run."""
+        prompts = np.asarray(prompts, np.int32)
+        b, s = prompts.shape
+        dev = self.device
+        cache = init_contiguous_cache(self.cfg, b, s + max_new, dev)
+        pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(
+            b, s)
+        logits = lm_prefill(self.cfg, self.params,
+                            torch.tensor(prompts, device=dev), cache, pos)
+        done = torch.zeros(b, dtype=torch.bool, device=dev)
+        out = []
+        for t in range(max_new):
+            tok = sample(logits, temperature=temperature, top_k=top_k,
+                         generator=generator)
+            tok = torch.where(done, self.eos_id, tok)
+            if self.eos_id >= 0:
+                done = done | (tok == self.eos_id)
+            out.append(tok)
+            if t + 1 < max_new:
+                p = torch.full((b, 1), s + t, dtype=torch.int32, device=dev)
+                logits = lm_decode(self.cfg, self.params, tok[:, None],
+                                   cache, p)
+        return GenerateResult(torch.stack(out, 1).cpu().numpy(), s, max_new)
+
+    @torch.no_grad()
+    def score(self, tokens: np.ndarray) -> np.ndarray:
+        """Per-token log-likelihoods (B, S - 1) of tokens (B, S)."""
+        toks = torch.tensor(np.asarray(tokens), dtype=torch.int64,
+                            device=self.device)
+        logits, _ = lm_forward(self.cfg, self.params, toks[:, :-1])
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, toks[:, 1:, None])[..., 0]
+        return (ll - lse).cpu().numpy()
+
+
+# ------------------------------------------------------ KV spill / restore
+#
+# Preemption moves a victim slot's owned live pages to host RAM and back,
+# each pool leaf indexed along its page axis, so one call moves every
+# layer's slice of the spilled pages. Both directions and the engine
+# snapshot move all their leaves in one copy (``_to_host`` /
+# ``_to_device``).
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def _to_host(tensors: list) -> list:
+    """Host numpy copies of ``tensors`` in one synchronous device-to-host
+    copy: their bytes end to end, each at a 16-byte boundary."""
+    chunks, spans, off = [], [], 0
+    for t in tensors:
+        b = t.contiguous().view(-1).view(torch.uint8)
+        pad = -b.numel() % 16
+        chunks.append(b)
+        if pad:
+            chunks.append(b.new_zeros(pad))
+        spans.append((off, b.numel()))
+        off += b.numel() + pad
+    flat = torch.cat(chunks).cpu().numpy()
+    return [flat[o:o + n].view(_np_dtype(t.dtype)).reshape(t.shape)
+            for (o, n), t in zip(spans, tensors)]
+
+
+def _to_device(arrays: list, device: torch.device) -> list:
+    """``_to_host``'s inverse: tensors on ``device`` from host arrays, in
+    one host-to-device copy."""
+    spans, off = [], 0
+    for a in arrays:
+        spans.append((off, a.nbytes))
+        off += a.nbytes + (-a.nbytes % 16)
+    flat = np.zeros(off, np.uint8)
+    for (o, n), a in zip(spans, arrays):
+        flat[o:o + n] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    dev = torch.from_numpy(flat).to(device)
+    return [dev[o:o + n].view(torch.from_numpy(np.empty(0, a.dtype)).dtype)
+            .view(a.shape) for (o, n), a in zip(spans, arrays)]
+
+
+def _host_tree(tree: dict, pick: Callable) -> dict:
+    """The cache tree with each leaf ``pick(key, tensor)`` copied to host
+    numpy (all in one copy); a leaf ``pick`` maps to None stays None."""
+    picked = []
+
+    def walk(t, key=None):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        sel = pick(key, t)
+        if sel is None:
+            return None
+        picked.append(sel)
+        return len(picked) - 1
+    shape = walk(tree)
+    host = _to_host(picked) if picked else []
+
+    def fill(t):
+        if isinstance(t, dict):
+            return {k: fill(v) for k, v in t.items()}
+        return None if t is None else host[t]
+    return fill(shape)
+
+
+def _put_tree(tree: dict, host: dict, put: Callable,
+              device: torch.device) -> None:
+    """Write the host tree's arrays into the cache tree's leaves through
+    ``put(dst, src)`` (one host-to-device copy for all of them); a None
+    host leaf is skipped."""
+    pairs = []
+
+    def walk(t, h):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, h[k])
+        elif h is not None:
+            pairs.append((t, h))
+    walk(tree, host)
+    if pairs:
+        srcs = _to_device([np.asarray(h) for _, h in pairs], device)
+        for (dst, _), src in zip(pairs, srcs):
+            put(dst, src)
+
+
+def _tree_checksum(tree) -> int:
+    """crc32 over every array leaf of a (nested-dict) host tree, in sorted
+    key order (the JAX package's): verified before a spill is scattered
+    back, it catches bytes flipped while the snapshot sat in host RAM."""
+    crc = 0
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            crc = zlib.crc32(str(k).encode(), crc)
+            crc = zlib.crc32(_tree_checksum(tree[k]).to_bytes(4, "little"),
+                             crc)
+        return crc
+    if tree is None:
+        return 0
+    arr = np.ascontiguousarray(np.asarray(tree))
+    return zlib.crc32(arr.tobytes(), zlib.crc32(str(arr.dtype).encode()))
+
+
+def _corrupt_first_leaf(tree):
+    """Flip one byte of the first array leaf (sorted-key walk): the
+    spill_corrupt fault's damage. Returns (new tree, corrupted?)."""
+    if isinstance(tree, dict):
+        out, hit = {}, False
+        for k in sorted(tree):
+            if hit:
+                out[k] = tree[k]
+            else:
+                out[k], hit = _corrupt_first_leaf(tree[k])
+        return {k: out[k] for k in tree}, hit
+    if tree is None:
+        return tree, False
+    arr = np.asarray(tree).copy()
+    arr.view(np.uint8).reshape(-1)[0] ^= 0xFF
+    return arr, True
 
 
 def _decode_scan(cfg: ModelConfig, params: dict, cache: dict,
@@ -64,38 +292,61 @@ def _decode_scan(cfg: ModelConfig, params: dict, cache: dict,
                  active: torch.Tensor, block_table: torch.Tensor, *,
                  k_steps: int, page_size: int, temperature: float,
                  top_k: int, generator: torch.Generator,
-                 with_logits: bool = False):
+                 with_logits: bool = False,
+                 poison: Optional[torch.Tensor] = None):
     """K decode steps over all slots, sampling on the device; no host sync
     inside. Each step writes the new token's K/V first, then reads with
     kv_len = fill + 1. Inactive slots write to the scratch page and read
-    kv_len 0. Returns the (K, S) sampled tokens on the device, and with
-    ``with_logits`` also the (K, S, V) logits they were sampled from (the
-    speculative draft's, for the sampled acceptance rule)."""
+    kv_len 0.
+
+    The alive mask is the non-finite sentinel: one isfinite reduction over
+    each step's logits. A slot whose logits stop being finite is dropped
+    from the active set inside the block (its token and fill freeze, its
+    rows stop feeding the model), so it cannot perturb its co-batched
+    slots on later steps; the host drops its tokens and quarantines it.
+    ``poison`` (S,) bool, the fault hook, gives marked slots NaN logits on
+    the first step. Returns the (K, S) sampled tokens and the (K, S) alive
+    mask on the device, and with ``with_logits`` also the (K, S, V) logits
+    (the speculative draft's, for the sampled acceptance rule) in between.
+    """
     n_slots, max_pages = block_table.shape
     sl = torch.arange(n_slots, device=block_table.device)
     tok, clen = last_tok, cur_len
-    out, out_logits = [], []
-    for _ in range(k_steps):
+    alive = torch.ones_like(active)
+    out, out_alive, out_logits = [], [], []
+    for step in range(k_steps):
+        act = active & alive
         page_idx = (clen // page_size).clamp(0, max_pages - 1).to(torch.int64)
         paged = {
             "block_table": block_table,
             "write_page": torch.where(
-                active, block_table[sl, page_idx].clamp_min(0), 0),
-            "write_off": torch.where(active, clen % page_size, 0),
-            "kv_len": torch.where(active, clen + 1, 0),
+                act, block_table[sl, page_idx].clamp_min(0), 0),
+            "write_off": torch.where(act, clen % page_size, 0),
+            "kv_len": torch.where(act, clen + 1, 0),
         }
-        pos = torch.where(active, clen, 0)[:, None]
+        pos = torch.where(act, clen, 0)[:, None]
         logits = lm_decode(cfg, params, tok[:, None], cache, pos, paged)
+        if step == 0 and poison is not None:
+            logits = torch.where(poison[:, None], torch.nan, logits)
+        # a slot dies the step its logits stop being finite (inactive
+        # slots read garbage rows: only active ones can die)
+        alive = alive & (torch.isfinite(logits).all(dim=-1) | ~act)
+        if temperature > 0.0:
+            # a dead or idle row's draw is dropped; keep it drawable
+            logits = torch.where(torch.isfinite(logits), logits, 0.0)
         nxt = sample(logits, temperature=temperature, top_k=top_k,
                      generator=generator)
-        tok = torch.where(active, nxt, tok)
-        clen = clen + active.to(clen.dtype)
+        keep = act & alive
+        tok = torch.where(keep, nxt, tok)
+        clen = clen + keep.to(clen.dtype)
         out.append(nxt)
+        out_alive.append(alive)
         if with_logits:
             out_logits.append(logits)
     if with_logits:
-        return torch.stack(out), torch.stack(out_logits)
-    return torch.stack(out)
+        return torch.stack(out), torch.stack(out_logits), torch.stack(
+            out_alive)
+    return torch.stack(out), torch.stack(out_alive)
 
 
 def _spec_round(cfg: ModelConfig, params: dict, draft_params: dict,
@@ -119,7 +370,7 @@ def _spec_round(cfg: ModelConfig, params: dict, draft_params: dict,
                          active, block_table, k_steps=m, page_size=page_size,
                          temperature=temperature, top_k=top_k,
                          generator=generator, with_logits=sampled)
-    draft_toks, draft_logits = draft if sampled else (draft, None)
+    draft_toks, draft_logits = draft[0], (draft[1] if sampled else None)
     # verify rows at positions cur_len .. cur_len + k; idle slots at -1 and
     # kv_len 0 (their writes land on the scratch page, their rows unread)
     x = torch.cat([last_tok[:, None], draft_toks[:m - 1].t()], dim=1)
@@ -158,7 +409,20 @@ class ContinuousEngine:
     ``spec_decode=True`` replaces the decode block by speculative rounds
     (``draft_bits`` 2 or 3, up to ``spec_k`` proposals a round); the
     draft's KV lives in a second cache on the same page geometry and block
-    tables, and every prefill chunk is mirrored into it."""
+    tables, and every prefill chunk is mirrored into it.
+
+    ``preempt=True`` arms overload discipline: ``submit(..., priority=1)``
+    marks batch work, and an interactive request that cannot be admitted
+    evicts a batch victim. Its exclusively owned live KV pages spill to
+    host RAM (shared prefix pages stay by reference), and its restore
+    re-stitches the block table and scatters the pages back, so the stream
+    resumes where it stopped, mid-prefill included (a preempted request
+    never prefills a token twice). ``age_promote`` bounds batch
+    starvation. ``faults`` is a ``FaultPlan`` fired step by step;
+    ``snapshot()`` / ``restore()`` capture and reload the whole serving
+    state (serve/faults.py's ``run_resilient`` drives crash recovery).
+    ``debug=True`` checks the pool's invariants and the slot mirrors
+    against the scheduler after every step."""
 
     def __init__(self, cfg: ModelConfig, params: dict, *, n_slots: int = 8,
                  max_len: int = 512, page_size: int = 16,
@@ -169,13 +433,21 @@ class ContinuousEngine:
                  quant_group: int = 0, act_bits: int = 0,
                  prefix_share: bool = False, chunked_prefill: int = 0,
                  spec_decode: bool = False, draft_bits: int = 2,
-                 spec_k: int = 4, device="cuda"):
+                 spec_k: int = 4, preempt: bool = False,
+                 age_promote: Optional[float] = None,
+                 faults: Optional[FaultPlan] = None, debug: bool = False,
+                 device="cuda"):
         cfg.validate()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.spec_decode = bool(spec_decode)
         self.spec_k = spec_k
         self.draft_bits = draft_bits
+        self.preempt = bool(preempt)
+        if self.preempt and self.spec_decode:
+            raise NotImplementedError(
+                "preempt + spec_decode is not supported (the draft cache "
+                "would need spilling in lockstep)")
         if self.spec_decode:
             if any(s.mlp == "moe" for s in cfg.all_layer_specs()):
                 # capacity routing is cross-token: an (S, M) verify batch
@@ -196,18 +468,8 @@ class ContinuousEngine:
                     "spec_decode requantizes the float params into the "
                     "draft; pass float params (+ quant_bits for the "
                     "target), not a pre-packed tree")
-        if quant_bits:
-            if is_quantized(params):
-                raise ValueError("params already hold packed weights; pass "
-                                 "quant_bits=0")
-            self.params = quantize_params_for_serving(
-                cfg, params, bits=quant_bits, group_size=quant_group,
-                act_bits=act_bits, device=self.device)
-        elif act_bits:
-            raise ValueError("act_bits needs quant_bits (the A8 tag lives on "
-                             "packed weights)")
-        else:
-            self.params = to_device(params, self.device)
+        self.params = _serving_params(cfg, params, quant_bits, quant_group,
+                                      act_bits, self.device)
         if self.spec_decode:
             # the same params requantized harder, packed sub-byte
             self.draft_params = quantize_params_for_serving(
@@ -233,7 +495,10 @@ class ContinuousEngine:
         self.pool = PagePool(self.spec, n_slots,
                              prefix_cache=self.prefix_share)
         self.sched = Scheduler(n_slots, self.pool,
-                               prefix_share=self.prefix_share)
+                               prefix_share=self.prefix_share,
+                               age_promote=age_promote,
+                               preempt_hook=(self._spill_slot
+                                             if self.preempt else None))
         self.cache = init_cache(cfg, self.spec, self.device)
         if self.spec_decode:
             self.draft_cache = init_cache(cfg, self.spec, self.device)
@@ -245,11 +510,28 @@ class ContinuousEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._next_rid = 0
-        self.t = 0                   # virtual clock (scheduler steps)
+        # the virtual clock is engine state, so a restored engine resumes
+        # arrival gating mid-trace
+        self.t = 0
+        self.n_steps_total = 0       # step() calls: the faults' step index
+        # ------------------------------------------------ fault tolerance
+        self.faults = faults
+        self.debug = bool(debug)
+        self.n_spill_corruptions = 0     # corruption faults injected
+        self.n_spill_checksum_fails = 0  # ... caught at restore
+        self.n_nonfinite = 0         # slots the isfinite sentinel killed
+        self.n_faults_applied = 0    # injected faults fired
+        self._poison_slots: set[int] = set()  # NaN at the next decode
+        self._kernel_fault: Optional[Fault] = None  # fails the next decode
+        self._spill_corrupt = False  # corrupt the next spill payload
+        self._fault_holds: list[list] = []    # [release step, [pages]]
         self.n_decode_steps = 0
         self.n_prefills = 0
         self.n_prefill_tokens = 0    # prompt tokens actually prefilled
         self.n_shared_tokens = 0     # prompt tokens from the prefix cache
+        # pages moved by preemption (kept-by-reference pages never count)
+        self.n_spilled_pages = 0     # owned live pages copied to host RAM
+        self.n_restored_pages = 0    # pages scattered back on re-admission
         # speculative acceptance accounting (spec_stats)
         self.n_spec_rounds = 0       # draft + verify rounds
         self.n_draft_tokens = 0      # proposals over active slots
@@ -261,11 +543,9 @@ class ContinuousEngine:
     def submit(self, prompt, *, max_new: int = 32, arrival: float = 0.0,
                priority: int = 0,
                deadline: Optional[float] = None) -> Request:
-        """Queue a request. ``priority`` labels its SLO class for the
-        traffic report; admission stays FIFO. Deadlines come with the
-        overload slice and are refused."""
-        if deadline is not None:
-            raise NotImplementedError("request deadlines are not ported yet")
+        """Queue a request. ``priority``: 0 interactive (may preempt batch
+        work when ``preempt``), 1 batch. ``deadline``: absolute time past
+        which the request is shed from the queue or cancelled mid-run."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size + max_new > self.spec.max_len:
             raise ValueError(
@@ -277,19 +557,338 @@ class ContinuousEngine:
                 f"request needs {need} pages but the pool only has "
                 f"{self.spec.n_pages - 1} allocatable pages")
         req = Request(rid=self._next_rid, prompt=prompt, max_new=max_new,
-                      arrival=arrival, priority=priority)
+                      arrival=arrival, priority=priority, deadline=deadline)
         self._next_rid += 1
         self.sched.submit(req)
         return req
 
+    # -------------------------------------------------- preemption support
+    def _spill_slot(self, slot: int, req: Request, now: float):
+        """The scheduler's preempt hook: spill ``slot``'s owned live pages
+        (every pool leaf's slice, gathered along the page axis and copied
+        to host numpy at once), checksum them, and clear the slot's
+        mirrors."""
+        n_live = int(self.cur_len[slot])
+
+        def copy_out(pages):
+            idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
+            host = _host_tree(self.cache, lambda key, t: (
+                t.index_select(_PAGE_AXIS, idx) if key in POOL_KEYS
+                else None))
+            self.n_spilled_pages += len(pages)
+            return host
+
+        req.prefill_done = slot not in self._prefilling
+        snap = self.pool.spill(slot, n_live, copy_out)
+        if snap.host is not None:
+            # the checksum of the data as it left the device, before any
+            # injected corruption
+            snap.checksum = _tree_checksum(snap.host)
+            if self._spill_corrupt:
+                self._spill_corrupt = False
+                snap.host, hit = _corrupt_first_leaf(snap.host)
+                if hit:
+                    self.n_spill_corruptions += 1
+        self._clear_slot(slot)
+        return snap
+
+    def _restore_slot(self, slot: int, req: Request, now: float) -> None:
+        """Finish a scheduler restore: verify the payload's checksum (a
+        mismatch quarantines the request instead of resuming it on garbage
+        KV), scatter it into the fresh pages the pool picked, and re-enter
+        the request where it stopped: decoding with its last token pending,
+        or mid-prefill at its old progress."""
+        snap = req.spill
+        if (snap.copied and snap.checksum is not None
+                and _tree_checksum(snap.host) != snap.checksum):
+            self.n_spill_checksum_fails += 1
+            req.spill = None
+            # restore() turned the kept references into the slot's; the
+            # quarantine releases them with the fresh pages
+            self.sched.quarantine(slot, now, "spill_corrupt")
+            return
+        if snap.copied:
+            idx = torch.tensor(snap.restored, dtype=torch.int64,
+                               device=self.device)
+            _put_tree(self.cache, snap.host,
+                      lambda dst, src: dst.index_copy_(_PAGE_AXIS, idx, src),
+                      self.device)
+            self.n_restored_pages += len(snap.copied)
+        req.spill = None
+        self.cur_len[slot] = snap.n_live
+        if req.prefill_done:
+            self.last_tok[slot] = req.tokens[-1]
+            self.active[slot] = True
+        else:
+            self._prefilling[slot] = req
+
+    def _clear_slot(self, slot: int) -> None:
+        self._prefilling.pop(slot, None)
+        self.active[slot] = False
+        self.cur_len[slot] = 0
+        self.last_tok[slot] = 0
+
+    # -------------------------------------------- engine snapshot / restore
+    _SNAP_COUNTERS = ("n_decode_steps", "n_prefills", "n_prefill_tokens",
+                      "n_shared_tokens", "n_spilled_pages",
+                      "n_restored_pages", "n_spec_rounds", "n_draft_tokens",
+                      "n_spec_emitted", "n_spill_corruptions",
+                      "n_spill_checksum_fails", "n_nonfinite",
+                      "n_faults_applied")
+
+    def _fingerprint(self) -> dict:
+        """The serving configuration a snapshot belongs to; ``restore``
+        refuses a snapshot of another (its cache shapes and scheduling would
+        silently diverge)."""
+        return {
+            "cfg": repr(self.cfg),
+            "n_slots": self.n_slots,
+            "spec": (self.spec.n_pages, self.spec.page_size,
+                     self.spec.max_pages),
+            "eos_id": self.eos_id,
+            "prefill_bucket": self.prefill_bucket,
+            "prefill_batch": self.prefill_batch,
+            "decode_block": self.decode_block,
+            "temperature": self.temperature, "top_k": self.top_k,
+            "prefix_share": self.prefix_share,
+            "chunk_tokens": self.chunk_tokens,
+            "spec_decode": self.spec_decode,
+            "draft_bits": self.draft_bits, "spec_k": self.spec_k,
+            "preempt": self.preempt,
+            "age_promote": self.sched.age_promote,
+        }
+
+    def snapshot(self) -> dict:
+        """The whole serving state as a nested dict of host values: every
+        cache leaf (one device-to-host copy), the allocator (free-list
+        order included), the scheduler (requests, queues, events,
+        counters), the slot mirrors, the generator state, the virtual clock
+        and the pending fault one-shots. Self-contained, serializable with
+        ``checkpoint.store.save_snapshot``, and taken by ``restore`` on a
+        fresh engine of the same configuration, which then continues with
+        the same greedy tokens. The FaultPlan is not captured: the crash
+        driver owns it."""
+        kf = self._kernel_fault
+        snap = {
+            "fingerprint": self._fingerprint(),
+            "t": self.t,
+            "n_steps_total": self.n_steps_total,
+            "next_rid": self._next_rid,
+            "rng": self._gen.get_state().numpy().copy(),
+            "mirrors": {"cur_len": self.cur_len.copy(),
+                        "last_tok": self.last_tok.copy(),
+                        "active": self.active.copy()},
+            "prefilling": {int(s): r.rid
+                           for s, r in self._prefilling.items()},
+            "cache": _host_tree(self.cache, lambda key, t: t),
+            "pool": self.pool.state_dict(),
+            "sched": self.sched.state_dict(),
+            "counters": {k: getattr(self, k) for k in self._SNAP_COUNTERS},
+            "spec_accept_sum": self.spec_accept_sum.copy(),
+            "spec_round_count": self.spec_round_count.copy(),
+            "fault_state": {
+                "poison_slots": sorted(self._poison_slots),
+                "kernel_fault": (None if kf is None
+                                 else list(dataclasses.astuple(kf))),
+                "spill_corrupt": self._spill_corrupt,
+                "fault_holds": [[int(s), [int(p) for p in pages]]
+                                for s, pages in self._fault_holds],
+            },
+        }
+        if self.spec_decode:
+            snap["draft_cache"] = _host_tree(self.draft_cache,
+                                             lambda key, t: t)
+        return snap
+
+    def restore(self, snap: dict) -> None:
+        """Load a ``snapshot()`` into this engine (same configuration,
+        checked against the fingerprint) and resume: the next ``step()``
+        continues the interrupted trace with the same greedy tokens.
+
+        A pending kernel fault that this engine's plan no longer holds was
+        the crash being recovered (``run_resilient`` drops the crashing
+        fault from the plan): it is not restored, and its count goes with
+        it."""
+        fp, got = self._fingerprint(), dict(snap["fingerprint"])
+        if got != fp:
+            bad = sorted(k for k in set(fp) | set(got)
+                         if fp.get(k) != got.get(k))
+            raise ValueError(f"snapshot fingerprint mismatch on {bad}: "
+                             f"snapshot from a different engine config")
+        self.t = int(snap["t"])
+        self.n_steps_total = int(snap["n_steps_total"])
+        self._next_rid = int(snap["next_rid"])
+        self._gen.set_state(torch.from_numpy(
+            np.asarray(snap["rng"], np.uint8).copy()))
+        self.cur_len = np.asarray(snap["mirrors"]["cur_len"],
+                                  np.int32).copy()
+        self.last_tok = np.asarray(snap["mirrors"]["last_tok"],
+                                   np.int32).copy()
+        self.active = np.asarray(snap["mirrors"]["active"], bool).copy()
+        _put_tree(self.cache, snap["cache"],
+                  lambda dst, src: dst.copy_(src), self.device)
+        if self.spec_decode:
+            _put_tree(self.draft_cache, snap["draft_cache"],
+                      lambda dst, src: dst.copy_(src), self.device)
+        self.pool.load_state_dict(snap["pool"])
+        by_rid = self.sched.load_state_dict(snap["sched"])
+        self._prefilling = {int(s): by_rid[int(r)]
+                            for s, r in snap["prefilling"].items()}
+        for k in self._SNAP_COUNTERS:
+            setattr(self, k, int(snap["counters"][k]))
+        self.spec_accept_sum = np.asarray(snap["spec_accept_sum"],
+                                          np.int64).copy()
+        self.spec_round_count = np.asarray(snap["spec_round_count"],
+                                           np.int64).copy()
+        fs = snap["fault_state"]
+        self._poison_slots = {int(s) for s in fs["poison_slots"]}
+        kf = fs["kernel_fault"]
+        self._kernel_fault = None if kf is None else Fault(*kf)
+        if (self._kernel_fault is not None and self.faults is not None
+                and self._kernel_fault not in self.faults.faults):
+            self._kernel_fault = None
+            self.n_faults_applied -= 1
+        self._spill_corrupt = bool(fs["spill_corrupt"])
+        self._fault_holds = [[int(s), [int(p) for p in pages]]
+                             for s, pages in fs["fault_holds"]]
+        if self.debug:
+            self._debug_check()
+
+    def fault_stats(self) -> dict:
+        """Fault accounting: injections fired, sentinel and checksum
+        catches, the scheduler's deadline and quarantine counters, pages
+        still held. (The JAX package's also counts kernel fallbacks and
+        names its attention path: the port has neither.)"""
+        return {
+            "n_steps": self.n_steps_total,
+            "n_faults_applied": self.n_faults_applied,
+            "n_nonfinite": self.n_nonfinite,
+            "n_spill_corruptions": self.n_spill_corruptions,
+            "n_spill_checksum_fails": self.n_spill_checksum_fails,
+            "n_quarantined": self.sched.n_quarantined,
+            "n_shed": self.sched.n_shed,
+            "n_cancelled": self.sched.n_cancelled,
+            "held_pages": sum(len(h[1]) for h in self._fault_holds),
+        }
+
+    def _debug_check(self) -> None:
+        """The per-step check under ``debug``: the pool's invariants, and
+        each slot's mirrors against the scheduler's state (host arithmetic
+        only, no device sync), so a fault run fails at the step where the
+        state goes wrong."""
+        self.pool.check_invariants()
+
+        def check(ok, msg):
+            if not ok:
+                raise AssertionError(msg)
+        for slot in range(self.n_slots):
+            req = self.sched.slots[slot]
+            if req is None:
+                check(not self.active[slot],
+                      f"slot {slot}: active with no request")
+                check(slot not in self._prefilling,
+                      f"slot {slot}: prefilling with no request")
+                check(np.all(self.pool.tables[slot] == -1),
+                      f"slot {slot}: pages mapped with no request")
+                continue
+            check(req.slot == slot,
+                  f"slot {slot}: request {req.rid} thinks it is in "
+                  f"{req.slot}")
+            fill = int(self.cur_len[slot])
+            mapped = int(np.sum(self.pool.tables[slot] >= 0))
+            if slot in self._prefilling:
+                check(not self.active[slot],
+                      f"slot {slot}: both prefilling and decoding")
+                check(fill <= req.n_prompt,
+                      f"slot {slot}: prefill fill beyond the prompt")
+            else:
+                check(self.active[slot], f"slot {slot}: occupied but "
+                      f"neither prefilling nor decoding")
+                check(fill == req.n_prompt + len(req.tokens) - 1,
+                      f"slot {slot}: fill count disagrees with the token "
+                      f"stream ({fill} vs {req.n_prompt}+"
+                      f"{len(req.tokens)}-1)")
+            check(mapped >= self.spec.pages_for(fill),
+                  f"slot {slot}: fill {fill} exceeds its {mapped} mapped "
+                  f"pages")
+
+    # ------------------------------------------------- fault-plan plumbing
+    def _apply_faults(self, step_idx: int, now: float) -> None:
+        """Fire every fault scheduled for this step (serve/faults.py).
+        Expired pool_exhaust holds release first, so a plan never shrinks
+        the pool for good."""
+        due = [h for h in self._fault_holds if h[0] <= step_idx]
+        for h in due:
+            self.pool.release_hold(h[1])
+            self._fault_holds.remove(h)
+        if self.faults is None:
+            return
+        for f in self.faults.at(step_idx):
+            self.n_faults_applied += 1
+            if f.kind == "step_exception":
+                raise FaultInjected(f)
+            elif f.kind == "nan_logits":
+                self._poison_slots.add(max(0, f.slot) % self.n_slots)
+            elif f.kind == "pool_exhaust":
+                pages = self.pool.hold(f.pages)
+                if pages:
+                    self._fault_holds.append(
+                        [step_idx + max(1, f.duration), pages])
+            elif f.kind == "latency_spike":
+                # the virtual clock jumps; run() reads now from self.t, so
+                # queues and deadlines age from the next tick on
+                self.t += max(1, f.duration)
+            elif f.kind == "kernel_fault":
+                self._kernel_fault = f
+            elif f.kind == "spill_corrupt":
+                self._spill_corrupt = True
+
+    def _dispatch_fault(self) -> None:
+        """A pending kernel fault fails this decode dispatch: it raises
+        instead of launching (no fallback read exists)."""
+        if self._kernel_fault is not None:
+            fault, self._kernel_fault = self._kernel_fault, None
+            raise FaultInjected(fault)
+
+    def _enforce_deadlines(self, now: float) -> bool:
+        """Cancel running or prefilling requests past their deadline
+        (queued ones are shed in the scheduler's admit)."""
+        did = False
+        for slot, req in enumerate(self.sched.slots):
+            if (req is not None and req.deadline is not None
+                    and now > req.deadline):
+                self._clear_slot(slot)
+                self.sched.cancel(slot, now)
+                did = True
+        return did
+
+    def _quarantine(self, slot: int, req: Request, reason: str,
+                    now: float) -> None:
+        """Retire a slot the sentinel flagged; the other slots' tokens came
+        out of the same block, already shielded inside it."""
+        self.n_nonfinite += reason == "nonfinite_logits"
+        self._clear_slot(slot)
+        self.sched.quarantine(slot, now, reason)
+
     # ------------------------------------------------------------ serving
     @torch.no_grad()
     def step(self, now: float = 0.0) -> bool:
-        """One scheduler tick: admit, advance every mid-prefill slot by one
-        chunk, then one block of decode steps (or one speculative round).
-        Returns False when there was nothing to do."""
-        did = False
+        """One scheduler tick: fire this step's faults and cancel expired
+        requests, admit (restoring preempted ones), advance every
+        mid-prefill slot by one chunk, then one block of decode steps (or
+        one speculative round). Returns False when there was nothing to
+        do."""
+        step_idx = self.n_steps_total
+        self.n_steps_total += 1
+        self._apply_faults(step_idx, now)        # may raise FaultInjected
+        did = self._enforce_deadlines(now)
         for slot, req in self.sched.admit(now):
+            if req.spill is not None:
+                # a preempted request: its KV goes back, nothing is
+                # prefilled again
+                did = True
+                self._restore_slot(slot, req, now)
+                continue
             # a prefix hit starts the prefill past the shared pages
             self.cur_len[slot] = req.n_shared
             self.n_shared_tokens += req.n_shared
@@ -303,13 +902,20 @@ class ContinuousEngine:
             self._spec_block(self.active.copy(), now)
         elif act.size:
             did = True
-            toks = self._decode_block()                       # (K, n_slots)
+            toks, alive = self._decode_block()          # (K, n_slots) each
             for t in range(toks.shape[0]):
                 for slot in act:
                     req = self.sched.slots[slot]
-                    if req is None:                           # retired
+                    if req is None:                     # retired
+                        continue
+                    if not alive[t, slot]:
+                        # the sentinel fired: this step's token and the
+                        # rest are garbage, the slot froze in the block
+                        self._quarantine(slot, req, "nonfinite_logits", now)
                         continue
                     self._emit(slot, req, int(toks[t, slot]), now)
+        if self.debug:
+            self._debug_check()
         return did
 
     def run(self, *, clock=None, max_steps: Optional[int] = None):
@@ -317,10 +923,10 @@ class ContinuousEngine:
         during this call, in submit order.
 
         ``clock``: callable giving the current time for arrival gating and
-        latency stamps; default is the virtual step counter ``self.t``, so
-        ``arrival`` is then measured in scheduler steps."""
-        import time as _time
-
+        latency stamps; default is the virtual step counter ``self.t`` (so
+        ``arrival`` is then measured in scheduler steps), which a restored
+        engine continues from and latency_spike faults advance. An injected
+        crash (``FaultInjected``) propagates."""
         steps = 0
         while not self.sched.all_done():
             if max_steps is not None and steps >= max_steps:
@@ -331,7 +937,7 @@ class ContinuousEngine:
                 steps += 1
                 self.t += 1
             else:
-                _time.sleep(1e-3)
+                time.sleep(1e-3)
         return sorted(self.sched.drain_finished(), key=lambda r: r.rid)
 
     # ----------------------------------------------------------- internals
@@ -374,7 +980,8 @@ class ContinuousEngine:
                        has_ctx: bool, now: float) -> None:
         """Prefill one same-bucket batch of (slot, req, start, end) chunks;
         a row that completes its prompt samples its first token and joins
-        the decode set."""
+        the decode set, unless its logits are non-finite (quarantined
+        before it decodes or publishes a page)."""
         batch = len(items)
         toks = np.zeros((batch, padded), np.int32)
         pos = np.full((batch, padded), -1, np.int32)
@@ -414,19 +1021,28 @@ class ContinuousEngine:
                 finish.append(row)
         if not finish:
             return
-        first = sample(logits[finish], temperature=self.temperature,
-                       top_k=self.top_k, generator=self._gen).cpu().numpy()
-        for tok, row in zip(first, finish):
+        last = logits[finish]
+        first = sample(last, temperature=self.temperature, top_k=self.top_k,
+                       generator=self._gen)
+        ok = torch.isfinite(last).all(dim=-1).to(first.dtype)
+        first, ok = torch.stack([first, ok]).cpu().numpy()   # one host sync
+        for tok, okf, row in zip(first, ok, finish):
             slot, req, _, _ = items[row]
             del self._prefilling[slot]
+            if not okf:
+                self._quarantine(slot, req, "nonfinite_logits", now)
+                continue
             self.active[slot] = True
             # publish the prompt's full pages before _emit can retire the
             # slot (max_new 1 or an immediate EOS unmaps it)
             self.pool.register_prefix(req.prompt, slot)
             self._emit(slot, req, int(tok), now)
 
-    def _decode_block(self) -> np.ndarray:
-        """One block of decode steps; returns (K, n_slots) tokens."""
+    def _decode_block(self) -> tuple[np.ndarray, np.ndarray]:
+        """One block of decode steps; returns (K, n_slots) tokens and the
+        (K, n_slots) alive mask (False from the step a slot's logits went
+        non-finite: its tokens from there on are garbage)."""
+        self._dispatch_fault()
         act = self.active.copy()
         remaining = min(req.max_new - len(req.tokens)
                         for slot, req in enumerate(self.sched.slots)
@@ -436,8 +1052,14 @@ class ContinuousEngine:
         # pow2 read width over the deepest slot at block end: shallow
         # traffic does not pay for the provisioned max_len
         width = self._read_width(int(self.cur_len[act].max()) + k_steps)
+        poison = None
+        if self._poison_slots:
+            mask = np.zeros(self.n_slots, bool)
+            mask[sorted(self._poison_slots)] = True
+            self._poison_slots.clear()
+            poison = torch.tensor(mask, device=self.device)
         dev = self.device
-        toks = _decode_scan(
+        toks, alive = _decode_scan(
             self.cfg, self.params, self.cache,
             torch.tensor(self.last_tok, device=dev),
             torch.tensor(self.cur_len, device=dev),
@@ -446,16 +1068,19 @@ class ContinuousEngine:
                          device=dev),
             k_steps=k_steps, page_size=self.spec.page_size,
             temperature=self.temperature, top_k=self.top_k,
-            generator=self._gen)
+            generator=self._gen, poison=poison)
         self.cur_len[act] += k_steps
         self.n_decode_steps += k_steps
-        return toks.cpu().numpy()                 # the block's one host sync
+        # the block's one host sync
+        toks, alive = torch.stack([toks, alive.to(toks.dtype)]).cpu().numpy()
+        return toks, alive.astype(bool)
 
     def _spec_block(self, act: np.ndarray, now: float) -> None:
         """One speculative round over all decoding slots. k adapts to the
         smallest remaining budget (pow2, at most spec_k; 0 is a one-row
         verify, plain decode); each slot emits its accepted prefix plus the
         target's token at the first mismatch."""
+        self._dispatch_fault()
         remaining = min(req.max_new - len(req.tokens)
                         for slot, req in enumerate(self.sched.slots)
                         if req is not None and act[slot])

@@ -1,6 +1,6 @@
 """Paged KV cache: fixed page pool + per-slot block tables + the prefix
-index (port of ``repro.serve.kvcache``, without the spill and hold of the
-overload slice).
+index, and the page bookkeeping of preemption (port of
+``repro.serve.kvcache``).
 
 A pool of fixed-size pages is shared by all serving slots; each slot owns a
 block table, a row of page ids. A slot's cache always holds the contiguous
@@ -12,13 +12,24 @@ positions write there, and nothing ever reads it. The allocator
 (``PagePool``) is host-side numpy; ``prefill_page_index`` runs on the
 device of its tensors. The prefix index's page keys are the JAX package's
 byte for byte (blake2b chained over each page's int32 tokens).
+
+Preemption: ``spill(slot)`` checkpoints a victim slot's mapping so the
+slot and its exclusively owned pages can go to a higher-class request,
+and ``restore(slot, snap)`` re-stitches an equivalent block table later.
+Pages the slot shares (prefix-index entries, other slots' stitches) are
+*kept by reference*: the snapshot holds one reference on each, so they
+stay on the device untouched and a spill never copies a prefix page. Only
+exclusively owned live pages go to the caller's ``copy_out`` for host
+storage. Spill and ``hold`` references are counted apart, so
+``check_invariants`` proves conservation across the whole preempt ->
+spill -> restore lifecycle and across fault-injected holds.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 from collections import OrderedDict
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -48,6 +59,31 @@ def default_page_spec(n_slots: int, max_len: int,
     max_pages = -(-max_len // page_size)
     return PageSpec(n_pages=1 + n_slots * max_pages, page_size=page_size,
                     max_pages=max_pages)
+
+
+@dataclasses.dataclass
+class SpillSnapshot:
+    """Checkpoint of one slot's page mapping taken by ``PagePool.spill``.
+
+    ``kept`` pages stay resident on the device: the snapshot holds one
+    reference on each, so neither the free list nor prefix eviction can
+    reclaim them while the request sits preempted. ``copied`` pages were
+    exclusively owned; their contents went to the spill caller's
+    ``copy_out`` and the pages back to the free list, so the positions
+    recorded here only say where in the rebuilt table the host data goes.
+    ``host`` is what ``copy_out`` returned (the engine's gathered pool
+    pages as numpy, in host RAM)."""
+
+    n_pages: int                     # pages the slot had mapped (its budget)
+    n_live: int                      # tokens whose KV was resident at spill
+    kept: list                       # (table position, page id) by reference
+    copied: list                     # table positions whose data spilled
+    host: Any = None                 # copy_out's payload
+    restored: Optional[list] = None  # the fresh page ids restore picked for
+    #                                  the copied positions, in their order:
+    #                                  where the engine scatters ``host``
+    checksum: Optional[int] = None   # crc32 of ``host`` taken at spill time,
+    #                                  verified before the scatter
 
 
 class PagePool:
@@ -85,6 +121,12 @@ class PagePool:
         # bumped on every index change; admission caches a blocked queue
         # head's lookup under it
         self.generation = 0
+        # references held by live SpillSnapshots and by hold() (fault
+        # injection): counted into refcount so neither eviction nor free can
+        # take such a page, and kept apart so check_invariants can account
+        # for them
+        self._spill_refs = np.zeros(spec.n_pages, np.int32)
+        self._hold_refs = np.zeros(spec.n_pages, np.int32)
 
     @property
     def n_free(self) -> int:
@@ -248,17 +290,171 @@ class PagePool:
                 self._free.append(int(p))
         self.tables[slot] = -1
 
+    # ---------------------------------------------------- preemption spill
+    def slot_owned_pages(self, slot: int) -> int:
+        """Mapped pages only this slot holds (refcount 1): what a preemption
+        would give back. The scheduler skips a victim that owns none."""
+        row = self.tables[slot]
+        return int(sum(1 for p in row if p >= 0 and self.refcount[p] == 1))
+
+    def spill(self, slot: int, n_live_tokens: int,
+              copy_out: Callable[[list], Any]) -> SpillSnapshot:
+        """Checkpoint and unmap ``slot``; returns the snapshot ``restore``
+        takes. Pages of refcount > 1 are kept by reference (the snapshot
+        takes one reference each; their contents never move). Exclusively
+        owned pages holding live tokens (positions 0..n_live_tokens - 1)
+        go to ``copy_out`` before any page is released, so the caller can
+        read them off the device; they and the dead tail pages (budget for
+        decode, never written) then return to the free list."""
+        row = self.tables[slot]
+        n_mapped = int(np.sum(row >= 0))
+        if n_mapped == 0:
+            raise RuntimeError(f"slot {slot} has nothing to spill")
+        live = self.spec.pages_for(n_live_tokens)
+        if live > n_mapped:
+            raise RuntimeError(f"slot {slot}: {n_live_tokens} live tokens "
+                               f"exceed its {n_mapped}-page mapping")
+        kept, copied = [], []
+        for i in range(n_mapped):
+            page = int(row[i])
+            if self.refcount[page] > 1:
+                kept.append((i, page))
+            elif i < live:
+                # owned and written: its contents exist nowhere else (an
+                # index page has the index's reference, so refcount >= 2)
+                copied.append(i)
+        host = copy_out([int(row[i]) for i in copied]) if copied else None
+        snap = SpillSnapshot(n_pages=n_mapped, n_live=n_live_tokens,
+                             kept=kept, copied=copied, host=host)
+        for _, page in kept:
+            self.refcount[page] += 1
+            self._spill_refs[page] += 1
+        self.release(slot)
+        return snap
+
+    def can_restore(self, snap: SpillSnapshot) -> bool:
+        """True when the fresh pages a restore needs are available now."""
+        fresh = snap.n_pages - len(snap.kept)
+        return fresh <= len(self._free) + self._n_evictable()
+
+    def restore(self, slot: int, snap: SpillSnapshot) -> list[int]:
+        """Re-stitch ``slot``'s block table from a spill snapshot: kept
+        pages at their old positions (the snapshot's reference becomes the
+        slot's), a fresh page at every other position. Returns the fresh
+        ids at the ``copied`` positions, in order (also ``snap.restored``):
+        where the caller scatters the host data back. Dead-tail positions
+        get fresh unwritten pages, masked by the fill count as in any
+        allocation."""
+        if np.any(self.tables[slot] != -1):
+            raise RuntimeError(f"slot {slot} already mapped")
+        fresh_n = snap.n_pages - len(snap.kept)
+        if fresh_n > len(self._free) + self._n_evictable():
+            raise RuntimeError(f"page pool exhausted on restore: need "
+                               f"{fresh_n} fresh, free {len(self._free)}")
+        kept_pos = {i for i, _ in snap.kept}
+        copied_pos = set(snap.copied)
+        for i, page in snap.kept:
+            self.tables[slot, i] = page
+            self._spill_refs[page] -= 1
+            if self._spill_refs[page] < 0:
+                raise RuntimeError("spill reference over-released")
+        out = []
+        for i in range(snap.n_pages):
+            if i in kept_pos:
+                continue
+            if not self._free:
+                self._evict_one()
+            page = self._free.pop()
+            self.refcount[page] += 1
+            self.tables[slot, i] = page
+            if i in copied_pos:
+                out.append(page)
+        snap.restored = out
+        return out
+
+    def discard_spill(self, snap: SpillSnapshot) -> None:
+        """Drop a snapshot without restoring it (its request was shed or
+        cancelled): release its kept-page references."""
+        for _, page in snap.kept:
+            self._spill_refs[page] -= 1
+            self.refcount[page] -= 1
+            if self._spill_refs[page] < 0 or self.refcount[page] < 0:
+                raise RuntimeError(f"page {page} over-released")
+            if self.refcount[page] == 0:
+                self._free.append(int(page))
+        snap.kept = []
+
+    # --------------------------------------------------- fault injection
+    def hold(self, n: int) -> list[int]:
+        """Pin up to ``n`` free pages (simulated exhaustion): they leave the
+        free list and take a reference, so admission sees a smaller pool.
+        Holding never evicts; returns the pages held."""
+        pages = [self._free.pop() for _ in range(min(n, len(self._free)))]
+        for p in pages:
+            self.refcount[p] += 1
+            self._hold_refs[p] += 1
+        return pages
+
+    def release_hold(self, pages: list[int]) -> None:
+        """Return pages pinned by ``hold`` to the free list."""
+        for p in pages:
+            self._hold_refs[p] -= 1
+            self.refcount[p] -= 1
+            if self._hold_refs[p] < 0 or self.refcount[p] < 0:
+                raise RuntimeError(f"page {p} over-released")
+            if self.refcount[p] == 0:
+                self._free.append(int(p))
+
+    # ------------------------------------------------- snapshot / restore
+    def state_dict(self) -> dict:
+        """The allocator's whole state, by value, for engine snapshots. The
+        free list keeps its order and the index its insertion order: the
+        pages a restored engine hands out next are the uninterrupted
+        engine's."""
+        return {
+            "free": list(self._free),
+            "tables": self.tables.copy(),
+            "refcount": self.refcount.copy(),
+            "spill_refs": self._spill_refs.copy(),
+            "hold_refs": self._hold_refs.copy(),
+            "generation": self.generation,
+            "prefix_index": [(k.hex(), int(p))
+                             for k, p in self._prefix_index.items()],
+            "parent": [(k.hex(), None if p is None else p.hex())
+                       for k, p in self._parent.items()],
+            "children": [(k.hex(), int(n))
+                         for k, n in self._children.items()],
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self._free = [int(p) for p in state["free"]]
+        self.tables = np.asarray(state["tables"], np.int32).copy()
+        self.refcount = np.asarray(state["refcount"], np.int32).copy()
+        self._spill_refs = np.asarray(state["spill_refs"], np.int32).copy()
+        self._hold_refs = np.asarray(state["hold_refs"], np.int32).copy()
+        self.generation = int(state["generation"])
+        self._prefix_index = OrderedDict(
+            (bytes.fromhex(k), int(p)) for k, p in state["prefix_index"])
+        self._parent = {bytes.fromhex(k):
+                        (None if p is None else bytes.fromhex(p))
+                        for k, p in state["parent"]}
+        self._children = {bytes.fromhex(k): int(n)
+                          for k, n in state["children"]}
+
     def check_invariants(self) -> None:
         """Raise if refcounts, free list, tables and index disagree: every
-        page's refcount equals its holders (slots and the index), free and
-        held pages are disjoint, no page is lost or duplicated (free + held
-        = n_pages - 1), and parent links and child counts match the
-        index."""
+        page's refcount equals its holders (slots, the index, spill
+        snapshots and holds), free and held pages are disjoint, no page is
+        lost or duplicated (free + held = n_pages - 1), and parent links
+        and child counts match the index."""
         held = self.tables[self.tables >= 0].astype(np.int64)
         counts = np.bincount(held, minlength=self.spec.n_pages)
         for page in self._prefix_index.values():
             counts[page] += 1
         problems = []
+        if np.any(self._spill_refs < 0) or np.any(self._hold_refs < 0):
+            problems.append("negative spill or hold refcount")
+        counts = counts + self._spill_refs + self._hold_refs
         if not np.array_equal(self.refcount, counts):
             problems.append("refcounts out of sync with holders")
         free = set(self._free)

@@ -11,9 +11,9 @@ step that is a pure function of (trace seed, engine config).
 
 Metrics are reported per SLO class (interactive/batch): TTFT and TPOT
 percentiles, end-to-end latency, queue wait and goodput — completed
-tokens per unit of virtual (or wall) time. The port's scheduler is FIFO
-(priorities, preemption and deadlines come in a later slice), so the class
-is a label here and the report has no preemption or deadline columns.
+tokens per unit of virtual (or wall) time — with the preempted, shed,
+cancelled and quarantined requests counted apart (a request retired
+without a complete answer is not served).
 """
 from __future__ import annotations
 
@@ -94,9 +94,10 @@ def make_trace(*, kind: str = "poisson", n: int = 32, rate: float = 4.0,
 
 def replay(engine, trace: Sequence[TraceItem], *, clock=None,
            max_steps: int = 200_000) -> dict:
-    """Submit a trace and drain it; returns the metrics report.
+    """Submit a trace and drain it; returns the metrics report with the
+    scheduler's and the spill's counters and the engine's fault counters.
 
-    With `clock=None` the engine's virtual clock drives time (one step()
+    With ``clock=None`` the engine's virtual clock drives time (one step()
     call per time unit); pass a wall clock callable for real-time
     measurement. The report carries the submitted requests under
     "requests" so callers can assert token streams."""
@@ -108,6 +109,10 @@ def replay(engine, trace: Sequence[TraceItem], *, clock=None,
     makespan = max((r.finished_at for r in done if r.finished_at is not None),
                    default=0.0)
     report = summarize(done, makespan=makespan)
+    report["scheduler"] = engine.sched.stats()
+    report["spill"] = {"spilled_pages": engine.n_spilled_pages,
+                       "restored_pages": engine.n_restored_pages}
+    report["faults"] = engine.fault_stats()
     report["requests"] = reqs
     return report
 
@@ -116,27 +121,34 @@ def _pct(xs: list, q: float) -> float:
     return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
 
 
+def _failed(r) -> bool:
+    """Retired without a complete answer: rejected, shed, cancelled or
+    quarantined."""
+    return bool(r.rejected or r.shed or r.cancelled or r.error)
+
+
 def _class_metrics(reqs: list, makespan: float) -> dict:
-    served = [r for r in reqs if not r.rejected]
+    served = [r for r in reqs if not _failed(r)]
     ttft = [r.ttft for r in served if r.ttft is not None]
     tpot = [r.tpot for r in served if r.tpot is not None]
     lat = [r.finished_at - r.arrival for r in served
            if r.finished_at is not None]
-    wait = [r.admitted_at - r.arrival for r in served
-            if r.admitted_at is not None]
     tokens = sum(len(r.tokens) for r in served)
     return {
         "n": len(reqs),
         "n_served": len(served),
         "n_rejected": sum(1 for r in reqs if r.rejected),
+        "n_preempted": sum(1 for r in reqs if r.n_preempts > 0),
+        "n_shed": sum(1 for r in reqs if r.shed),
+        "n_cancelled": sum(1 for r in reqs if r.cancelled),
+        "n_error": sum(1 for r in reqs if r.error),
         "tokens": tokens,
         "goodput_tok_per_t": tokens / makespan if makespan > 0 else 0.0,
         "ttft_p50": _pct(ttft, 50), "ttft_p95": _pct(ttft, 95),
         "ttft_p99": _pct(ttft, 99),
         "tpot_p50": _pct(tpot, 50), "tpot_p95": _pct(tpot, 95),
-        "tpot_p99": _pct(tpot, 99),
         "latency_p50": _pct(lat, 50), "latency_p95": _pct(lat, 95),
-        "queue_wait_p95": _pct(wait, 95),
+        "queue_wait_p95": _pct([r.queue_wait for r in served], 95),
     }
 
 
@@ -160,7 +172,8 @@ def summarize(done: Sequence, *, makespan: Optional[float] = None) -> dict:
 
 def format_report(report: dict, *, unit: str = "steps") -> str:
     """Human-readable per-class table for launcher output."""
-    lines = [f"{'class':<12} {'n':>4} {'srv':>4} {'rej':>4} "
+    lines = [f"{'class':<12} {'n':>4} {'srv':>4} {'rej':>4} {'pre':>4} "
+             f"{'shd':>4} {'cxl':>4} {'err':>4} "
              f"{'ttft p50':>9} {'ttft p95':>9} {'tpot p50':>9} "
              f"{'lat p95':>9} {'goodput':>9}"]
     rows = [("overall", report["overall"])]
@@ -168,9 +181,18 @@ def format_report(report: dict, *, unit: str = "steps") -> str:
     for name, m in rows:
         lines.append(
             f"{name:<12} {m['n']:>4} {m['n_served']:>4} "
-            f"{m['n_rejected']:>4} "
+            f"{m['n_rejected']:>4} {m['n_preempted']:>4} "
+            f"{m['n_shed']:>4} {m['n_cancelled']:>4} {m['n_error']:>4} "
             f"{m['ttft_p50']:>9.2f} {m['ttft_p95']:>9.2f} "
             f"{m['tpot_p50']:>9.2f} {m['latency_p95']:>9.2f} "
             f"{m['goodput_tok_per_t']:>9.2f}")
-    lines.append(f"(times in {unit}; goodput = completed tokens / makespan)")
+    lines.append(f"(times in {unit}; goodput = completed tokens / makespan; "
+                 f"shd/cxl = deadline shed/cancelled, err = quarantined)")
+    if "faults" in report:
+        f = report["faults"]
+        lines.append(
+            f"faults: {f['n_faults_applied']} injected, "
+            f"{f['n_nonfinite']} non-finite quarantines, "
+            f"{f['n_spill_checksum_fails']} corrupt spills caught, "
+            f"{f['n_shed']} shed, {f['n_cancelled']} cancelled")
     return "\n".join(lines)

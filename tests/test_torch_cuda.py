@@ -868,3 +868,87 @@ def test_train_step_on_the_card_matches_the_cpu(gen):
         assert float(err[~near0].max()) <= 1e-3 * lr
         assert float(err.max()) <= 2 * lr + 1e-6
         assert not torch.equal(got.cpu(), p0)
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_spill_gather_scatter_bytes_on_the_card(gen, kv_bits):
+    """The spill's page gather (every pool leaf, one copy to host numpy)
+    and the restore's scatter into other pages give back identical bytes,
+    for f32 pools and for int8 pools with their f32 scales."""
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.serve.engine import _PAGE_AXIS, _host_tree, _put_tree
+    from repro_torch.serve.kvcache import PageSpec
+
+    cfg = get_smoke_config("llama3.2-1b").replace(kv_cache_bits=kv_bits)
+    cache = init_cache(cfg, PageSpec(n_pages=24, page_size=8, max_pages=6),
+                       torch.device("cuda"))
+    for pool in cache["stack"]["p0"].values():
+        if pool.dtype == torch.int8:
+            pool.copy_(torch.randint(-127, 128, pool.shape, generator=gen,
+                                     device="cuda", dtype=torch.int8))
+        else:
+            pool.copy_(torch.randn(pool.shape, generator=gen,
+                                   device="cuda"))
+    before = {k: v.clone() for k, v in cache["stack"]["p0"].items()}
+    src = torch.tensor([3, 17, 5, 9, 22], device="cuda")
+    dst = torch.tensor([1, 2, 11, 12, 20], device="cuda")
+    host = _host_tree(cache, lambda key, t: t.index_select(_PAGE_AXIS, src))
+    for key, arr in host["stack"]["p0"].items():
+        assert isinstance(arr, np.ndarray)
+        want = before[key].index_select(_PAGE_AXIS, src).cpu().numpy()
+        assert arr.dtype == want.dtype
+        assert arr.tobytes() == want.tobytes()
+    for pool in cache["stack"]["p0"].values():
+        pool.zero_()
+    _put_tree(cache, host,
+              lambda d, s: d.index_copy_(_PAGE_AXIS, dst, s),
+              torch.device("cuda"))
+    for key, pool in cache["stack"]["p0"].items():
+        got = pool.index_select(_PAGE_AXIS, dst).cpu().numpy()
+        want = before[key].index_select(_PAGE_AXIS, src).cpu().numpy()
+        assert got.tobytes() == want.tobytes()
+
+
+def test_snapshot_restore_on_the_card(gen, tmp_path):
+    """SMOKE llama3.2-1b W4 g32 with preemption on the card: an engine
+    snapshot taken mid-trace (a spilled request in flight), saved and
+    loaded through the disk and restored into a fresh card engine, goes on
+    to the uninterrupted run's tokens, events and stats."""
+    from repro_torch.checkpoint.store import load_snapshot, save_snapshot
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import ContinuousEngine
+
+    cfg = get_smoke_config("llama3.2-1b")
+    params = init_lm(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(7)
+    reqs = [(rng.integers(0, cfg.vocab_size, 8), mn, t, p)
+            for mn, t, p in [(16, 0.0, 1), (4, 3.0, 0), (5, 5.0, 0),
+                             (6, 7.0, 1)]]
+
+    def build():
+        eng = ContinuousEngine(cfg, params, n_slots=1, max_len=48,
+                               page_size=8, prefill_bucket=8, decode_block=2,
+                               preempt=True, quant_bits=4, quant_group=32,
+                               debug=True, device="cuda")
+        for prompt, mn, t, p in reqs:
+            eng.submit(prompt, max_new=mn, arrival=t, priority=p)
+        return eng
+
+    base = build()
+    want = {r.rid: r.tokens for r in base.run(max_steps=500)}
+    eng = build()
+    for _ in range(5):
+        eng.step(float(eng.t))
+        eng.t += 1
+    assert any(r.spill is not None for r in eng.sched.queue)
+    save_snapshot(str(tmp_path / "snap"), eng.snapshot())
+    fresh = ContinuousEngine(cfg, params, n_slots=1, max_len=48, page_size=8,
+                             prefill_bucket=8, decode_block=2, preempt=True,
+                             quant_bits=4, quant_group=32, debug=True,
+                             device="cuda")
+    fresh.restore(load_snapshot(str(tmp_path / "snap")))
+    got = {r.rid: r.tokens for r in fresh.run(max_steps=500)}
+    assert got == want
+    assert fresh.sched.events == base.sched.events
+    assert fresh.sched.stats() == base.sched.stats()
+    assert fresh.n_restored_pages == base.n_restored_pages > 0

@@ -101,15 +101,48 @@ def test_launcher_runs_mixtral_on_cpu(method):
 
 @pytest.mark.parametrize("flags,slice_name", [
     (["--tp", "2"], "multi-device serving"),
-    (["--preempt"], "overload and faults"),
-    (["--faults", "3"], "overload and faults"),
-    (["--snapshot-every", "4"], "overload and faults"),
-    (["--deadline", "5"], "overload and faults"),
-    (["--engine", "static"], "static-batch engine"),
 ])
 def test_launcher_refuses_later_slices(flags, slice_name):
     with pytest.raises(SystemExit, match=slice_name):
         launcher.parse_args(LAUNCH + flags)
+
+
+# bursts of about two requests, 6 steps apart, 2 slots: a batch request
+# still decodes when the next burst's interactive one arrives
+OVERLOAD = ["--device", "cpu", "--arch", "tiny", "--method", "none",
+            "--requests", "8", "--prompt-len-max", "20", "--max-new-min",
+            "8", "--max-new-max", "16", "--slots", "2", "--trace", "bursty",
+            "--rate", "1.0", "--burst-len", "0.3", "--idle-len", "6.0",
+            "--virtual-clock"]
+
+
+@pytest.mark.parametrize("flags,line", [
+    (["--preempt", "--age-promote", "16"], "overload"),
+    (["--deadline", "6"], "shd/cxl"),
+    (["--faults", "3"], "resilient: "),
+    (["--snapshot-every", "4"], "resilient: 0 crash(es)"),
+])
+def test_launcher_accepts_overload_and_fault_flags(flags, line, capsys):
+    """Each flag of the overload and faults slice reaches the engine and
+    the report: preemption and aging, deadlines, a seeded fault plan with
+    its crash recovered, periodic snapshots."""
+    eng, report, _ = launcher.main(OVERLOAD + flags)
+    out = capsys.readouterr().out
+    assert line in out
+    done = report["requests"]
+    assert len(done) == 8 and all(r.done for r in done)
+    eng.pool.check_invariants()
+    if "--preempt" in flags:
+        assert eng.preempt and eng.sched.age_promote == 16.0
+        assert report["scheduler"]["n_preemptions"] >= 1
+        assert all(len(r.tokens) == r.max_new for r in done)
+    if "--deadline" in flags:
+        assert all(r.deadline == r.arrival + 6.0 for r in done)
+        assert report["overall"]["n_shed"] + \
+            report["overall"]["n_cancelled"] >= 1
+    if "--faults" in flags:
+        assert report["faults"]["n_faults_applied"] >= 1
+        assert "crash(es) recovered" in out and "fault plan" in out
 
 
 def test_launcher_serves_with_prefix_sharing_and_chunks(capsys):
