@@ -7,8 +7,8 @@ Builds the seven CUDA kernels from src/repro_torch/kernels/csrc/ (nvcc,
 at first use, all in parallel) and holds each against its plain PyTorch
 version on the card at the shapes the main paths give it (the paged read
 also at the verify's and a prefill chunk's rows, and at fills below
-them). Then it drives eighteen paths, each with the kernels' launch counts
-set to 0 just before it and read just after. First the paper's quality
+them). Then it drives twenty-four paths, each with the kernels' launch
+counts set to 0 just before it and read just after. First the paper's quality
 path on TINY (d 192, 8 layers, the model the JAX package measures quality
 on), modelled on the JAX package's benchmarks/common.py, nt_common.py and
 table2_weight_only.py:
@@ -83,10 +83,24 @@ Then on llama3.2-1b at full width and depth, with seeded random weights:
 On mixtral-8x22b at its published widths, cut to 2 layers (the float
 tree of 56 layers would not fit the card), the same four paths: serving
 RTN W4 g128 (8 requests, one prompt a prefill), GPTQ W4 g128 + NT and
-SmoothQuant W4A8 + NT (the experts through the expert-batched kernels,
-layer 0's attention linears and one expert's wi and wg quantized again on
-the CPU), and serving the W4A8 + NT model. Each MoE decode step's launches
-are asserted exactly.
+SmoothQuant W4A8 + NT (the experts through the expert-batched kernels;
+layer 0 quantized and tweaked again on the card with every kernel's plain
+version for GPTQ, its attention linears and one expert's wi and wg on the
+CPU for SmoothQuant), and serving the W4A8 + NT model. Each MoE decode
+step's launches are asserted exactly.
+
+Then the dense variants at their published widths, each with its biases,
+LayerNorm biases and norm scales drawn from the seed (init starts them
+at 0 and 1): qwen2-0.5b (QKV biases, GQA 14/2) and chatglm3-6b (RoPE on
+half the channels, GQA 32/2) whole, served W4 g128 on the llama
+workload; granite-20b (LayerNorm, a GELU MLP without wg, biases on every
+linear, a learned position table, MQA 48/1) cut to 24 of its 52 layers,
+served W4 g128 with 64-token prefill chunks (later chunks read their
+context through the paged kernel at learned positions past 0), then at 2
+layers GPTQ W4 g128 + NT and SmoothQuant W4A8 + NT at the launcher's
+calibration (layer 0 again on the card with every kernel's plain version;
+LayerNorm's bias tweaked beside its scale) and the W4A8 + NT model
+served.
 
 Every served greedy token is held against a plain forward over the same
 sequence. On llama3.2-1b it is one right-padded batch on the card with
@@ -233,6 +247,22 @@ NOISE = 1e-7
 # position's logits from the plain forward's: measured 0.245 against the
 # noise's 8.15 (H100, 700 W); a kernel fault that moves logits by more fails
 CARD_SHIFT_MOE = 1.0
+# the dense variants (slice 12) at their published widths: qwen2-0.5b and
+# chatglm3-6b whole (2.0 and 25.0 GB in f32), granite-20b cut to 24 of its
+# 52 layers for serving (379.1 M parameters a layer: 39.6 GB in f32 with
+# the embeddings, the head and its 32,768-row position table; all 52 would
+# be 82 GB, more than the card) and to 2 for its pipelines. Its W4 serving
+# prefills in chunks of 64 tokens, so the later chunks of LLAMA_WORK's
+# longer prompts read their context through the paged kernel at learned
+# positions past 0
+GRANITE_SERVE_LAYERS = 24
+GRANITE_PIPE_LAYERS = 2
+GRANITE_ENGINE = dict(chunked_prefill=64)
+# init_lm starts every bias and LayerNorm bias at 0 and every norm scale at
+# 1, as the JAX package does, so a path that dropped them would not show:
+# the dense variants' paths draw them from N(0, AFFINE_STD^2) and
+# 1 + N(0, AFFINE_STD^2) (perturb_affine), a choice of this script's data
+AFFINE_STD = 0.02
 # seconds of each phase (path with its checks), printed on the "phases"
 # line so a phase that drifts between machines shows by name
 PHASE_S: dict = {}
@@ -379,6 +409,9 @@ def check_dequant_matmul(timer, gen):
     cases += [(m, k, n, bits, group) for m in (256, 512)
               for k, n in ((192, 576), (576, 192))
               for bits, group in ((2, 64), (4, -1))]
+    # the dense variants' decode linears, W4 g128: qwen2-0.5b's MLP (K 896,
+    # 7 groups) and chatglm3-6b's down projection (K 13696, 107 groups)
+    cases += [(8, 896, 4864, 4, 128), (8, 13696, 4096, 4, 128)]
     results = []
     for m, k, n, bits, group in cases:
         x = torch.randn((m, k), generator=gen, device="cuda")
@@ -435,6 +468,8 @@ def check_w8a8_matmul(timer, gen):
     # prefill M
     cases += [(m, 2048, 8192, 4, -1) for m in (16, 32, 64, 128)]
     cases += [(512, 2048, 8192, bits, -1) for bits in (2, 3, 8)]
+    # granite-20b's W4A8 decode: its MLP up projection, per-channel
+    cases += [(8, 6144, 24576, 4, -1)]
     results = []
     for m, k, n, bits, group in cases:
         x = torch.randn((m, k), generator=gen, device="cuda")
@@ -788,14 +823,20 @@ def check_paged_attention(timer, gen):
     # with fills below m_rows (a prompt shorter than its padded chunk: rows
     # at fill positions < 0, which read nothing); Mixtral (GQA 48/8, hd
     # 128) at decode, with its 4096-token window and fills on both sides of
-    # it
+    # it; the dense variants' decode reads over llama's fills: qwen2-0.5b
+    # (GQA 14/2: G 7, a dead row in each 8-row block), chatglm3-6b (32/2:
+    # G 16) and granite-20b (MQA 48/1: G 48, six row chunks on one slot's
+    # pages)
     ps = 16
-    configs = [(8, 4, 64, 20, None, [0, 1, 16, 37, 100, 256, 300, 320],
-                (1, 2, 3, 4, 5, 64), True),
+    fills = [0, 1, 16, 37, 100, 256, 300, 320]
+    configs = [(8, 4, 64, 20, None, fills, (1, 2, 3, 4, 5, 64), True),
                (8, 4, 64, 20, None, [0, 1, 3, 9, 16, 40, 63, 200],
                 (5, 16, 64), False),
                (8, 6, 128, 288, 4096,
-                [0, 1, 16, 160, 2000, 4096, 4097, 4608], (1,), True)]
+                [0, 1, 16, 160, 2000, 4096, 4097, 4608], (1,), True),
+               (2, 7, 64, 20, None, fills, (1,), True),
+               (2, 16, 128, 20, None, fills, (1,), True),
+               (1, 48, 128, 20, None, fills, (1,), True)]
     results = []
     for kvh, g, hd, w, window, fills, m_rows_set, clamp in configs:
         s = len(fills)
@@ -879,8 +920,8 @@ def _check_paged_case(timer, gen, s, kvh, g, hd, ps, w, window, fills,
               + got.numel() * 4 + int(tokens.sum()) * tok_bytes)
     flops = live_rows * kvh * 2 * (hd + hd)
     b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
-    return dict(hd=hd, group=g, window=window, m_rows=m_rows, int8=quant,
-                fills=fills, dead_rows=int(dead[:, 0].sum()),
+    return dict(hd=hd, kv_heads=kvh, group=g, window=window, m_rows=m_rows,
+                int8=quant, fills=fills, dead_rows=int(dead[:, 0].sum()),
                 n_split=n_split, max_abs_err=err, tol=tol, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=b_by)
@@ -1377,8 +1418,9 @@ def _packed_leaves(tree, prefix=""):
         yield prefix[:-1], tree
 
 
-def launcher_build(cfg, method):
-    """The launcher's ``build_params`` at full size: seeded float weights,
+def launcher_build(cfg, method, affine=False):
+    """The launcher's ``build_params`` at full size: seeded float weights
+    (with ``affine`` their biases and norms drawn by ``perturb_affine``),
     8 x 32 self-generated calibration tokens, then ``method`` W4 + norm
     tweaking (g128 for GPTQ and AWQ, per-channel for SmoothQuant). The
     launcher has no ``--method awq`` (the JAX launcher has none); AWQ runs
@@ -1392,8 +1434,16 @@ def launcher_build(cfg, method):
         argv += ["--group-size", "128"]
     args = argparse.Namespace(**{**vars(launcher.parse_args(argv)),
                                  "method": method})
-    return lambda device: launcher.build_params(cfg, args,
-                                                torch.device(device))
+
+    def build(device):
+        real = launcher.init_lm
+        if affine:
+            launcher.init_lm = lambda *a, **kw: perturb_affine(real(*a, **kw))
+        try:
+            return launcher.build_params(cfg, args, torch.device(device))
+        finally:
+            launcher.init_lm = real
+    return build
 
 
 def run_pipeline(cfg, method, build, device="cuda", keep_inputs=True):
@@ -1461,13 +1511,50 @@ def run_pipeline(cfg, method, build, device="cuda", keep_inputs=True):
     return params, rec
 
 
-def check_pipeline(cfg, method, params, rec, cpu_layer0=True):
+def _codes_against(name, card, other, w, x):
+    """check_pipeline's bars on the card's packed weight ``card`` against
+    the same linear quantized again (``other``), from its float weight
+    ``w`` and calibration inputs ``x``, on ``x``'s device: at least 99% of
+    codes equal, at most 0.01% more than one step apart, and the GPTQ
+    objective ||X (Q - W)||^2 within 0.1%. Returns the line."""
+    from repro_torch.core.quant.types import dequantize, unpack
+
+    dev = x.device
+    card = card.to(dev)
+    diff = (unpack(card.qw, card.bits, card.k)
+            - unpack(other.qw.to(dev), other.bits, other.k)).abs()
+    x = x.reshape(-1, card.k)
+    obj = [float(torch.square(x @ (dequantize(q.to(dev)) - w.to(dev))).sum())
+           for q in (card, other)]
+    rows = torch.nonzero(diff.amax(dim=1))[:, 0]
+    c = dict(equal=float((diff == 0).float().mean()),
+             over_one=float((diff > 1).float().mean()),
+             max_diff=int(diff.max()),
+             first_diff_row=int(rows[0]) if len(rows) else None,
+             rows=card.k, objective_rel=abs(obj[0] - obj[1]) / obj[1])
+    if not (c["equal"] >= 0.99 and c["over_one"] <= 1e-4
+            and c["objective_rel"] <= 1e-3):
+        raise AssertionError(f"layer 0 {name}: the card's codes and the "
+                             f"check's differ: {c}")
+    return c
+
+
+def _norm_leaves(block):
+    """(norm, leaf) of every tweakable leaf of a block's ln1 and ln2: RMSNorm's
+    "scale", LayerNorm's "scale" and "bias"."""
+    return [(norm, leaf) for norm in ("ln1", "ln2")
+            for leaf in sorted(block[norm])]
+
+
+def check_pipeline(cfg, method, params, rec, layer0="cpu"):
     """Every quantizable linear packed (with the method's act_bits), no
     non-norm leaf changed by the tweak, the tweak went through the kernels
     of the method's linears, RTN's packing (SmoothQuant, AWQ) through the
-    quantize-pack kernel, and layer 0 quantized and tweaked again by the
-    port on a CPU copy of its inputs agrees with the card (AWQ's scale
-    search and fold included).
+    quantize-pack kernel, and layer 0 quantized and tweaked again agrees
+    with the card: with ``layer0`` "cpu" by the port on a CPU copy of its
+    inputs (AWQ's scale search and fold included), with "card"
+    (``check_layer0_on_card``) on the card with every kernel's plain
+    version, with None not at all.
 
     Layer 0's linears quantized again on the CPU: all of llama3.2-1b's; on
     Mixtral the attention linears and expert CHECK_EXPERT's wi and wg (K
@@ -1515,12 +1602,12 @@ def check_pipeline(cfg, method, params, rec, cpu_layer0=True):
                                              hessian_from_inputs)
     from repro_torch.core.quant.deploy import to_device
     from repro_torch.core.quant.rtn import rtn_quantize
-    from repro_torch.core.quant.types import (QuantizedTensor, dequantize,
-                                              unpack)
+    from repro_torch.core.quant.types import QuantizedTensor
     from repro_torch.utils.tree import tree_get
 
     act_bits = 8 if method == "smoothquant" else 0
-    moe = "moe" in params["stack"]["p0"]
+    block = params["stack"]["p0"]
+    moe = "moe" in block
     kernels = (["w8a8_matmul"] if act_bits else ["dequant_matmul"])
     attn = ["attn/wq", "attn/wk", "attn/wv", "attn/wo"]
     if moe:
@@ -1532,10 +1619,12 @@ def check_pipeline(cfg, method, params, rec, cpu_layer0=True):
             ("moe/experts/wi", CHECK_EXPERT), ("moe/experts/wg",
                                                CHECK_EXPERT)]
     else:
-        paths = attn + ["mlp/wi", "mlp/wg", "mlp/wo"]
+        # a GELU MLP (granite-20b) has no wg
+        paths = attn + [f"mlp/{nm}" for nm in ("wi", "wg", "wo")
+                        if nm in block["mlp"]]
         checked = [(p, None) for p in paths]
     for path in paths:
-        w = tree_get(params["stack"]["p0"], path)["w"]
+        w = tree_get(block, path)["w"]
         if not (isinstance(w, QuantizedTensor) and w.act_bits == act_bits
                 and w.shape[0] == cfg.n_repeats):
             raise AssertionError(f"{method}: {path} is not packed for all "
@@ -1549,13 +1638,15 @@ def check_pipeline(cfg, method, params, rec, cpu_layer0=True):
                                  "the tweak")
     # one quantize-pack launch per RTN-packed linear (an expert stack in
     # one), none for GPTQ, which packs its own codes
-    want_qp = 0 if method == "gptq" else 7 * cfg.n_repeats
+    want_qp = 0 if method == "gptq" else len(paths) * cfg.n_repeats
     if rec["launches"]["quantize_pack"] != want_qp:
         raise AssertionError(f"{method}: quantize_pack launched "
                              f"{rec['launches']['quantize_pack']} times, "
                              f"want {want_qp}")
-    if not cpu_layer0:
+    if layer0 is None:
         return {}
+    if layer0 == "card":
+        return check_layer0_on_card(cfg, method, rec, checked)
 
     t0 = time.perf_counter()
     l0, t0rec = rec["layer0"], rec["tweak0"]
@@ -1585,23 +1676,7 @@ def check_pipeline(cfg, method, params, rec, cpu_layer0=True):
             cpu = rtn_quantize(w, bits=kw["bits"],
                                group_size=kw["group_size"],
                                act_bits=kw["act_bits"])
-        diff = (unpack(card.qw, card.bits, card.k)
-                - unpack(cpu.qw, cpu.bits, cpu.k)).abs()
-        x = x.reshape(-1, card.k)
-        obj = [float(torch.square(x @ (dequantize(q) - w)).sum())
-               for q in (card, cpu)]
-        rows = torch.nonzero(diff.amax(dim=1))[:, 0]
-        codes[name] = dict(equal=float((diff == 0).float().mean()),
-                           over_one=float((diff > 1).float().mean()),
-                           max_diff=int(diff.max()),
-                           first_diff_row=int(rows[0]) if len(rows) else None,
-                           rows=card.k,
-                           objective_rel=abs(obj[0] - obj[1]) / obj[1])
-        c = codes[name]
-        if not (c["equal"] >= 0.99 and c["over_one"] <= 1e-4
-                and c["objective_rel"] <= 1e-3):
-            raise AssertionError(f"{method} layer 0 {name}: card and CPU "
-                                 f"codes differ: {c}")
+        codes[name] = _codes_against(f"{method} {name}", card, cpu, w, x)
     quant_s = time.perf_counter() - t0
     tweaked_cpu, _ = tweak_block(cfg, l0["qbp"], t0rec["qx"], t0rec["fout"],
                                  t0rec["positions"], t0rec["nt"],
@@ -1616,12 +1691,13 @@ def check_pipeline(cfg, method, params, rec, cpu_layer0=True):
         tweaked_plain = to_device(tweaked_plain, "cpu")
     lr = t0rec["lr"]
     norms = {}
-    for norm in ("ln1", "ln2"):
-        start = l0["qbp"][norm]["scale"]
-        d_card = t0rec["out"][norm]["scale"] - start
-        d_cpu = tweaked_cpu[norm]["scale"] - start
+    for norm, leaf in _norm_leaves(l0["qbp"]):
+        key = f"{norm}/{leaf}"
+        start = l0["qbp"][norm][leaf]
+        d_card = t0rec["out"][norm][leaf] - start
+        d_cpu = tweaked_cpu[norm][leaf] - start
         err = (d_card - d_cpu).abs()
-        c = norms[norm] = dict(
+        c = norms[key] = dict(
             mean_err_lr=float(err.mean()) / lr,
             p99_err_lr=float(torch.quantile(err.double(), 0.99)) / lr,
             max_err_lr=float(err.max()) / lr,
@@ -1631,7 +1707,7 @@ def check_pipeline(cfg, method, params, rec, cpu_layer0=True):
                                               0.99)) / lr,
             same_moved=bool(torch.equal(d_card != 0, d_cpu != 0)))
         if act_bits:
-            d_plain = tweaked_plain[norm]["scale"] - start
+            d_plain = tweaked_plain[norm][leaf] - start
             c.update(
                 kernels_max_err_lr=float((d_card - d_plain).abs().max()) / lr,
                 kernels_same_moved=bool(torch.equal(d_card != 0,
@@ -1663,18 +1739,101 @@ def check_pipeline(cfg, method, params, rec, cpu_layer0=True):
             else:
                 ok = ok and c["same_moved"] and c["max_err_lr"] <= 1e-3
         if not ok:
-            raise AssertionError(f"{method} layer 0 {norm}: card and CPU "
-                                 f"tweaks differ: {norms[norm]}")
-    return dict(codes=codes, norms=norms, quant_seconds=quant_s,
+            raise AssertionError(f"{method} layer 0 {key}: card and CPU "
+                                 f"tweaks differ: {c}")
+    return dict(device="cpu", codes=codes, norms=norms, quant_seconds=quant_s,
                 seconds=time.perf_counter() - t0)
 
 
-def pipeline_phase(cfg, method, label):
+def check_layer0_on_card(cfg, method, rec, checked):
+    """Layer 0 quantized and tweaked again on the card with every kernel
+    swapped for its plain version (``plain_kernels``), from the
+    pipeline's own inputs: its float block and calibration taps through
+    ``quantize_block`` (SmoothQuant's and AWQ's fold included, RTN's
+    packing by the quantize-pack kernel's plain version), and the card's
+    quantized block with the tweak's inputs (qX, fOut) through
+    ``tweak_block``. The bars of check_pipeline's CPU check: codes of the
+    ``checked`` linears by ``_codes_against``; each norm leaf's tweak
+    deltas (LayerNorm's β as well as γ) on W4 within a mean of 0.5 lr, on
+    W4A8 the same moved channels and 1e-3 lr; and every norm leaf moved
+    by the tweak (its largest delta over 0.5 lr: Adam's first step moves
+    a channel by about lr). Where the host CPU would take minutes (GPTQ
+    of Mixtral's K 16,384 experts or granite's K 24,576 wo in f64), this
+    is the check."""
+    from repro_torch.core.normtweak.pipeline import tweak_block
+    from repro_torch.core.quant.blockquant import (awq_block, quantize_block,
+                                                   smooth_block, tap_key_for)
+    from repro_torch.core.quant.deploy import to_device
+    from repro_torch.utils.tree import tree_get
+
+    t0 = time.perf_counter()
+    l0, t0rec = rec["layer0"], rec["tweak0"]
+    kw = l0["kw"]
+    taps = to_device(l0["taps"], "cuda")
+    block = to_device(l0["block"], "cuda")
+    with plain_kernels():
+        plain_q = quantize_block(block, taps, **kw)
+        sync("cuda")
+        quant_s = time.perf_counter() - t0
+        plain_t, _ = tweak_block(
+            cfg, to_device(l0["qbp"], "cuda"), t0rec["qx"].cuda(),
+            t0rec["fout"].cuda(), t0rec["positions"].cuda(), t0rec["nt"],
+            t0rec["lr"])
+    # the float weights the codes quantize: after the fold for SmoothQuant
+    # and AWQ
+    if method == "smoothquant":
+        block = smooth_block(block, taps, kw["alpha"])
+    elif method == "awq":
+        block = awq_block(block, taps, bits=kw["bits"],
+                          group_size=kw["group_size"])
+    codes = {}
+    for path, expert in checked:
+        card = tree_get(l0["qbp"], path)["w"]
+        plain = tree_get(plain_q, path)["w"]
+        w = tree_get(block, path)["w"]
+        x = taps[tap_key_for(path)]
+        name = path
+        if expert is not None:
+            card, plain, w, x = (card[expert], plain[expert], w[expert],
+                                 x[expert])
+            name = f"{path}[{expert}]"
+        codes[name] = _codes_against(f"{method} {name}", card, plain, w, x)
+    del plain_q, taps, block
+    lr = t0rec["lr"]
+    act_bits = 8 if method == "smoothquant" else 0
+    norms = {}
+    for norm, leaf in _norm_leaves(l0["qbp"]):
+        key = f"{norm}/{leaf}"
+        start = l0["qbp"][norm][leaf]
+        d_card = t0rec["out"][norm][leaf] - start
+        d_plain = plain_t[norm][leaf].cpu() - start
+        err = (d_card - d_plain).abs()
+        c = norms[key] = dict(
+            mean_err_lr=float(err.mean()) / lr,
+            max_err_lr=float(err.max()) / lr,
+            mean_delta_lr=float(d_card.abs().mean()) / lr,
+            max_delta_lr=float(d_card.abs().max()) / lr,
+            same_moved=bool(torch.equal(d_card != 0, d_plain != 0)))
+        ok = c["max_delta_lr"] > 0.5 and (
+            c["same_moved"] and c["max_err_lr"] <= 1e-3 if act_bits
+            else c["mean_err_lr"] <= 0.5)
+        if not ok:
+            raise AssertionError(f"{method} layer 0 {key}: the card's tweak "
+                                 f"and the plain-kernel one differ, or it "
+                                 f"did not move: {c}")
+    return dict(device="cuda, plain versions", codes=codes, norms=norms,
+                quant_seconds=quant_s, seconds=time.perf_counter() - t0)
+
+
+def pipeline_phase(cfg, method, label, layer0="cpu", affine=False):
     """A launcher pipeline (``launcher_build``) on the card, checked by
-    ``check_pipeline``; prints its metrics and returns (params, them)."""
-    params, rec = run_pipeline(cfg, method, launcher_build(cfg, method))
+    ``check_pipeline`` (layer 0 again on the host CPU, or with ``layer0``
+    "card" on the card with every kernel's plain version); prints its
+    metrics and returns (params, them)."""
+    params, rec = run_pipeline(cfg, method,
+                               launcher_build(cfg, method, affine=affine))
     st = rec["stats"]
-    check = check_pipeline(cfg, method, params, rec)
+    check = check_pipeline(cfg, method, params, rec, layer0=layer0)
     line = dict(path=label, method=method, total_s=rec["total_s"],
                 calib_s=st["calib_s"],
                 quant_s=sum(st["layer_quant_s"]),
@@ -1686,7 +1845,7 @@ def pipeline_phase(cfg, method, label):
                 layer_l_dist=st["layer_loss"], layer_lr=st["layer_lr"],
                 peak_mem_gib=rec["peak_mem_gib"],
                 launches=rec["launches"],
-                tweak_launches=rec["tweak_launches"], layer0_cpu=check)
+                tweak_launches=rec["tweak_launches"], layer0=check)
     print("pipeline", json.dumps(line))
     return params, line
 
@@ -1770,7 +1929,7 @@ def paper_pipeline_phase(cfg, device="cuda"):
     params, rec = run_pipeline(cfg, "gptq", build, device=device,
                                keep_inputs=False)
     st = rec["stats"]
-    check_pipeline(cfg, "gptq", params, rec, cpu_layer0=False)
+    check_pipeline(cfg, "gptq", params, rec, layer0=None)
     steps = -(-PAPER_CALIB["n_samples"] // nt.sample_batch) * nt.iters
     want_cs = 2 * steps * cfg.n_repeats
     if not (rec["tweak_launches"]["channel_stats"]
@@ -1780,7 +1939,11 @@ def paper_pipeline_phase(cfg, device="cuda"):
                              f"times in the tweak, "
                              f"{rec['launches']['channel_stats']} in all; "
                              f"want {want_cs}")
-    x0 = _embed(params, kept.pop("calib"))
+    calib = kept.pop("calib")
+    n, s = calib.shape
+    x0 = _embed(cfg, params, calib, torch.arange(
+        s, dtype=torch.int32, device=calib.device)[None].expand(n, s))
+    del calib
     del params
     release()
     l0, t0rec = rec["layer0"], rec["tweak0"]
@@ -2745,7 +2908,7 @@ def moe_paths(cfg):
         release()
     with phase("pipeline_moe_gptq"):
         params, out["pipeline_moe_gptq"] = pipeline_phase(
-            cfg, "gptq", "pipeline_moe_gptq")
+            cfg, "gptq", "pipeline_moe_gptq", layer0="card")
         del params
         release()
     with phase("pipeline_moe_smoothquant"):
@@ -2762,6 +2925,116 @@ def moe_paths(cfg):
                                 "expert_w8a8_matmul": 3 * layers,
                                 "paged_attention": layers})
         del engine, done
+        release()
+    return out
+
+
+# --------------------------------------------------- dense variants
+#
+# Slice 12: qwen2-0.5b (QKV biases, GQA 14/2), chatglm3-6b (RoPE on half
+# the channels, QKV biases, GQA 32/2) and granite-20b (LayerNorm with its
+# bias, a plain GELU MLP without wg, biases on every linear, a learned
+# position table and no RoPE, MQA 48/1) on kernels 1, 2, 3 and 6.
+
+def perturb_affine(params, seed=SEED):
+    """Draw every linear's "b" and every norm's "bias" from N(0,
+    AFFINE_STD^2) and every norm's "scale" from 1 + N(0, AFFINE_STD^2), in
+    place, from a generator seeded with ``seed`` on the params' device.
+    Returns params."""
+    gen = torch.Generator(device=params["embed"]["w"].device)
+    gen.manual_seed(seed)
+
+    def walk(node):
+        for key in sorted(node):
+            leaf = node[key]
+            if isinstance(leaf, dict):
+                walk(leaf)
+            elif key in ("b", "bias"):
+                leaf.normal_(0.0, AFFINE_STD, generator=gen)
+            elif key == "scale":
+                leaf.normal_(1.0, AFFINE_STD, generator=gen)
+    walk(params)
+    return params
+
+
+def linears_per_layer(cfg) -> int:
+    """A dense block's linears: wq, wk, wv, wo, wi, wo and a SiLU-GLU's
+    wg."""
+    return 7 if cfg.act == "silu" else 6
+
+
+def serve_dense_phase(cfg, label, **engine_kw):
+    """``cfg`` served W4 g128 on LLAMA_WORK (RTN-packed by the engine's
+    deploy, one quantize-pack launch per stacked linear), seeded weights
+    with ``perturb_affine``'s biases and norms. Asserted: the served
+    tokens against the plain forward on the card, every decode step's
+    launches (one dequant matmul per linear, one paged read per layer),
+    the deploy's; with chunked prefill every prefill call's launches too,
+    and at least one call that read earlier context."""
+    from repro_torch.models.transformer import init_lm
+
+    per_layer = linears_per_layer(cfg)
+    n_lin, n_attn = per_layer * cfg.n_repeats, cfg.n_repeats
+    engine, done, stats = serve(
+        cfg, perturb_affine(init_lm(cfg, seed=SEED, device="cuda")), label,
+        LLAMA_WORK, quant_bits=4, quant_group=128, **engine_kw)
+    check_against_plain(cfg, engine, done, plain_on_card=True)
+    assert_decode_launches(stats, {"dequant_matmul": n_lin,
+                                   "paged_attention": n_attn})
+    assert_deploy_launches(stats, want=per_layer)
+    if engine_kw.get("chunked_prefill"):
+        stats["by_call"] = assert_call_launches(stats, "dequant_matmul",
+                                                n_lin, n_attn)
+        if not any(k.endswith("_ctx")
+                   for k in stats["by_call"]["prefill_calls"]):
+            raise AssertionError(f"{label}: no prefill call read context")
+        print("serve_calls", json.dumps(dict(path=label,
+                                             **stats["by_call"])))
+    del stats["call_records"]
+    return stats
+
+
+def dense_paths():
+    """The dense variants' paths; returns their metrics by path name."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for label, arch in (("serve_qwen2_w4", "qwen2-0.5b"),
+                        ("serve_chatglm3_w4", "chatglm3-6b")):
+        with phase(label):
+            out[label] = serve_dense_phase(get_config(arch), label)
+            release()
+    granite = get_config("granite-20b")
+    with phase("serve_granite_w4"):
+        out["serve_granite_w4"] = serve_dense_phase(
+            granite.replace(n_repeats=GRANITE_SERVE_LAYERS),
+            "serve_granite_w4", **GRANITE_ENGINE)
+        release()
+    # the paper's plugin on LayerNorm: GPTQ W4 g128 + NT and SmoothQuant
+    # W4A8 + NT at the launcher's 8 x 32 calibration on 2 layers, layer 0
+    # again on the card with every kernel's plain version (the host CPU
+    # would take minutes on GPTQ of the K 24,576 wo in f64), γ and β both
+    # tweaked; then the W4A8 + NT model served through kernels 3 and 2
+    cfg = granite.replace(n_repeats=GRANITE_PIPE_LAYERS)
+    with phase("pipeline_granite_gptq"):
+        params, out["pipeline_granite_gptq"] = pipeline_phase(
+            cfg, "gptq", "pipeline_granite_gptq", layer0="card", affine=True)
+        del params
+        release()
+    with phase("pipeline_granite_smoothquant"):
+        params, out["pipeline_granite_smoothquant"] = pipeline_phase(
+            cfg, "smoothquant", "pipeline_granite_smoothquant",
+            layer0="card", affine=True)
+    with phase("serve_granite_w4a8"):
+        engine, done, out["serve_granite_w4a8"] = serve(
+            cfg, params, "serve_granite_w4a8", LLAMA_WORK)
+        del params
+        check_against_plain(cfg, engine, done, measure_margin=True,
+                            plain_on_card=True)
+        assert_decode_launches(out["serve_granite_w4a8"],
+                               {"w8a8_matmul": 6 * cfg.n_repeats,
+                                "paged_attention": cfg.n_repeats})
+        del engine, done, out["serve_granite_w4a8"]["call_records"]
         release()
     return out
 
@@ -2814,6 +3087,9 @@ def main() -> int:
     paths.update(moe_paths(get_config("mixtral-8x22b").replace(
         n_repeats=MOE_LAYERS)))
     print(f"mixtral-8x22b paths done: {time.perf_counter() - t_all:.1f} s")
+    paths.update(dense_paths())
+    print(f"qwen2-0.5b, chatglm3-6b, granite-20b paths done: "
+          f"{time.perf_counter() - t_all:.1f} s")
 
     # each entry's times are at the shape its path runs most: for the
     # serving kernels the decode shape, M = 8 slots x the 2048 x 8192 MLP

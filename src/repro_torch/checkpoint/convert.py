@@ -8,9 +8,13 @@ keys). It returns the port's params under the same key paths, scan-stacked
 "stack/p0" included, and the per-block (unstacked) trees of the
 quantization pipeline alike; an MoE's router and float (E, K, N) expert
 stacks come across as tensors, its packed experts as (E, K, N) or
-layer-stacked (L, E, K, N) ``QuantizedTensor`` leaves. Packed bytes are taken as they are, and
-``act_bits`` (8: the W8A8 path) is carried across, so a tree packed by
-either package runs in the other.
+layer-stacked (L, E, K, N) ``QuantizedTensor`` leaves. Every other leaf
+comes across as it is: the learned position table ("pos"), the linears'
+biases ("b"), the norms' "scale" and LayerNorm "bias". Packed bytes are
+taken as they are, and ``act_bits`` (8: the W8A8 path) is carried across,
+so a tree packed by either package runs in the other.
+``params_to_numpy`` is the way back: the same key paths as numpy arrays,
+each packed weight a dict of the ``QuantizedTensor`` fields.
 """
 from __future__ import annotations
 
@@ -60,3 +64,17 @@ def params_from_numpy(tree, device="cuda"):
         return torch.from_numpy(np.array(node)).to(dev)
 
     return conv(tree)
+
+
+def params_to_numpy(tree):
+    """The port's params (or any subtree) as nested dicts of numpy arrays on
+    the host; a packed weight becomes {"qw", "scale", "bits",
+    "group_size", "shape", "act_bits"}, which ``params_from_numpy`` takes
+    back."""
+    if isinstance(tree, QuantizedTensor):
+        return {"qw": tree.qw.cpu().numpy(), "scale": tree.scale.cpu().numpy(),
+                "bits": tree.bits, "group_size": tree.group_size,
+                "shape": tuple(tree.shape), "act_bits": tree.act_bits}
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()

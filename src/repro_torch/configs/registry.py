@@ -6,8 +6,11 @@ import importlib
 from repro_torch.models.config import LayerSpec, ModelConfig
 
 _MODULES = {
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "granite-20b": "repro_torch.configs.granite_20b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
 }
 
 # the JAX package's tiny paper-style LLaMa-family decoder (MHA, head_dim 48)

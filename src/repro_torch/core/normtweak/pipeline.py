@@ -221,7 +221,10 @@ def norm_tweak_ptq(cfg: ModelConfig, params: dict,
     stats). calib_tokens: (n_samples, token_length) on the params' device
     — the paper uses 128 x 2048 self-generated samples (see
     core/calibration)."""
-    x0 = _embed(params, calib_tokens)
+    n, s = calib_tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=calib_tokens.device)[None].expand(n, s)
+    x0 = _embed(cfg, params, calib_tokens, positions)
     blocks = [get_block(cfg, params, i) for i in range(num_blocks(cfg))]
     qblocks, _, stats = tweak_layers(cfg, blocks, x0, nt, log=log)
     return _restack(cfg, params, qblocks), stats

@@ -26,8 +26,8 @@ Page pools are f32 ``(P, page, KVH, hd)`` tensors, or int8 with
 scatters write the pools (and the contiguous cache) IN PLACE
 (``index_put_``) — the JAX package returns new arrays instead; the engine
 hands each layer a view into the stacked pools, so the writes land in the
-engine's cache. RoPE is applied before cache insertion (post-rope keys are
-cached).
+engine's cache. RoPE (full, half or none, ``cfg.rope``) is applied before
+cache insertion (post-rope keys are cached).
 """
 from __future__ import annotations
 
@@ -142,10 +142,11 @@ def _core(cfg: ModelConfig, q, k, v, q_pos, kv_pos) -> torch.Tensor:
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    return {"wq": init_dense(gen, d, h * hd, device),
-            "wk": init_dense(gen, d, kvh * hd, device),
-            "wv": init_dense(gen, d, kvh * hd, device),
-            "wo": init_dense(gen, h * hd, d, device)}
+    qkv = dict(bias=cfg.qkv_bias)
+    return {"wq": init_dense(gen, d, h * hd, device, **qkv),
+            "wk": init_dense(gen, d, kvh * hd, device, **qkv),
+            "wv": init_dense(gen, d, kvh * hd, device, **qkv),
+            "wo": init_dense(gen, h * hd, d, device, bias=cfg.o_bias)}
 
 
 def init_paged_kv_cache(cfg: ModelConfig, spec: PageSpec, device,
@@ -277,10 +278,10 @@ def apply_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         for name in ("wq", "wk", "wv"):
             taps[tap_prefix + name] = x
     q = dense(p["wq"], x).reshape(b, s, h, hd)
-    q = apply_rope(q, positions, theta=cfg.rope_theta)
+    q = apply_rope(q, positions, theta=cfg.rope_theta, variant=cfg.rope)
     k = dense(p["wk"], x).reshape(b, s, kvh, hd)
     v = dense(p["wv"], x).reshape(b, s, kvh, hd)
-    k = apply_rope(k, positions, theta=cfg.rope_theta)
+    k = apply_rope(k, positions, theta=cfg.rope_theta, variant=cfg.rope)
     if cache is None:
         o = _core(cfg, q, k, v, positions, positions)
     elif "pos" in cache:

@@ -3,8 +3,8 @@
 A plain-Python copy (the JAX module imports jax). It keeps the fields the
 ported slices use, with the JAX package's names and defaults, and
 ``validate`` refuses what the port does not implement yet (MLA, Mamba,
-enc-dec, other norms or activations, the shard_map MoE) instead of
-running it wrong.
+enc-dec, multimodal frontends, sinusoidal positions, the shard_map MoE)
+instead of running it wrong.
 """
 from __future__ import annotations
 
@@ -41,13 +41,21 @@ class ModelConfig:
     d_ff: int = 512
     pattern: tuple[LayerSpec, ...] = (LayerSpec(),)
     n_repeats: int = 2
-    norm: str = "rmsnorm"
+    norm: str = "rmsnorm"       # rmsnorm | layernorm
     norm_eps: float = 1e-5
-    act: str = "silu"
-    rope: str = "full"
+    act: str = "silu"           # silu (SwiGLU) | gelu (plain MLP)
+    rope: str = "full"          # full | half ("2d") | none
     rope_theta: float = 10000.0
+    pos_emb: str = "none"       # none | learned
+    max_position: int = 8192    # rows of the learned position table
+    attention: str = "gqa"      # gqa (mla is not ported)
     attn_window: Optional[int] = None
+    qkv_bias: bool = False
+    o_bias: bool = False
+    mlp_bias: bool = False
     moe: Optional[MoEConfig] = None
+    enc_dec: bool = False       # not ported
+    frontend: str = "none"      # not ported
     tie_embeddings: bool = False
     dtype: str = "float32"
     param_dtype: str = "float32"
@@ -82,12 +90,20 @@ class ModelConfig:
             # the explicit all-to-all path exists only on a multi-device
             # mesh (ROADMAP.md queue 1, multi-device)
             unsupported.append(f"moe_impl={self.moe_impl}")
-        if self.norm != "rmsnorm":
+        if self.attention != "gqa":
+            unsupported.append(f"attention={self.attention}")
+        if self.enc_dec:
+            unsupported.append("enc-dec")
+        if self.frontend != "none":
+            unsupported.append(f"frontend={self.frontend}")
+        if self.norm not in ("rmsnorm", "layernorm"):
             unsupported.append(f"norm={self.norm}")
-        if self.act != "silu":
+        if self.act not in ("silu", "gelu"):
             unsupported.append(f"act={self.act}")
-        if self.rope != "full":
+        if self.rope not in ("full", "half", "none"):
             unsupported.append(f"rope={self.rope}")
+        if self.pos_emb not in ("none", "learned"):
+            unsupported.append(f"pos_emb={self.pos_emb}")
         if self.dtype != "float32" or self.param_dtype != "float32":
             unsupported.append("non-f32 compute")
         if self.kv_cache_bits not in (0, 8):

@@ -105,9 +105,13 @@ def dense_experts(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def init_dense(gen: torch.Generator, k: int, n: int, device) -> dict:
+def init_dense(gen: torch.Generator, k: int, n: int, device, *,
+               bias: bool = False) -> dict:
     std = 1.0 / (k ** 0.5)
-    return {"w": torch.randn((k, n), generator=gen, device=device) * std}
+    p = {"w": torch.randn((k, n), generator=gen, device=device) * std}
+    if bias:
+        p["b"] = torch.zeros((n,), dtype=torch.float32, device=device)
+    return p
 
 
 def init_dense_experts(gen: torch.Generator, e: int, k: int, n: int,

@@ -1,5 +1,5 @@
-"""Dense SiLU-GLU MLP and capacity-based top-k MoE (port of
-``repro.models.mlp_moe``).
+"""Dense MLP (SiLU-GLU, or a plain GELU MLP) and capacity-based top-k MoE
+(port of ``repro.models.mlp_moe``).
 
 MoE dispatch is the JAX package's scatter/gather formulation: tokens are
 scattered into a per-expert (E, C, d) buffer (C = capacity), the experts
@@ -24,21 +24,28 @@ from repro_torch.models.linear import (dense, dense_experts, init_dense,
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: int,
              device) -> dict:
-    d = cfg.d_model
-    return {"wi": init_dense(gen, d, d_ff, device),
-            "wo": init_dense(gen, d_ff, d, device),
-            "wg": init_dense(gen, d, d_ff, device)}
+    d, kw = cfg.d_model, dict(bias=cfg.mlp_bias)
+    p = {"wi": init_dense(gen, d, d_ff, device, **kw),
+         "wo": init_dense(gen, d_ff, d, device, **kw)}
+    if cfg.act == "silu":
+        p["wg"] = init_dense(gen, d, d_ff, device, **kw)
+    return p
 
 
 def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor,
               taps: Optional[dict] = None,
               tap_prefix: str = "") -> torch.Tensor:
-    """SiLU-GLU MLP. ``taps`` (calibration) receives each linear's input
-    under its param path."""
+    """SiLU-GLU MLP, or with ``act="gelu"`` a plain MLP (wi, tanh GELU,
+    wo; no wg). ``taps`` (calibration) receives each linear's input under
+    its param path."""
     if taps is not None:
         taps[tap_prefix + "wi"] = x
-        taps[tap_prefix + "wg"] = x
-    h = F.silu(dense(p["wg"], x)) * dense(p["wi"], x)
+        if "wg" in p:
+            taps[tap_prefix + "wg"] = x
+    if cfg.act == "silu":
+        h = F.silu(dense(p["wg"], x)) * dense(p["wi"], x)
+    else:
+        h = F.gelu(dense(p["wi"], x), approximate="tanh")
     if taps is not None:
         taps[tap_prefix + "wo"] = h
     return dense(p["wo"], h)

@@ -1,7 +1,9 @@
-"""RMSNorm — the paper's tweakable parameters (port of ``repro.models.norms``).
+"""RMSNorm / LayerNorm — the paper's tweakable parameters (port of
+``repro.models.norms``).
 
 Norm params live under keys starting with "ln" (and "final_norm") so the
-norm-tweaking pipeline can address exactly these leaves.
+norm-tweaking pipeline can address exactly these leaves: RMSNorm's
+"scale", LayerNorm's "scale" and "bias".
 """
 from __future__ import annotations
 
@@ -11,13 +13,24 @@ from repro_torch.models.config import ModelConfig
 
 
 def init_norm(cfg: ModelConfig, d: int, device) -> dict:
-    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
 
 
 def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     xf = x.to(torch.float32)
-    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].to(torch.float32)
+    if cfg.norm == "layernorm":
+        # the mean and the biased variance, as ``jnp.var``
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = (y * p["scale"].to(torch.float32)
+             + p["bias"].to(torch.float32))
+    else:
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].to(torch.float32)
     return y.to(x.dtype)
 
 

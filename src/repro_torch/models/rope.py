@@ -1,21 +1,28 @@
-"""Rotary position embeddings, llama's "full" variant (port of
-``repro.models.rope``)."""
+"""Rotary position embeddings: llama's "full" and ChatGLM's "half"
+variants (port of ``repro.models.rope``)."""
 from __future__ import annotations
 
 import torch
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
-               theta: float = 10000.0) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S) int. Rotate-half convention over
-    all head dims."""
-    half = x.shape[-1] // 2
+               theta: float = 10000.0, variant: str = "full") -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int. Rotate-half convention.
+
+    variant "full": rotate all head dims; "half": rotate only the first
+    hd // 2 (ChatGLM's 2D RoPE), with frequencies over that rotated width;
+    "none": identity (learned positions)."""
+    if variant == "none":
+        return x
+    hd = x.shape[-1]
+    rot = hd if variant == "full" else hd // 2
+    half = rot // 2
     freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
                                           device=x.device) / half))
     ang = positions.to(torch.float32)[..., None] * freqs      # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]                       # (B, S, 1, half)
     sin = torch.sin(ang)[:, :, None, :]
     x1 = x[..., :half].to(torch.float32)
-    x2 = x[..., half:].to(torch.float32)
+    x2 = x[..., half:rot].to(torch.float32)
     rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return rotated.to(x.dtype)
+    return torch.cat([rotated.to(x.dtype), x[..., rot:]], dim=-1)

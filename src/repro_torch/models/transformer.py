@@ -26,7 +26,8 @@ from repro_torch.utils.tree import tree_index, tree_stack
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     """Seeded float params, drawn from a ``torch.Generator`` on ``device``:
-    N(0, 0.02^2) embeddings, N(0, 1/K) linear weights, unit norm scales."""
+    N(0, 0.02^2) embeddings (and learned position table), N(0, 1/K) linear
+    weights, zero biases, unit norm scales and zero norm biases."""
     cfg.validate()
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -36,6 +37,9 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
                                    generator=gen, device=dev) * 0.02},
         "final_norm": init_norm(cfg, cfg.d_model, dev),
     }
+    if cfg.pos_emb == "learned":
+        params["pos"] = {"w": torch.randn(
+            (cfg.max_position, cfg.d_model), generator=gen, device=dev) * 0.02}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": torch.randn(
             (cfg.d_model, cfg.vocab_size), generator=gen, device=dev) * 0.02}
@@ -78,8 +82,16 @@ def get_block(cfg: ModelConfig, params: dict, i: int) -> dict:
     return tree_index(params["stack"][f"p{j}"], i // len(cfg.pattern))
 
 
-def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["w"][tokens.to(torch.int64)].to(torch.float32)
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    """Token embeddings, plus the learned position table's rows at
+    ``positions`` clipped to the table (a left pad's -1 reads row 0, as in
+    the JAX package)."""
+    x = params["embed"]["w"][tokens.to(torch.int64)].to(torch.float32)
+    if cfg.pos_emb == "learned":
+        idx = positions.to(torch.int64).clamp(0, cfg.max_position - 1)
+        x = x + params["pos"]["w"][idx].to(torch.float32)
+    return x
 
 
 def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
@@ -116,7 +128,7 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
-    x = _embed(params, tokens)
+    x = _embed(cfg, params, tokens, positions)
     x, aux = _run_stack(cfg, params, x, positions=positions)
     return _head(cfg, params, x), torch.as_tensor(aux, dtype=torch.float32,
                                                   device=x.device)
@@ -132,7 +144,7 @@ def lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     after this call ("kv_len"); without ``paged`` the cache is contiguous
     (``init_contiguous_cache``, the static engine's). Returns the logits of
     the last row, the chunk's last real token (B, V)."""
-    x = _embed(params, tokens)
+    x = _embed(cfg, params, tokens, positions)
     x, _ = _run_stack(cfg, params, x, positions=positions, cache=cache,
                       paged=paged)
     return _head(cfg, params, x[:, -1:, :])[:, 0, :]
@@ -147,7 +159,7 @@ def lm_verify(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     all M tokens) and the "verify" marker. Returns the logits of all M
     rows (B, M, V): row m is the next-token distribution after the prefix
     and tokens[:, :m + 1]."""
-    x = _embed(params, tokens)
+    x = _embed(cfg, params, tokens, positions)
     x, _ = _run_stack(cfg, params, x, positions=positions, cache=cache,
                       paged=paged)
     return _head(cfg, params, x)
@@ -160,7 +172,7 @@ def lm_decode(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     slot count and ``paged`` holds the block tables, per-slot write
     targets and fill counts; without ``paged`` the cache is contiguous
     (``init_contiguous_cache``). Returns logits (B, V)."""
-    x = _embed(params, tokens)
+    x = _embed(cfg, params, tokens, positions)
     x, _ = _run_stack(cfg, params, x, positions=positions, cache=cache,
                       paged=paged)
     return _head(cfg, params, x)[:, 0, :]

@@ -1,16 +1,24 @@
-"""The port's copies of ModelConfig, TINY and the llama3.2-1b CONFIG/SMOKE
-equal the JAX package's field for field, on the fields the port keeps."""
+"""The port's copies of ModelConfig, TINY and the CONFIG/SMOKE pairs of
+llama3.2-1b, mixtral-8x22b, qwen2-0.5b, chatglm3-6b and granite-20b equal
+the JAX package's field for field, on the fields the port keeps."""
 import dataclasses
 
 import pytest
 
 import repro.configs as jc
+from repro.configs import chatglm3_6b as jglm
+from repro.configs import granite_20b as jgranite
 from repro.configs import llama3_2_1b as jllama
 from repro.configs import mixtral_8x22b as jmix
+from repro.configs import qwen2_0_5b as jqwen
 from repro_torch import configs as tc
+from repro_torch.configs import chatglm3_6b as tglm
+from repro_torch.configs import granite_20b as tgranite
 from repro_torch.configs import llama3_2_1b as tllama
 from repro_torch.configs import mixtral_8x22b as tmix
-from repro_torch.models.config import ModelConfig
+from repro_torch.configs import qwen2_0_5b as tqwen
+from repro_torch.configs.registry import list_archs
+from repro_torch.models.config import LayerSpec, ModelConfig
 
 
 def _same(tcfg, jcfg):
@@ -34,6 +42,10 @@ def _same(tcfg, jcfg):
     (tmix.CONFIG, jmix.CONFIG), (tmix.SMOKE, jmix.SMOKE),
     (tc.get_smoke_config("mixtral-8x22b"),
      jc.get_smoke_config("mixtral-8x22b")),
+    (tqwen.CONFIG, jqwen.CONFIG), (tqwen.SMOKE, jqwen.SMOKE),
+    (tglm.CONFIG, jglm.CONFIG), (tglm.SMOKE, jglm.SMOKE),
+    (tgranite.CONFIG, jgranite.CONFIG), (tgranite.SMOKE, jgranite.SMOKE),
+    (tc.get_smoke_config("granite-20b"), jc.get_smoke_config("granite-20b")),
 ])
 def test_configs_match_jax(pair):
     _same(*pair)
@@ -46,5 +58,25 @@ def test_model_config_defaults_match_jax():
 
 def test_unported_features_refused():
     with pytest.raises(NotImplementedError):
-        tc.TINY.replace(norm="layernorm").validate()
+        tc.TINY.replace(pos_emb="sinusoidal").validate()
     tc.TINY.validate()
+
+
+@pytest.mark.parametrize("change", [
+    dict(attention="mla"), dict(enc_dec=True), dict(frontend="vision"),
+    dict(pattern=(LayerSpec(kind="mamba"),)), dict(norm="groupnorm"),
+    dict(act="relu"), dict(rope="yarn"),
+])
+def test_other_unported_features_refused(change):
+    with pytest.raises(NotImplementedError):
+        tc.TINY.replace(**change).validate()
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "chatglm3-6b",
+                                  "granite-20b"])
+def test_dense_variants_accepted(name):
+    """LayerNorm, GELU, half and no RoPE, learned positions and biases
+    pass ``validate``, and the launcher's --arch lists each arch."""
+    assert name in list_archs()
+    tc.get_config(name).validate()
+    tc.get_smoke_config(name).validate()

@@ -952,3 +952,94 @@ def test_snapshot_restore_on_the_card(gen, tmp_path):
     assert fresh.sched.events == base.sched.events
     assert fresh.sched.stats() == base.sched.stats()
     assert fresh.n_restored_pages == base.n_restored_pages > 0
+
+
+# ----------------------------------------------- the dense variants' shapes
+
+# kernel 1 at W4 g128 on the dense variants' linears, at a decode M and a
+# prefill M: qwen2-0.5b's MLP (K 896, 7 groups) and KV projection (N 128),
+# chatglm3-6b's down projection (K 13696, 107 groups) and KV projection
+# (N 256), granite-20b's MQA KV projection (K 6144, N 128)
+@pytest.mark.parametrize("m", [8, 512])
+@pytest.mark.parametrize("k,n", [(896, 4864), (896, 128), (13696, 4096),
+                                 (4096, 256), (6144, 128)])
+def test_dense_variant_linears_match_plain(gen, m, k, n):
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    qt = quantize(w, 4, 128)
+    kw = dict(bits=4, group_size=128, k=k)
+    got = dequant_matmul_cuda(x, qt.qw, qt.scale, **kw)
+    want = ref.dequant_matmul_ref(x, qt.qw, qt.scale, **kw)
+    # as test_dequant_matmul_kernel_matches_plain: 4e-5 of the largest sum
+    # of |terms|
+    bound = (x.to(torch.bfloat16).float().abs()
+             @ dequantize(qt).to(torch.bfloat16).float().abs()).max()
+    assert float((got - want).abs().max()) <= 4e-5 * float(bound)
+
+
+# kernel 3 on granite-20b's W4A8 MLP (per-channel, the launcher's
+# SmoothQuant default) at a decode M and a prefill M
+@pytest.mark.parametrize("m,k,n", [(8, 6144, 24576), (512, 6144, 24576),
+                                   (8, 24576, 6144)])
+def test_granite_w8a8_linears_match_plain(gen, m, k, n):
+    from repro_torch.core.quant.types import quantize_activation
+    from repro_torch.kernels.w8a8_matmul import w8a8_matmul_cuda
+
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    qt = quantize(w, 4, -1, act_bits=8)
+    xq, _ = quantize_activation(x)
+    kw = dict(bits=4, group_size=-1, k=k)
+    # per-channel: one exact int32 sum over all of K and one rescale, as
+    # the plain version: its bits
+    assert torch.equal(w8a8_matmul_cuda(xq, qt.qw, qt.scale, **kw),
+                       ref.w8a8_matmul_ref(xq, qt.qw, qt.scale, **kw))
+
+
+# kernel 2 through the wrappers at the dense variants' groups: qwen2-0.5b
+# (GQA 14/2: G 7, a dead row in each block of 8), chatglm3-6b (32/2: G 16)
+# and granite-20b (MQA 48/1: G 48, six row chunks on a slot's pages),
+# decode reads and granite's 64-token prefill chunk, f32 and int8 pools,
+# against the wrappers' CPU path on the same inputs
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("kvh,g,hd,m_rows", [
+    (2, 7, 64, 1), (2, 16, 128, 1), (1, 48, 128, 1), (1, 48, 128, 64)])
+def test_dense_variant_reads_match_plain(gen, kvh, g, hd, m_rows, quant):
+    s, ps, w = 5, 16, 20
+    fills = [0, 1, 37, 100, 320] if m_rows == 1 else [0, 9, 64, 129, 300]
+    n_pages = 1 + s * w
+    perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+            + 1).cpu()
+    bt = torch.full((s, w), -1, dtype=torch.int32)
+    nxt = 0
+    for si, f in enumerate(fills):
+        need = -(-f // ps)
+        bt[si, :need] = perm[nxt:nxt + need].to(torch.int32)
+        nxt += need
+    kf = torch.randn((n_pages, ps, kvh, hd), generator=gen, device="cuda")
+    vf = torch.randn((n_pages, ps, kvh, hd), generator=gen, device="cuda")
+    ks = vs = None
+    if quant:
+        ks = kf.abs().amax(-1) / 127.0
+        vs = vf.abs().amax(-1) / 127.0
+        kf = torch.round(kf / ks[..., None]).to(torch.int8)
+        vf = torch.round(vf / vs[..., None]).to(torch.int8)
+    kl = torch.tensor(fills, dtype=torch.int32, device="cuda")
+    kw = dict(k_scale_pool=ks, v_scale_pool=vs)
+    cpu = {k: None if v is None else v.cpu() for k, v in kw.items()}
+    before = ops.launch_counts()["paged_attention"]
+    if m_rows == 1:
+        q = torch.randn((s, kvh * g, hd), generator=gen, device="cuda")
+        got = ops.paged_attention(q, kf, vf, bt.cuda(), kl, **kw)
+        want = ops.paged_attention(q.cpu(), kf.cpu(), vf.cpu(), bt,
+                                   kl.cpu(), **cpu)
+    else:
+        q = torch.randn((s, m_rows, kvh * g, hd), generator=gen,
+                        device="cuda")
+        got = ops.paged_attention_prefill(q, kf, vf, bt.cuda(), kl, **kw)
+        want = ops.paged_attention_prefill(q.cpu(), kf.cpu(), vf.cpu(), bt,
+                                           kl.cpu(), **cpu)
+    assert ops.launch_counts()["paged_attention"] == before + 1
+    # f32 on both sides, rounding in another order only
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert torch.all(got[0] == 0)                 # empty slot: exact zeros
