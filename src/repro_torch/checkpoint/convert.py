@@ -5,8 +5,10 @@ params)`` gives: nested dicts of numpy arrays, with each packed weight an
 object carrying ``qw``, ``scale``, ``bits``, ``group_size`` and ``shape``
 (the JAX ``QuantizedTensor`` with numpy children, or a plain dict of those
 keys). It returns the port's params under the same key paths, scan-stacked
-"stack/p0" included, and the per-block (unstacked) trees of the
-quantization pipeline alike; an MoE's router and float (E, K, N) expert
+"stack/p0" and the unstacked "prefix/0", ... blocks (DeepSeek's dense
+first layer) included, and the per-block (unstacked) trees of the
+quantization pipeline alike; MLA's wq, wdkv, wukv and wo come across as
+any linear, packed or float, and its latent norm "kvnorm" as any norm; an MoE's router and float (E, K, N) expert
 stacks come across as tensors, its packed experts as (E, K, N) or
 layer-stacked (L, E, K, N) ``QuantizedTensor`` leaves. Every other leaf
 comes across as it is: the learned position table ("pos"), the linears'

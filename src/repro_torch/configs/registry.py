@@ -7,6 +7,7 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 
 _MODULES = {
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "granite-20b": "repro_torch.configs.granite_20b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",

@@ -1,7 +1,8 @@
 """Norm-Tweaking PTQ pipeline — the paper's Algorithm 1 (port of
 ``repro.core.normtweak.pipeline``, decoder-only LMs, dense or MoE).
 
-Layer-by-layer over the model:
+Layer-by-layer over the model, the prefix blocks (DeepSeek's dense first
+layer) first, then the repeats:
   1. the quantized stream qX feeds every layer (lines 4-7);
   2. the float output fOut_l is computed with float weights (line 8), from
      the float model's own stream ("fstream") or from qX ("qstream");
@@ -206,9 +207,14 @@ def tweak_layers(cfg: ModelConfig, blocks: list, x0: torch.Tensor,
 
 
 def _restack(cfg: ModelConfig, params: dict, qblocks: list) -> dict:
+    """The quantized blocks back into the tree: the prefix blocks as they
+    are, then the repeats stacked."""
     out = dict(params)
+    n_pre = len(cfg.prefix_pattern)
+    if n_pre:
+        out["prefix"] = {str(i): qblocks[i] for i in range(n_pre)}
     pl = len(cfg.pattern)
-    out["stack"] = {f"p{j}": tree_stack([qblocks[r * pl + j]
+    out["stack"] = {f"p{j}": tree_stack([qblocks[n_pre + r * pl + j]
                                          for r in range(cfg.n_repeats)])
                     for j in range(pl)}
     return out

@@ -155,18 +155,23 @@ def quantize_block(block: dict, taps: Optional[dict], *,
         w = lin["w"]
         if isinstance(w, QuantizedTensor):
             continue
+        # a K that is no multiple of the group (DeepSeek's dense d_ff
+        # 10944 at g128) takes per-channel scales, the deploy's rule; the
+        # JAX package raises there instead
+        gs = group_size if group_size <= 0 or w.shape[-2] % group_size == 0 \
+            else -1
         if method == "gptq":
             if taps is None:
                 raise ValueError("GPTQ needs calibration taps")
             x = taps[tap_key_for(path)]
-            kw = dict(bits=bits, group_size=group_size, damp=damp,
+            kw = dict(bits=bits, group_size=gs, damp=damp,
                       actorder=actorder, act_bits=act_bits)
             if w.ndim == 3:   # experts: per-expert Hessians from (E, C, K)
                 qt, _ = gptq_quantize_experts(w, x, **kw)
             else:
                 qt, _ = gptq_quantize(w, hessian_from_inputs(x), **kw)
         else:  # rtn | smoothquant | awq (weights via RTN after folding)
-            qt = rtn_quantize(w, bits=bits, group_size=group_size,
+            qt = rtn_quantize(w, bits=bits, group_size=gs,
                               act_bits=act_bits)
         new_lin = dict(lin)
         new_lin["w"] = qt

@@ -2,9 +2,12 @@
 
 A plain-Python copy (the JAX module imports jax). It keeps the fields the
 ported slices use, with the JAX package's names and defaults, and
-``validate`` refuses what the port does not implement yet (MLA, Mamba,
+``validate`` refuses what the port does not implement yet (Mamba,
 enc-dec, multimodal frontends, sinusoidal positions, the shard_map MoE)
 instead of running it wrong.
+
+The layer stack is ``prefix_pattern`` (unstacked blocks, e.g. DeepSeek's
+first dense layer) followed by ``pattern`` repeated ``n_repeats`` times.
 """
 from __future__ import annotations
 
@@ -31,6 +34,15 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0        # 0 = full-rank Q projection (V2-Lite)
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "tiny"
     vocab_size: int = 256
@@ -39,6 +51,7 @@ class ModelConfig:
     n_kv_heads: int = 4
     head_dim: int = 0           # 0 = d_model // n_heads
     d_ff: int = 512
+    prefix_pattern: tuple[LayerSpec, ...] = ()
     pattern: tuple[LayerSpec, ...] = (LayerSpec(),)
     n_repeats: int = 2
     norm: str = "rmsnorm"       # rmsnorm | layernorm
@@ -48,12 +61,13 @@ class ModelConfig:
     rope_theta: float = 10000.0
     pos_emb: str = "none"       # none | learned
     max_position: int = 8192    # rows of the learned position table
-    attention: str = "gqa"      # gqa (mla is not ported)
+    attention: str = "gqa"      # gqa | mla
     attn_window: Optional[int] = None
     qkv_bias: bool = False
     o_bias: bool = False
     mlp_bias: bool = False
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     enc_dec: bool = False       # not ported
     frontend: str = "none"      # not ported
     tie_embeddings: bool = False
@@ -69,8 +83,12 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def n_layers(self) -> int:
+        return len(self.prefix_pattern) + len(self.pattern) * self.n_repeats
+
     def all_layer_specs(self) -> list[LayerSpec]:
-        return list(self.pattern) * self.n_repeats
+        return list(self.prefix_pattern) + list(self.pattern) * self.n_repeats
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -90,7 +108,9 @@ class ModelConfig:
             # the explicit all-to-all path exists only on a multi-device
             # mesh (ROADMAP.md queue 1, multi-device)
             unsupported.append(f"moe_impl={self.moe_impl}")
-        if self.attention != "gqa":
+        if self.attention == "mla" and self.mla is None:
+            raise ValueError(f"{self.name}: MLA attention needs cfg.mla")
+        if self.attention not in ("gqa", "mla"):
             unsupported.append(f"attention={self.attention}")
         if self.enc_dec:
             unsupported.append("enc-dec")

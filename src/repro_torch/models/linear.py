@@ -105,6 +105,15 @@ def dense_experts(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def materialize(w, dtype=torch.float32) -> torch.Tensor:
+    """A linear's weight as a plain ``dtype`` tensor: a packed leaf
+    dequantized (f32, no bf16 rounding; no kernel), a float one cast. For
+    MLA's absorbed decode, which multiplies by W_ukv's halves directly."""
+    if isinstance(w, QuantizedTensor):
+        return dequantize(w).to(dtype)
+    return w.to(dtype)
+
+
 def init_dense(gen: torch.Generator, k: int, n: int, device, *,
                bias: bool = False) -> dict:
     std = 1.0 / (k ** 0.5)

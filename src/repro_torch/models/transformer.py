@@ -1,11 +1,16 @@
 """Decoder-only LM (port of ``repro.models.transformer``).
 
 Params keep the JAX package's key paths: "embed", "final_norm",
-"lm_head" (untied models only) and the scan-stacked "stack/p0" blocks,
-whose leaves carry a leading layer dim. The JAX package scans over that
-dim; here ``_run_stack`` is a Python loop that hands each layer a view of
-its params and cache. Per-layer access for the quantization pipeline goes
-through ``num_blocks`` / ``block_spec`` / ``get_block``.
+"lm_head" (untied models only), the unstacked "prefix/0", "prefix/1", ...
+blocks of ``cfg.prefix_pattern`` (DeepSeek's dense first layer) and the
+scan-stacked "stack/p0" blocks, whose leaves carry a leading layer dim.
+The JAX package scans over that dim; here ``_run_stack`` is a Python loop
+that runs the prefix blocks, then hands each stacked layer a view of its
+params and cache. The caches have the same "prefix" and "stack" subtrees;
+a prefix block's cache is a stack of one (leading dim 1), so every pool
+leaf has its page axis at 1. Per-layer access for the quantization
+pipeline goes through ``num_blocks`` / ``block_spec`` / ``get_block``, in
+the JAX package's order: the prefix blocks, then the repeats.
 """
 from __future__ import annotations
 
@@ -15,13 +20,13 @@ import torch
 
 from repro_torch.core.quant.types import QuantizedTensor
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import init_kv_cache, init_paged_kv_cache
-from repro_torch.models.blocks import apply_block, init_block
+from repro_torch.models.blocks import apply_block, init_block, \
+    init_block_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.linear import dense
 from repro_torch.models.norms import apply_norm, init_norm
 from repro_torch.serve.kvcache import PageSpec
-from repro_torch.utils.tree import tree_index, tree_stack
+from repro_torch.utils.tree import tree_index, tree_map
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
@@ -43,43 +48,72 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": torch.randn(
             (cfg.d_model, cfg.vocab_size), generator=gen, device=dev) * 0.02}
-    params["stack"] = {
-        f"p{j}": tree_stack([init_block(cfg, spec, gen, dev)
-                             for _ in range(cfg.n_repeats)])
-        for j, spec in enumerate(cfg.pattern)}
+    if cfg.prefix_pattern:
+        params["prefix"] = {str(i): init_block(cfg, spec, gen, dev)
+                            for i, spec in enumerate(cfg.prefix_pattern)}
+    params["stack"] = {f"p{j}": _init_stacked(cfg, spec, gen, dev)
+                       for j, spec in enumerate(cfg.pattern)}
     return params
 
 
+def _init_stacked(cfg: ModelConfig, spec, gen: torch.Generator,
+                  dev) -> dict:
+    """``cfg.n_repeats`` blocks drawn in turn, each copied into its layer of
+    the stacked leaves as it is drawn: the draws of ``tree_stack`` over a
+    list of blocks, at a peak of the stack and one block (a 16-layer
+    DeepSeek stack is 35 GB in f32)."""
+    block = init_block(cfg, spec, gen, dev)
+    stacked = tree_map(lambda t: t.new_empty((cfg.n_repeats,) + t.shape),
+                       block)
+    for r in range(cfg.n_repeats):
+        if r:
+            block = init_block(cfg, spec, gen, dev)
+        tree_map(lambda dst, src: dst[r].copy_(src), stacked, block)
+    return stacked
+
+
+def _caches(cfg: ModelConfig, device, **kw) -> dict:
+    """The "prefix" (one stack of one per prefix block) and "stack" cache
+    subtrees, each built by ``init_block_cache(..., **kw)``."""
+    cache = {}
+    if cfg.prefix_pattern:
+        cache["prefix"] = {str(i): init_block_cache(cfg, device, 1, **kw)
+                           for i in range(len(cfg.prefix_pattern))}
+    cache["stack"] = {f"p{j}": init_block_cache(cfg, device, cfg.n_repeats,
+                                                **kw)
+                      for j in range(len(cfg.pattern))}
+    return cache
+
+
 def init_cache(cfg: ModelConfig, spec: PageSpec, device) -> dict:
-    """Stacked page pools for the continuous-batching engine."""
-    return {"stack": {f"p{j}": init_paged_kv_cache(cfg, spec, device,
-                                                   cfg.n_repeats)
-                      for j in range(len(cfg.pattern))}}
+    """Page pools for the continuous-batching engine."""
+    return _caches(cfg, device, paged=spec)
 
 
 def init_contiguous_cache(cfg: ModelConfig, batch: int, max_len: int,
                           device) -> dict:
-    """Stacked contiguous caches for ``lm_decode`` without pages (the
-    calibration generator; the JAX package's ``init_cache(cfg, batch,
-    max_len)``)."""
-    return {"stack": {f"p{j}": init_kv_cache(cfg, batch, max_len, device,
-                                             n_layers=cfg.n_repeats,
-                                             window=cfg.attn_window)
-                      for j in range(len(cfg.pattern))}}
+    """Contiguous caches for ``lm_decode`` without pages (the calibration
+    generator's and the static engine's; the JAX package's
+    ``init_cache(cfg, batch, max_len)``)."""
+    return _caches(cfg, device, batch=batch, max_len=max_len)
 
 
 def num_blocks(cfg: ModelConfig) -> int:
-    return len(cfg.pattern) * cfg.n_repeats
+    return cfg.n_layers
 
 
 def block_spec(cfg: ModelConfig, i: int):
-    return cfg.pattern[i % len(cfg.pattern)]
+    return cfg.all_layer_specs()[i]
 
 
 def get_block(cfg: ModelConfig, params: dict, i: int) -> dict:
-    """Block i's params (views into the stacked leaves)."""
-    j = i % len(cfg.pattern)
-    return tree_index(params["stack"][f"p{j}"], i // len(cfg.pattern))
+    """Block i's params: a prefix block's own tree, or views into the
+    stacked leaves."""
+    n_pre = len(cfg.prefix_pattern)
+    if i < n_pre:
+        return params["prefix"][str(i)]
+    r, j = divmod(i - n_pre, len(cfg.pattern))
+    return tree_index(params["stack"][f"p{j}"], r)
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -96,20 +130,25 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                positions: torch.Tensor, cache: Optional[dict] = None,
-               paged: Optional[dict] = None):
-    """Pattern repeats in order, layer by layer. ``cache`` is updated in
-    place through each layer's view of the stacked pools. Returns (x, the
-    sum of the blocks' aux losses: a tensor, or 0.0 when no block is an
-    MoE)."""
-    pat = cfg.pattern
+               paged: Optional[dict] = None, decode: bool = False):
+    """The prefix blocks, then the pattern repeats in order, layer by
+    layer. ``cache`` is updated in place through each layer's view of its
+    pools. Returns (x, the sum of the blocks' aux losses: a tensor, or 0.0
+    when no block is an MoE)."""
+    kw = dict(positions=positions, paged=paged, decode=decode)
     aux_total = 0.0
+    for i in range(len(cfg.prefix_pattern)):
+        c = (tree_index(cache["prefix"][str(i)], 0)
+             if cache is not None else None)
+        x, aux = apply_block(cfg, params["prefix"][str(i)], x, cache=c, **kw)
+        aux_total = aux_total + aux
+    pat = cfg.pattern
     for r in range(cfg.n_repeats):
         for j in range(len(pat)):
             p = tree_index(params["stack"][f"p{j}"], r)
             c = (tree_index(cache["stack"][f"p{j}"], r)
                  if cache is not None else None)
-            x, aux = apply_block(cfg, p, x, positions=positions, cache=c,
-                                 paged=paged)
+            x, aux = apply_block(cfg, p, x, cache=c, **kw)
             aux_total = aux_total + aux
     return x, aux_total
 
@@ -174,7 +213,7 @@ def lm_decode(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     (``init_contiguous_cache``). Returns logits (B, V)."""
     x = _embed(cfg, params, tokens, positions)
     x, _ = _run_stack(cfg, params, x, positions=positions, cache=cache,
-                      paged=paged)
+                      paged=paged, decode=True)
     return _head(cfg, params, x)[:, 0, :]
 
 

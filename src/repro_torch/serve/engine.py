@@ -53,6 +53,13 @@ from a snapshot). An MoE's capacity is cross-token: a prefill batch
 routes its padded tokens' count, so with ``prefill_batch`` > 1 which
 tokens are dropped depends on the co-batched prompts. Tensor parallelism
 is not ported.
+
+MLA (DeepSeek) keeps a latent cache, c_kv and k_pe, in its pools, and
+its decode reads them by a gather and plain f32 einsums, as in the JAX
+package: the paged kernel is not on its path. Its prefill attends to the
+chunk alone, so the engine refuses on it what would prefill after
+context — ``preempt``, ``prefix_share``, ``chunked_prefill`` and
+``spec_decode`` — with the JAX engine's messages (``mla_refusal``).
 """
 from __future__ import annotations
 
@@ -391,6 +398,29 @@ def _spec_round(cfg: ModelConfig, params: dict, draft_params: dict,
     return out, torch.where(active, n_emit, 0)
 
 
+def mla_refusal(cfg: ModelConfig, *, preempt: bool = False,
+                prefix_share: bool = False, chunked_prefill: int = 0,
+                spec_decode: bool = False) -> Optional[str]:
+    """Why the engine refuses these features on ``cfg``, or None: the JAX
+    package's refusals for MLA, word for word. MLA's non-absorbed prefill
+    attends to the chunk alone, so a later chunk, a suffix after shared
+    pages, a preempted request resumed mid-prefill and a speculative
+    verify would all be silently wrong."""
+    if cfg.attention != "mla":
+        return None
+    if preempt:
+        return ("preempt covers attention-only decoders (no SSM blocks, "
+                "no MLA)")
+    if prefix_share or chunked_prefill:
+        return ("prefix_share/chunked_prefill cover attention-only "
+                "decoders (no SSM blocks, no MLA)")
+    if spec_decode:
+        return ("spec_decode covers attention-only decoders: the verify "
+                "forward rides the paged gathered/fused read (no SSM "
+                "recurrence rewind, no MLA latent prefill)")
+    return None
+
+
 class ContinuousEngine:
     """Slot-stepping execution core for continuous batching.
 
@@ -438,6 +468,11 @@ class ContinuousEngine:
                  faults: Optional[FaultPlan] = None, debug: bool = False,
                  device="cuda"):
         cfg.validate()
+        why = mla_refusal(cfg, preempt=preempt, prefix_share=prefix_share,
+                          chunked_prefill=chunked_prefill,
+                          spec_decode=spec_decode)
+        if why:
+            raise NotImplementedError(why)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.spec_decode = bool(spec_decode)

@@ -1,18 +1,23 @@
 """The port's copies of ModelConfig, TINY and the CONFIG/SMOKE pairs of
-llama3.2-1b, mixtral-8x22b, qwen2-0.5b, chatglm3-6b and granite-20b equal
-the JAX package's field for field, on the fields the port keeps."""
+llama3.2-1b, mixtral-8x22b, qwen2-0.5b, chatglm3-6b, granite-20b and
+deepseek-v2-lite-16b equal the JAX package's field for field, on the
+fields the port keeps (deepseek's ``moe_impl`` aside: the JAX package's
+shard_map dispatch runs only under a multi-device mesh, and the port
+keeps the spmd dispatch it runs on one device)."""
 import dataclasses
 
 import pytest
 
 import repro.configs as jc
 from repro.configs import chatglm3_6b as jglm
+from repro.configs import deepseek_v2_lite_16b as jds
 from repro.configs import granite_20b as jgranite
 from repro.configs import llama3_2_1b as jllama
 from repro.configs import mixtral_8x22b as jmix
 from repro.configs import qwen2_0_5b as jqwen
 from repro_torch import configs as tc
 from repro_torch.configs import chatglm3_6b as tglm
+from repro_torch.configs import deepseek_v2_lite_16b as tds
 from repro_torch.configs import granite_20b as tgranite
 from repro_torch.configs import llama3_2_1b as tllama
 from repro_torch.configs import mixtral_8x22b as tmix
@@ -24,11 +29,13 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 def _same(tcfg, jcfg):
     for f in dataclasses.fields(ModelConfig):
         tv, jv = getattr(tcfg, f.name), getattr(jcfg, f.name)
-        if f.name == "pattern":
+        if f.name in ("pattern", "prefix_pattern"):
             assert [(s.kind, s.mlp) for s in tv] == \
                 [(s.kind, s.mlp) for s in jv]
-        elif f.name == "moe" and tv is not None:
+        elif f.name in ("moe", "mla") and tv is not None:
             assert dataclasses.asdict(tv) == dataclasses.asdict(jv)
+        elif f.name == "moe_impl" and jcfg.name == "deepseek-v2-lite-16b":
+            assert (tv, jv) == ("spmd", "shard_map")
         else:
             assert tv == jv, f.name
     assert tcfg.hd == jcfg.hd
@@ -46,6 +53,9 @@ def _same(tcfg, jcfg):
     (tglm.CONFIG, jglm.CONFIG), (tglm.SMOKE, jglm.SMOKE),
     (tgranite.CONFIG, jgranite.CONFIG), (tgranite.SMOKE, jgranite.SMOKE),
     (tc.get_smoke_config("granite-20b"), jc.get_smoke_config("granite-20b")),
+    (tds.CONFIG, jds.CONFIG), (tds.SMOKE, jds.SMOKE),
+    (tc.get_smoke_config("deepseek-v2-lite-16b"),
+     jc.get_smoke_config("deepseek-v2-lite-16b")),
 ])
 def test_configs_match_jax(pair):
     _same(*pair)
@@ -63,7 +73,7 @@ def test_unported_features_refused():
 
 
 @pytest.mark.parametrize("change", [
-    dict(attention="mla"), dict(enc_dec=True), dict(frontend="vision"),
+    dict(attention="linear"), dict(enc_dec=True), dict(frontend="vision"),
     dict(pattern=(LayerSpec(kind="mamba"),)), dict(norm="groupnorm"),
     dict(act="relu"), dict(rope="yarn"),
 ])
@@ -80,3 +90,21 @@ def test_dense_variants_accepted(name):
     assert name in list_archs()
     tc.get_config(name).validate()
     tc.get_smoke_config(name).validate()
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b"])
+def test_mla_accepted(name):
+    """MLA with its config, the unstacked dense first layer and a shared
+    expert pass ``validate``; the launcher's --arch lists the arch; the
+    layer count and order are the JAX package's; MLA without ``cfg.mla``
+    is an error of the config, as in the JAX package."""
+    assert name in list_archs()
+    cfg = tc.get_config(name)
+    cfg.validate()
+    tc.get_smoke_config(name).validate()
+    jcfg = jc.get_config(name)
+    assert cfg.n_layers == jcfg.n_layers == 27
+    assert [(s.kind, s.mlp) for s in cfg.all_layer_specs()] == \
+        [(s.kind, s.mlp) for s in jcfg.all_layer_specs()]
+    with pytest.raises(ValueError, match="cfg.mla"):
+        cfg.replace(mla=None).validate()

@@ -1043,3 +1043,146 @@ def test_dense_variant_reads_match_plain(gen, kvh, g, hd, m_rows, quant):
     # f32 on both sides, rounding in another order only
     assert float((got.cpu() - want).abs().max()) <= 1e-4
     assert torch.all(got[0] == 0)                 # empty slot: exact zeros
+
+
+# deepseek-v2-lite (slice 13): kernel 1 on its dense first layer's down
+# projection (K 10944: a ragged last 128-row stage of the streaming body,
+# per-channel since no whole number of 128-row groups) at a decode M and a
+# 256-token prefill M (the tile), and its latent projection wdkv (N 576)
+@pytest.mark.parametrize("m,k,n,group", [(8, 10944, 2048, -1),
+                                         (256, 10944, 2048, -1),
+                                         (8, 2048, 576, 128),
+                                         (256, 2048, 576, 128)])
+def test_deepseek_linears_match_plain(gen, m, k, n, group):
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    qt = quantize(w, 4, group)
+    kw = dict(bits=4, group_size=group, k=k)
+    got = dequant_matmul_cuda(x, qt.qw, qt.scale, **kw)
+    want = ref.dequant_matmul_ref(x, qt.qw, qt.scale, **kw)
+    # as test_dequant_matmul_kernel_matches_plain: 4e-5 of the largest sum
+    # of |terms|
+    bound = (x.to(torch.bfloat16).float().abs()
+             @ dequantize(qt).to(torch.bfloat16).float().abs()).max()
+    assert float((got - want).abs().max()) <= 4e-5 * float(bound)
+
+
+# kernels 4 and 5 on deepseek-v2-lite's 64 experts: wi / wg 2048 x 1408
+# (five whole 256-column strips and a ragged half strip), wo 1408 x 2048
+# (11 groups of 128), at decode capacity 8 and a 256-token prefill's 32,
+# W4 g128 and per-channel
+@pytest.mark.parametrize("c,k,n", [(8, 2048, 1408), (8, 1408, 2048),
+                                   (32, 2048, 1408)])
+@pytest.mark.parametrize("group", [128, -1])
+@pytest.mark.parametrize("act_bits", [0, 8])
+def test_deepseek_experts_match_plain(gen, c, k, n, group, act_bits):
+    from repro_torch.core.quant.types import quantize_activation, unpack
+    from repro_torch.kernels.expert_dequant_matmul import (
+        expert_dequant_matmul_cuda)
+    from repro_torch.kernels.expert_w8a8_matmul import (
+        expert_w8a8_matmul_cuda)
+
+    e = 64
+    x, qt = _expert_case(gen, e, c, k, n, 4, group, act_bits)
+    kw = dict(bits=4, group_size=group, k=k)
+    if act_bits:
+        xq, _ = quantize_activation(x.reshape(e * c, k))
+        xq = xq.reshape(e, c, k)
+        got = expert_w8a8_matmul_cuda(xq, qt.qw, qt.scale, **kw)
+        want = ref.expert_w8a8_matmul_ref(xq, qt.qw, qt.scale, **kw)
+        rows = torch.arange(k, device="cuda") // (k // qt.scale.shape[-2])
+        wabs = (unpack(qt.qw, 4, k).abs().double()
+                * qt.scale[:, rows].double())
+        bound = 1e-5 * float(torch.matmul(xq.double().abs(), wabs).max())
+    else:
+        got = expert_dequant_matmul_cuda(x, qt.qw, qt.scale, **kw)
+        want = ref.expert_dequant_matmul_ref(x, qt.qw, qt.scale, **kw)
+        bound = 4e-5 * float(torch.matmul(
+            x.to(torch.bfloat16).float().abs(),
+            dequantize(qt).to(torch.bfloat16).float().abs()).max())
+    assert float((got - want).abs().max()) <= bound
+    assert torch.all(got[:, -1] == 0)
+
+
+# kernel 6 on deepseek-v2-lite's wdkv (N 576: 4.5 of the planner's
+# 128-column tiles) and dense down projection (K 10944, per-channel), and
+# one layer's expert stack (64 x 2048 x 1408)
+@pytest.mark.parametrize("shape,group", [((2048, 576), 128),
+                                         ((10944, 2048), -1),
+                                         ((64, 2048, 1408), 128)])
+def test_deepseek_quantize_pack_matches_plain(gen, shape, group):
+    from repro_torch.core.quant.types import compute_scales
+    from repro_torch.kernels.quantize_pack import quantize_pack_cuda
+
+    w = torch.randn(shape, generator=gen, device="cuda") / math.sqrt(
+        shape[-2])
+    scale = compute_scales(w, 4, group)
+    got = quantize_pack_cuda(w, scale, bits=4)
+    assert torch.equal(got, ref.quantize_pack_ref(w, scale, bits=4))
+
+
+def _mla_inputs(gen):
+    """deepseek-v2-lite's SMOKE config, its prefix block's MLA params
+    seeded on the CPU (kvnorm's scale drawn too), and a 21-token input."""
+    from repro_torch.models.transformer import init_lm
+
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    p = init_lm(cfg, seed=0, device="cpu")["prefix"]["0"]["attn"]
+    p["kvnorm"]["scale"] = 1 + 0.02 * torch.randn(
+        p["kvnorm"]["scale"].shape, generator=torch.Generator().manual_seed(1))
+    x = torch.randn((2, 21, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("block_kv", [512, 8])
+def test_mla_on_the_card_matches_the_cpu(gen, packed, block_kv):
+    """``apply_mla`` on the card (the kernels in every packed linear: wukv
+    through kernel 1 in the non-absorbed prefill, dequantized in f32 for
+    the absorbed decode) against the port on the CPU (their plain
+    versions): a prefill into page pools, single-shot and chunked, then
+    absorbed decode steps over the gathered pages; outputs and pools."""
+    from repro_torch.core.quant.deploy import quantize_params_for_serving
+    from repro_torch.models import mla
+    from repro_torch.serve.kvcache import PageSpec
+    from repro_torch.utils.tree import tree_index
+
+    cfg, p, x = _mla_inputs(gen)
+    cfg = cfg.replace(attn_block_kv=block_kv)
+    if packed:
+        p = quantize_params_for_serving(cfg, p, bits=4, group_size=16,
+                                        device="cpu")
+    spec = PageSpec(n_pages=9, page_size=4, max_pages=4)
+    bt = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32)
+    out = {}
+    ops.reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        from repro_torch.core.quant.deploy import to_device
+        pd = to_device(p, torch.device(dev))
+        cache = tree_index(mla.init_paged_mla_cache(cfg, spec, dev, 1), 0)
+        s = 13
+        pos = torch.arange(s, dtype=torch.int32)[None].expand(2, s)
+        ys = [mla.apply_mla(cfg, pd, x[:, :s].to(dev),
+                            positions=pos.to(dev), cache=cache,
+                            paged={"bt_rows": bt.to(dev)}).cpu()]
+        for t in range(s, 16):
+            clen = torch.full((2,), t, dtype=torch.int32)
+            paged = {"block_table": bt, "write_page": bt[:, t // 4],
+                     "write_off": clen % 4, "kv_len": clen + 1}
+            ys.append(mla.apply_mla(
+                cfg, pd, x[:, t:t + 1].to(dev),
+                positions=clen[:, None].to(dev), cache=cache, decode=True,
+                paged={k: v.to(dev) for k, v in paged.items()}).cpu())
+        out[dev] = (ys, {k: v.cpu() for k, v in cache.items()})
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        # f32 on both sides (packed: the same bf16 operands in the kernel
+        # and its plain version), sums in another order
+        assert float((a - b).abs().max()) <= (2e-4 if packed else 2e-5)
+    for key in ("k_pool", "v_pool"):
+        assert float((out["cpu"][1][key] - out["cuda"][1][key])
+                     .abs().max()) <= 2e-5
+    # every packed linear ran kernel 1 on the card: wq, wdkv, wukv and wo
+    # in the prefill, wq, wdkv and wo in each of the 3 decode steps
+    assert ops.launch_counts()["dequant_matmul"] == (4 + 3 * 3 if packed
+                                                     else 0)
