@@ -7,7 +7,7 @@ Builds the seven CUDA kernels from src/repro_torch/kernels/csrc/ (nvcc,
 at first use, all in parallel) and holds each against its plain PyTorch
 version on the card at the shapes the main paths give it (the paged read
 also at the verify's and a prefill chunk's rows, and at fills below
-them). Then it drives twenty-eight paths, each with the kernels' launch
+them). Then it drives thirty-three paths, each with the kernels' launch
 counts set to 0 just before it and read just after. First the paper's quality
 path on TINY (d 192, 8 layers, the model the JAX package measures quality
 on), modelled on the JAX package's benchmarks/common.py, nt_common.py and
@@ -85,8 +85,8 @@ tree of 56 layers would not fit the card), the same four paths: serving
 RTN W4 g128 (8 requests, one prompt a prefill), GPTQ W4 g128 + NT and
 SmoothQuant W4A8 + NT (the experts through the expert-batched kernels;
 layer 0 quantized and tweaked again on the card with every kernel's plain
-version for GPTQ, its attention linears and one expert's wi and wg on the
-CPU for SmoothQuant), and serving the W4A8 + NT model. Each MoE decode
+version, its attention linears' and one expert's wi and wg codes held),
+and serving the W4A8 + NT model. Each MoE decode
 step's launches are asserted exactly.
 
 Then the dense variants at their published widths, each with its biases,
@@ -104,7 +104,7 @@ served.
 
 Then deepseek-v2-lite-16b at its published widths (MLA with a latent KV
 cache of rank 512, a dense first layer of d_ff 10944, MoE layers of 64
-routed experts top-6 of d_ff 1408 and 2 shared): cut to 16 of its 27
+routed experts top-6 of d_ff 1408 and 2 shared): cut to 8 of its 27
 layers, served W4 g128 on llama's workload, one prompt a prefill
 (the MLA read is the reference's gather and f32 einsums: no paged
 kernel); at 2 layers GPTQ W4 g128 + NT and SmoothQuant W4A8 + NT (layer
@@ -112,6 +112,20 @@ kernel); at 2 layers GPTQ W4 g128 + NT and SmoothQuant W4A8 + NT (layer
 version; every layer's ln1, kvnorm and ln2 moved by the tweak) and the
 W4A8 + NT model served. Each decode step's and prefill call's launches
 are asserted exactly.
+
+Then the SSM slice: mamba2-2.7b whole at its published widths (64 Mamba2
+blocks, d 2560, d_state 128, 80 heads of 64; its SSD scan, conv and
+gated norm plain PyTorch, as the JAX package's are plain jnp, its in_proj
+and out_proj on kernel 1), served W4 g128 on llama's workload with 128
+kernel-1 launches a decode step and a prefill call, held to the measured
+margin; at 4 layers GPTQ W4 g128 + NT and at 2 SmoothQuant W4A8 + NT
+(every ln1 and gated norm "gnorm" moved; layer 0 again on the card with
+plain kernels) and the W4A8 model served. Last, Jamba-1.5-Large at its
+published widths cut to layers 4-5 of its period (attention + dense MLP,
+mamba + 16-expert MoE: 47.6 GB in f32), served W4 g128 one prompt a
+prefill: 9 + 1 + 3 launches of kernels 1, 2 and 4 a decode step, the
+page pools and the slot-indexed SSM state in one cache tree, the phase's
+own peak memory printed.
 
 Every served greedy token is held against a plain forward over the same
 sequence. On llama3.2-1b it is one right-padded batch on the card with
@@ -263,6 +277,19 @@ MARGIN = 0.05
 # vocabulary), its control and the fixed-margin count carry it (H100, 700
 # W)
 NOISE = 1e-7
+# Jamba's MoE layer (top-2 of 16, after a mamba layer) flips routing on
+# last bits: at MARGIN its W4 tokens parted from the plain replay's argmax
+# at 4 of 707 positions (one at a top-2 gap of 0.81), and so did the
+# NOISE-perturbed plain forward's, at 4; a flipped expert moved a
+# position's logits by up to 2.98 (the noise's: 2.57), so the measured
+# margin banded 17% of the vocabulary (H100, 700 W). Its replay takes the
+# card's expert choices instead (``Routing``), which leaves the kernels'
+# numerics to compare at MARGIN; every choice the plain router would have
+# made otherwise must be one the two runs' router probabilities can
+# order either way: its k-th and (k+1)-th plain probabilities no further
+# apart than twice the largest difference between the card's and the
+# plain router probabilities of that token (22 of 3,512 routed tokens,
+# gaps up to 1.2e-3, in the run that took this rule)
 # the most the card's Mixtral W4A8 forward (every kernel) may move a served
 # position's logits from the plain forward's: measured 0.245 against the
 # noise's 8.15 (H100, 700 W); a kernel fault that moves logits by more fails
@@ -286,13 +313,28 @@ AFFINE_STD = 0.02
 # deepseek-v2-lite-16b (slice 13) at its published widths: 585.0 M
 # parameters an MoE layer (2.34 GB in f32), so its 27 layers (62.8 GB)
 # with the packed copy and the pools would not fit the card. Serving is cut
-# to 16 layers (the dense first layer and 15 MoE repeats, 37.1 GB), the
-# pipelines to 2 (the first layer and 1 MoE repeat). Its serving workload
-# is llama's with one prompt a prefill: capacity routing counts a
-# prefill's padded tokens, and replay_served prefills each prompt alone
-DEEPSEEK_SERVE_REPEATS = 15
+# to 8 layers (the dense first layer and 7 MoE repeats, 18.4 GB; 16 until
+# the script's budget took the served-token check's three replays of 16
+# MoE layers down by half), the pipelines to 2 (the first layer and 1 MoE
+# repeat). Its serving workload is llama's with one prompt a prefill:
+# capacity routing counts a prefill's padded tokens, and replay_served
+# prefills each prompt alone
+DEEPSEEK_SERVE_REPEATS = 7
 DEEPSEEK_PIPE_REPEATS = 1
 DEEPSEEK_WORK = dict(LLAMA_WORK, prefill_batch=1)
+# mamba2-2.7b (slice 14) whole for serving: 64 mamba blocks at d 2560 (2.70
+# B parameters, 10.8 GB in f32; 1.34 GB of SSM state at 8 slots); its
+# pipelines at MAMBA2_PIPE_LAYERS (GPTQ) and 2 (SmoothQuant). Jamba-1.5-
+# Large at its published widths, cut by depth to layers 4-5 of its 8-layer
+# period: the attention + dense-MLP layer and a mamba + 16-expert MoE
+# layer (11.9 B parameters, 47.6 GB in f32 with the untied head; one MoE
+# layer alone is 38.7 GB, so two would not fit beside their packed copy).
+# Jamba serves one prompt a prefill, as deepseek does
+MAMBA2_PIPE_LAYERS = 4
+MAMBA2_SQ_LAYERS = 2
+MAMBA_LINEARS = ["mamba/in_proj", "mamba/out_proj"]
+JAMBA_PERIOD_CUT = slice(4, 6)
+JAMBA_WORK = dict(LLAMA_WORK, prefill_batch=1)
 # seconds of each phase (path with its checks), printed on the "phases"
 # line so a phase that drifts between machines shows by name
 PHASE_S: dict = {}
@@ -372,6 +414,10 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 MOE_E, MOE_D, MOE_FF = 8, 6144, 16384
 # deepseek-v2-lite's routed experts: 64 of d_ff 1408 on d 2048
 DS_E, DS_FF = 64, 1408
+# mamba2-2.7b: d 2560, d_inner 5120, in_proj N 2 x 5120 + 2 x 128 + 80
+M2_D, M2_DI, M2_IN = 2560, 5120, 10576
+# Jamba-1.5-Large's 16 experts of d_ff 24576 on d 8192
+JAMBA_E, JAMBA_D, JAMBA_FF = 16, 8192, 24576
 
 
 def dense_plan(m, k, n, bits, groups, int8):
@@ -450,6 +496,12 @@ def check_dequant_matmul(timer, gen):
     # bodies), and its MLA latent projection wdkv (N 576), W4 g128
     cases += [(8, 10944, 2048, 4, -1), (256, 10944, 2048, 4, -1),
               (8, 2048, 576, 4, 128)]
+    # mamba2-2.7b's in_proj (N 10576 = 16 x 661: the first N on a path
+    # that is no multiple of 32, so the streaming body's and the tile's
+    # last strips are ragged) at a decode M and a 256-token prefill, and
+    # its out_proj (K 5120), W4 g128
+    cases += [(8, M2_D, M2_IN, 4, 128), (256, M2_D, M2_IN, 4, 128),
+              (8, M2_DI, M2_D, 4, 128)]
     results = []
     for m, k, n, bits, group in cases:
         x = torch.randn((m, k), generator=gen, device="cuda")
@@ -506,8 +558,11 @@ def check_w8a8_matmul(timer, gen):
     # prefill M
     cases += [(m, 2048, 8192, 4, -1) for m in (16, 32, 64, 128)]
     cases += [(512, 2048, 8192, bits, -1) for bits in (2, 3, 8)]
-    # granite-20b's W4A8 decode: its MLP up projection, per-channel
-    cases += [(8, 6144, 24576, 4, -1)]
+    # granite-20b's W4A8 decode: its MLP up projection, per-channel;
+    # mamba2-2.7b's in_proj (N 10576, ragged last strips) at a decode M and
+    # a 256-token prefill, and its out_proj, per-channel
+    cases += [(8, 6144, 24576, 4, -1), (8, M2_D, M2_IN, 4, -1),
+              (256, M2_D, M2_IN, 4, -1), (8, M2_DI, M2_D, 4, -1)]
     results = []
     for m, k, n, bits, group in cases:
         x = torch.randn((m, k), generator=gen, device="cuda")
@@ -593,6 +648,9 @@ def check_expert_dequant_matmul(timer, gen):
     # capacity and a 256-token prefill's (C 32), W4 g128
     cases += [(DS_E, 8, 2048, DS_FF, 4, 128), (DS_E, 8, DS_FF, 2048, 4, 128),
               (DS_E, 32, 2048, DS_FF, 4, 128)]
+    # Jamba's 16 experts (wi/wg 8192 x 24576, 1.61 GB of W4 codes: the
+    # largest expert stream) at its decode capacity, W4 g128
+    cases += [(JAMBA_E, 8, JAMBA_D, JAMBA_FF, 4, 128)]
     results = []
     for e, c, k, n, bits, group in cases:
         x, qt = _expert_stack(gen, e, c, k, n, bits, group)
@@ -732,6 +790,10 @@ def check_quantize_pack(timer, gen):
     # tiles) and its dense down projection (K 10944, per-channel)
     cases += [((2048, 576), 4, 128, torch.float32),
               ((10944, 2048), 4, -1, torch.float32)]
+    # mamba2-2.7b's in_proj stack (64 layers of 2560 x 10576: N no
+    # multiple of the planner's 128-column tiles), what its deploy packs
+    # in one launch
+    cases += [((64, M2_D, M2_IN), 4, 128, torch.float32)]
     results = []
     for shape, bits, group, dtype in cases:
         w = (torch.randn(shape, generator=gen, device="cuda")
@@ -783,7 +845,8 @@ def check_channel_stats(timer, gen):
              (4097, 1030, torch.bfloat16, 0.5),
              (320, 192, torch.float32, 0.5),
              (256, 192, torch.float32, 0.0),
-             (16384, 2048, torch.float32, 1e3)]
+             (16384, 2048, torch.float32, 1e3),
+             (256, M2_D, torch.float32, 0.0)]
     results = []
     for t, c, dtype, mean in cases:
         x = (torch.randn((t, c), generator=gen, device="cuda")
@@ -877,7 +940,7 @@ def check_paged_attention(timer, gen):
     # it; the dense variants' decode reads over llama's fills: qwen2-0.5b
     # (GQA 14/2: G 7, a dead row in each 8-row block), chatglm3-6b (32/2:
     # G 16) and granite-20b (MQA 48/1: G 48, six row chunks on one slot's
-    # pages)
+    # pages); Jamba's attention layer (GQA 64/8: G 8, hd 128)
     ps = 16
     fills = [0, 1, 16, 37, 100, 256, 300, 320]
     configs = [(8, 4, 64, 20, None, fills, (1, 2, 3, 4, 5, 64), True),
@@ -887,7 +950,8 @@ def check_paged_attention(timer, gen):
                 [0, 1, 16, 160, 2000, 4096, 4097, 4608], (1,), True),
                (2, 7, 64, 20, None, fills, (1,), True),
                (2, 16, 128, 20, None, fills, (1,), True),
-               (1, 48, 128, 20, None, fills, (1,), True)]
+               (1, 48, 128, 20, None, fills, (1,), True),
+               (8, 8, 128, 20, None, fills, (1,), True)]
     results = []
     for kvh, g, hd, w, window, fills, m_rows_set, clamp in configs:
         s = len(fills)
@@ -1117,6 +1181,9 @@ def serve(cfg, params, label, work, device="cuda", **engine_kw):
         lambda items, padded, has_ctx, now: dict(
             rows=len(items), padded=padded, has_ctx=has_ctx))
     engine._spec_block = counted("spec", engine._spec_block)
+    # the peak since the caller's last reset (the deploy's, for a phase
+    # that reset it before building the params), then the run's own
+    setup_peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     pa_mod.paged_attention_cuda = paged_cuda
@@ -1165,7 +1232,8 @@ def serve(cfg, params, label, work, device="cuda", **engine_kw):
                  prefill_tokens=engine.n_prefill_tokens,
                  shared_tokens=engine.n_shared_tokens,
                  prefix_pages_cached=cached, calls=by_kind,
-                 peak_mem_gib=peak / 2**30, launches=launches,
+                 peak_mem_gib=peak / 2**30,
+                 setup_peak_mem_gib=setup_peak / 2**30, launches=launches,
                  run_launches={name: n - setup_launches[name]
                                for name, n in launches.items()},
                  decode_launches=decode_launches,
@@ -1260,6 +1328,59 @@ def assert_call_launches(stats, dense, n_lin, n_attn, spec_k=None,
     return dict(spec_rounds_by_k=ks, prefill_calls=prefills)
 
 
+class Routing:
+    """An MoE's expert choices (``torch.topk`` over the router's
+    probabilities, its one use on the serving path at temperature 0) in a
+    served run, call by call, with the probabilities they were taken
+    from: ``recording()`` keeps them, ``pinned()`` hands the choices back
+    in the same order to a replay of the same calls, each gate recomputed
+    from the replay's own probabilities at the recorded experts. Wherever
+    the replay router's own choice differs, it keeps that token's k-th
+    minus (k+1)-th replay probability and the largest difference between
+    the two runs' probabilities of the token (``flips``: (gap, diff))."""
+
+    def __init__(self):
+        self.calls, self.flips, self.n_choices = [], [], 0
+
+    @contextlib.contextmanager
+    def recording(self):
+        real = torch.topk
+
+        def topk(x, k, dim=-1, **kw):
+            out = real(x, k, dim=dim, **kw)
+            self.calls.append((out.indices.clone(), x.detach().clone()))
+            return out
+        torch.topk = topk
+        try:
+            yield self
+        finally:
+            torch.topk = real
+
+    @contextlib.contextmanager
+    def pinned(self):
+        real, calls = torch.topk, iter(self.calls)
+
+        def topk(x, k, dim=-1, **kw):
+            idx, probs = next(calls)
+            own = real(x, k + 1, dim=dim)
+            moved = (own.indices[..., :k].sort(dim).values
+                     != idx.sort(dim).values).any(dim)
+            gap = own.values[..., k - 1] - own.values[..., k]
+            diff = (x - probs).abs().amax(dim)
+            self.flips.append(torch.stack([gap[moved], diff[moved]],
+                                          dim=-1).float().cpu())
+            self.n_choices += idx.shape[0]
+            return torch.gather(x, dim, idx), idx
+        torch.topk = topk
+        try:
+            yield self
+        finally:
+            torch.topk = real
+        if next(calls, None) is not None:
+            raise AssertionError("Routing: the replay made fewer routing "
+                                 "calls than the served run")
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Inside: every kernel wrapper's CUDA entry point is its plain
@@ -1310,7 +1431,7 @@ def replay_served(cfg, params, engine, done):
                                                 lm_prefill)
 
     dev = params["embed"]["w"].device
-    cache = init_cache(cfg, engine.spec, dev)
+    cache = init_cache(cfg, engine.spec, dev, engine.n_slots)
     out = {r.rid: [None] * len(r.tokens) for r in done}
     for call in engine.recorded_calls:
         fn = lm_prefill if call["kind"] == "prefill" else lm_decode
@@ -1347,7 +1468,7 @@ def _llama_logits(cfg, params, done):
 
 
 def check_against_plain(cfg, engine, done, measure_margin=False,
-                        replay=False, plain_on_card=False):
+                        replay=False, plain_on_card=False, routing=None):
     """Every served greedy token equals the plain forward's argmax wherever
     that forward's top-2 margin exceeds the margin: MARGIN, or with
     ``measure_margin`` the margin measured on these sequences (see NOISE).
@@ -1377,6 +1498,13 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
         the plain ones. With ``replay`` the margin is twice that shift
         instead, and the shift is held to CARD_SHIFT_MOE (see NOISE).
 
+    With ``routing`` (a ``Routing`` that recorded the served run's expert
+    choices) the plain replay takes the card's choices (``pinned``): it
+    isolates the kernels' numerics from routing flips. The choices the
+    plain router would have made otherwise are counted, and each must be
+    one that the two runs' probabilities can order either way: its gap
+    no more than twice their largest difference at that token.
+
     Returns the plain forward's logits at the served positions, per
     request."""
     from repro_torch.core.quant.deploy import to_device
@@ -1386,7 +1514,9 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
         params = engine.params
 
         def plain(p):
-            with plain_kernels():
+            pin = (routing.pinned() if routing is not None
+                   else contextlib.nullcontext())
+            with plain_kernels(), pin:
                 return replay_served(cfg, p, engine, done)
     elif plain_on_card:
         params = engine.params
@@ -1417,6 +1547,7 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
                          for c, pred in zip(on_card, preds))
         del on_card
         margin = max(MARGIN, 2 * (card_shift if replay else noise_shift))
+        shift_limit = CARD_SHIFT_MOE if replay else margin
 
     def gap_arg(pred):
         top2 = torch.topk(pred, 2, dim=-1).values
@@ -1465,7 +1596,7 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
         line.update(
             noise=NOISE, noise_logit_shift=noise_shift,
             card_logit_shift=card_shift,
-            card_logit_shift_limit=CARD_SHIFT_MOE if replay else margin,
+            card_logit_shift_limit=shift_limit,
             within_margin_of_top=in_band,
             band_size=dict(mean=float(band.mean()),
                            median=float(band.median()),
@@ -1477,9 +1608,20 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
                                  served_disagree=served_flips,
                                  noise_disagree=noise_flips))
         failed = (failed or in_band != total
-                  or not card_shift <= (CARD_SHIFT_MOE if replay else margin)
+                  or not card_shift <= shift_limit
                   or control_in >= control_total
                   or served_flips > noise_flips)
+    if routing is not None:
+        flips = torch.cat(routing.flips)
+        gap, diff = flips[:, 0], flips[:, 1]
+        line.update(routed_tokens=routing.n_choices,
+                    routing_flips=len(flips),
+                    routing_flip_max_gap=float(gap.max()) if len(flips)
+                    else None,
+                    routing_flip_max_gap_over_diff=float(
+                        (gap / diff.clamp_min(1e-30)).max()) if len(flips)
+                    else None)
+        failed = failed or bool((gap > 2 * diff).any())
     line.update(device="cuda, plain versions" if replay or plain_on_card
                 else "cpu",
                 seconds=time.perf_counter() - t0)
@@ -1634,13 +1776,17 @@ def _codes_against(name, card, other, w, x):
 
 
 def _norm_leaves(block):
-    """(norm path, leaf) of every tweakable leaf of a block's ln1, ln2 and
-    MLA's latent "attn/kvnorm": RMSNorm's "scale", LayerNorm's "scale" and
-    "bias"."""
+    """(norm path, leaf) of every tweakable leaf of a block's ln1, ln2 (a
+    mamba block without an MLP has none), MLA's latent "attn/kvnorm" and
+    a mamba block's gated "mamba/gnorm": RMSNorm's "scale", LayerNorm's
+    "scale" and "bias"."""
     from repro_torch.utils.tree import tree_get
 
-    norms = ["ln1", "ln2"] + (["attn/kvnorm"] if "kvnorm" in block["attn"]
-                              else [])
+    norms = ["ln1"] + (["ln2"] if "ln2" in block else [])
+    if "attn" in block and "kvnorm" in block["attn"]:
+        norms.append("attn/kvnorm")
+    if "mamba" in block:
+        norms.append("mamba/gnorm")
     return [(norm, leaf) for norm in norms
             for leaf in sorted(tree_get(block, norm))]
 
@@ -1720,8 +1866,9 @@ def check_pipeline(cfg, method, params, rec, layer0="cpu"):
         kernels.append("expert_" + kernels[0])
     n_packed = 0
     for block, layers in blocks:
-        paths = [f"attn/{nm}" for nm in ("wq", "wk", "wv", "wdkv", "wukv",
-                                         "wo") if nm in block["attn"]]
+        paths = ([f"attn/{nm}" for nm in ("wq", "wk", "wv", "wdkv", "wukv",
+                                          "wo") if nm in block["attn"]]
+                 if "attn" in block else MAMBA_LINEARS)
         for sub in ("moe/shared", "moe/experts", "mlp"):
             if _exists(block, sub):
                 # a GELU MLP (granite-20b) has no wg
@@ -1740,7 +1887,10 @@ def check_pipeline(cfg, method, params, rec, layer0="cpu"):
     # dense block's; of Mixtral's the attention linears and expert
     # CHECK_EXPERT's wi and wg
     first = blocks[0][0]
-    if "moe" in first:
+    if "mamba" in first:
+        checked = [(p, None) for p in MAMBA_LINEARS] + [
+            (f"mlp/{nm}", None) for nm in first.get("mlp", {})]
+    elif "moe" in first:
         checked = [(p, None) for p in ("attn/wq", "attn/wk", "attn/wv",
                                        "attn/wo")] + [
             ("moe/experts/wi", CHECK_EXPERT), ("moe/experts/wg",
@@ -3040,7 +3190,7 @@ def moe_paths(cfg):
         release()
     with phase("pipeline_moe_smoothquant"):
         params, out["pipeline_moe_smoothquant"] = pipeline_phase(
-            cfg, "smoothquant", "pipeline_moe_smoothquant")
+            cfg, "smoothquant", "pipeline_moe_smoothquant", layer0="card")
     with phase("serve_moe_w4a8"):
         engine, done, out["serve_moe_w4a8"] = serve(
             cfg, params, "serve_moe_w4a8", MOE_WORK)
@@ -3250,6 +3400,126 @@ def deepseek_paths():
     return out
 
 
+# --------------------------------------------------- mamba2 and Jamba
+#
+# Slice 14: Mamba2 (SSD) blocks and the attention/SSM hybrid. A mamba
+# block's in_proj and out_proj run the dense kernels (1, or 3 at W4A8);
+# its conv, SSD scan and gated norm are plain PyTorch, as the JAX
+# package's are plain jnp outside any kernel. Its recurrent state lives in
+# slot rows beside the page pools.
+
+def serve_ssm_phase(cfg, make_params, label, want_step, want_call,
+                    n_attn=0, deploy=None, measure_margin=False,
+                    pin_routing=False, **kw):
+    """``make_params()`` served on ``kw``'s workload (LLAMA_WORK unless
+    ``work`` is given), packed by the engine's deploy with ``kw``'s
+    quant_bits or already packed. Asserted: the served tokens against
+    ``replay_served`` with every kernel's plain version on the card (with
+    ``measure_margin`` at the margin measured in the run), every decode
+    step's launches (``want_step``) and every prefill call's
+    (``want_call``: the dense kernel's count first, then any other
+    kernel's) exactly, and the deploy's quantize-pack launches; with
+    ``pin_routing`` the replay takes the served run's expert choices
+    (``Routing``). Prints the
+    phase's own peak of device memory (init, deploy, run and check).
+    Returns the path's metrics."""
+    work = kw.pop("work", LLAMA_WORK)
+    torch.cuda.reset_peak_memory_stats()
+    routing = Routing() if pin_routing else None
+    with (routing.recording() if routing is not None
+          else contextlib.nullcontext()):
+        engine, done, stats = serve(cfg, make_params(), label, work, **kw)
+    check_against_plain(cfg, engine, done, measure_margin=measure_margin,
+                        replay=True, routing=routing)
+    assert_decode_launches(stats, want_step)
+    dense, n_lin = next(iter(want_call.items()))
+    stats["by_call"] = assert_call_launches(
+        stats, dense, n_lin, n_attn,
+        prefill_extra={k: v for k, v in want_call.items() if k != dense})
+    if deploy is not None:
+        assert_deploy_launches(stats, want=deploy)
+    stats["phase_peak_mem_gib"] = max(
+        stats["setup_peak_mem_gib"],
+        torch.cuda.max_memory_allocated() / 2**30)
+    print("serve_calls", json.dumps(dict(
+        path=label, phase_peak_mem_gib=stats["phase_peak_mem_gib"],
+        **stats["by_call"])))
+    del engine, done, stats["call_records"]
+    return stats
+
+
+def mamba_paths():
+    """The mamba2-2.7b paths; returns their metrics by path name. Each
+    decode step and each prefill call launches the dense kernel once for
+    each of a layer's two linears, 128 at 64 layers, and no paged read."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+
+    m2 = get_config("mamba2-2.7b")
+    out = {}
+    n_lin = 2 * m2.n_repeats
+    # W4 at 64 layers is held to the measured margin, as deepseek's W4 at
+    # depth: the kernels' bf16 sums and the plain versions' part by more
+    # than MARGIN at the top of 64 layers of recurrence (one of 667
+    # positions at a top-2 gap of 0.075; H100, 700 W)
+    with phase("serve_mamba2_w4"):
+        out["serve_mamba2_w4"] = serve_ssm_phase(
+            m2, lambda: init_lm(m2, seed=SEED, device="cuda"),
+            "serve_mamba2_w4", {"dequant_matmul": n_lin},
+            {"dequant_matmul": n_lin}, deploy=2, measure_margin=True,
+            quant_bits=4, quant_group=128)
+        release()
+    # GPTQ W4 g128 + NT at the launcher's 8 x 32 calibration, layer 0
+    # again on the card with every kernel's plain version; ln1 and the
+    # gated norm gnorm of every layer moved by the tweak
+    cfg = m2.replace(n_repeats=MAMBA2_PIPE_LAYERS)
+    with phase("pipeline_mamba2_gptq"):
+        params, out["pipeline_mamba2_gptq"] = pipeline_phase(
+            cfg, "gptq", "pipeline_mamba2_gptq", layer0="card")
+        del params
+        release()
+    cfg = m2.replace(n_repeats=MAMBA2_SQ_LAYERS)
+    with phase("pipeline_mamba2_smoothquant"):
+        params, out["pipeline_mamba2_smoothquant"] = pipeline_phase(
+            cfg, "smoothquant", "pipeline_mamba2_smoothquant",
+            layer0="card")
+    n_lin = 2 * cfg.n_repeats
+    with phase("serve_mamba2_w4a8"):
+        out["serve_mamba2_w4a8"] = serve_ssm_phase(
+            cfg, lambda: params, "serve_mamba2_w4a8",
+            {"w8a8_matmul": n_lin}, {"w8a8_matmul": n_lin},
+            measure_margin=True)
+        del params
+        release()
+    return out
+
+
+def jamba_paths():
+    """Jamba-1.5-Large at published widths, layers 4-5 of its period:
+    per decode step and prefill call the dense kernel on the attention
+    layer's wq, wk, wv, wo, its MLP's wi, wg, wo and the mamba layer's
+    in_proj and out_proj (9), the expert kernel on the MoE's wi, wg, wo
+    (3), and a decode step's one paged read; the deploy packs 12 stacked
+    linears."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+
+    jb = get_config("jamba-1.5-large-398b")
+    cfg = jb.replace(pattern=jb.pattern[JAMBA_PERIOD_CUT], n_repeats=1)
+    out = {}
+    with phase("serve_jamba_w4"):
+        out["serve_jamba_w4"] = serve_ssm_phase(
+            cfg, lambda: init_lm(cfg, seed=SEED, device="cuda"),
+            "serve_jamba_w4",
+            {"dequant_matmul": 9, "expert_dequant_matmul": 3,
+             "paged_attention": 1},
+            {"dequant_matmul": 9, "expert_dequant_matmul": 3}, n_attn=1,
+            deploy=12, pin_routing=True, work=JAMBA_WORK, quant_bits=4,
+            quant_group=128)
+        release()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3303,6 +3573,11 @@ def main() -> int:
           f"{time.perf_counter() - t_all:.1f} s")
     paths.update(deepseek_paths())
     print(f"deepseek-v2-lite-16b paths done: "
+          f"{time.perf_counter() - t_all:.1f} s")
+    paths.update(mamba_paths())
+    print(f"mamba2-2.7b paths done: {time.perf_counter() - t_all:.1f} s")
+    paths.update(jamba_paths())
+    print(f"jamba-1.5-large-398b paths done: "
           f"{time.perf_counter() - t_all:.1f} s")
 
     # each entry's times are at the shape its path runs most: for the

@@ -12,7 +12,9 @@ any linear, packed or float, and its latent norm "kvnorm" as any norm; an MoE's 
 stacks come across as tensors, its packed experts as (E, K, N) or
 layer-stacked (L, E, K, N) ``QuantizedTensor`` leaves. Every other leaf
 comes across as it is: the learned position table ("pos"), the linears'
-biases ("b"), the norms' "scale" and LayerNorm "bias". Packed bytes are
+biases ("b"), the norms' "scale" and LayerNorm "bias", and a mamba
+block's f32 "conv_w", "conv_b", "A_log", "D", "dt_bias" and its gated
+norm "gnorm/scale". Packed bytes are
 taken as they are, and ``act_bits`` (8: the W8A8 path) is carried across,
 so a tree packed by either package runs in the other.
 ``params_to_numpy`` is the way back: the same key paths as numpy arrays,

@@ -9,7 +9,9 @@ _MODULES = {
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "granite-20b": "repro_torch.configs.granite_20b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
 }

@@ -7,7 +7,9 @@ greedily, so the generated text both activates the model's "neurons" and
 stays coherent. ``allowed_first`` restricts the first token (the paper's
 language-scope restriction). Random draws come from an explicit
 ``torch.Generator``: the same distributions as the JAX package's
-``jax.random`` draws, never the same bits.
+``jax.random`` draws, never the same bits. Generation decodes token by
+token on a contiguous cache, which carries a mamba layer's recurrent
+state as it carries attention's KV.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Norm-Tweaking PTQ pipeline — the paper's Algorithm 1 (port of
-``repro.core.normtweak.pipeline``, decoder-only LMs, dense or MoE).
+``repro.core.normtweak.pipeline``, decoder-only LMs: dense, MoE, MLA,
+Mamba2 and attention/Mamba hybrids).
 
 Layer-by-layer over the model, the prefix blocks (DeepSeek's dense first
 layer) first, then the repeats:
@@ -21,7 +22,10 @@ dequant matmul, or the W8A8 matmul when ``act_bits == 8``, and their
 expert-batched forms for an MoE block's experts — and the tweak
 differentiates through them (models/linear.py says how). An MoE block's
 calibration taps are its router input and (E, C, d) capacity buffers;
-every call here is unpaged, so no token is masked out of routing. Set
+every call here is unpaged, so no token is masked out of routing. A
+mamba block's taps are "mamba/in_proj" and "mamba/out_proj" (the gated
+norm's output); its tweak moves "ln1" and the gated norm "gnorm" (and
+"ln2" under an MLP or MoE) through autograd over the SSD scan. Set
 ``tweak=False`` for the plain quantizer baseline.
 
 Beside the JAX package's per-layer loss and LR, ``stats`` records each

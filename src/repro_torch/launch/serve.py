@@ -55,7 +55,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.transformer import init_lm
 from repro_torch.serve import traffic
 from repro_torch.serve.engine import (ContinuousEngine, ServeEngine,
-                                      mla_refusal)
+                                      attention_only_refusal)
 from repro_torch.serve.faults import FaultPlan, run_resilient
 
 # flag -> (its default, the later slice that brings it; ROADMAP.md queue 1)
@@ -356,10 +356,10 @@ def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    why = mla_refusal(cfg, preempt=args.preempt,
-                      prefix_share=args.prefix_share,
-                      chunked_prefill=args.chunked_prefill,
-                      spec_decode=args.spec_decode)
+    why = attention_only_refusal(cfg, preempt=args.preempt,
+                                 prefix_share=args.prefix_share,
+                                 chunked_prefill=args.chunked_prefill,
+                                 spec_decode=args.spec_decode)
     if why and args.engine != "static":
         raise SystemExit(f"--arch {args.arch}: {why}")
     params, stats = build_params(cfg, args, device)

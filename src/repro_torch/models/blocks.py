@@ -1,5 +1,5 @@
-"""Transformer block: attention (GQA or MLA) plus a dense MLP or an MoE
-(port of ``repro.models.blocks``)."""
+"""Transformer / Mamba block: attention (GQA or MLA) or a Mamba2 mixer,
+then a dense MLP, an MoE or nothing (port of ``repro.models.blocks``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,6 +9,8 @@ import torch
 from repro_torch.models.attention import (apply_attention, init_attention,
                                           init_kv_cache, init_paged_kv_cache)
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.mamba2 import (apply_mamba, init_mamba,
+                                       init_mamba_cache)
 from repro_torch.models.mla import (apply_mla, init_mla, init_mla_cache,
                                     init_paged_mla_cache)
 from repro_torch.models.mlp_moe import apply_mlp, apply_moe, init_mlp, init_moe
@@ -18,22 +20,31 @@ from repro_torch.serve.kvcache import PageSpec
 
 def init_block(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
                device) -> dict:
-    attn = init_mla if cfg.attention == "mla" else init_attention
-    p = {"ln1": init_norm(cfg, cfg.d_model, device),
-         "attn": attn(cfg, gen, device),
-         "ln2": init_norm(cfg, cfg.d_model, device)}
+    p = {"ln1": init_norm(cfg, cfg.d_model, device)}
+    if spec.kind == "mamba":
+        p["mamba"] = init_mamba(cfg, gen, device)
+    else:
+        attn = init_mla if cfg.attention == "mla" else init_attention
+        p["attn"] = attn(cfg, gen, device)
+    if spec.mlp != "none":
+        p["ln2"] = init_norm(cfg, cfg.d_model, device)
     if spec.mlp == "moe":
         p["moe"] = init_moe(cfg, gen, device)
-    else:
+    elif spec.mlp == "dense":
         p["mlp"] = init_mlp(cfg, gen, cfg.d_ff, device)
     return p
 
 
-def init_block_cache(cfg: ModelConfig, device, n_layers: int, *,
-                     paged: Optional[PageSpec] = None, batch: int = 0,
-                     max_len: int = 0) -> dict:
-    """One attention kind's caches for ``n_layers`` stacked blocks: page
-    pools with ``paged``, else contiguous caches of (batch, max_len)."""
+def init_block_cache(cfg: ModelConfig, spec: LayerSpec, device,
+                     n_layers: int, *, paged: Optional[PageSpec] = None,
+                     batch: int = 0, max_len: int = 0) -> dict:
+    """One layer kind's caches for ``n_layers`` stacked blocks: an
+    attention layer's page pools with ``paged``, else its contiguous
+    caches of (batch, max_len); a mamba layer's recurrent state of
+    ``batch`` rows either way (the serving slots with ``paged``: the
+    state is slot-indexed, never paged)."""
+    if spec.kind == "mamba":
+        return init_mamba_cache(cfg, batch, device, n_layers=n_layers)
     if paged is not None:
         if cfg.attention == "mla":
             return init_paged_mla_cache(cfg, paged, device, n_layers)
@@ -66,15 +77,27 @@ def apply_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     "mlp/wo", "moe/router", "moe/experts", ...). Returns (x, aux): the
     MoE's load-balancing loss, a plain 0.0 for a dense block (no device
     op on the serving path). ``decode`` marks ``lm_decode``'s calls: MLA
-    then takes its absorbed form (GQA reads its cache alike either
-    way)."""
+    then takes its absorbed form, a mamba mixer its recurrent step (GQA
+    reads its cache alike either way). The layer's kind and MLP come from
+    its params: "mamba" or "attn", then "moe", "mlp" or neither (no
+    "ln2"). A mamba prefill on page pools writes its final state into
+    the rows of ``paged["slots"]``."""
     h = apply_norm(cfg, p["ln1"], x)
-    kw = dict(positions=positions, cache=cache, paged=paged, taps=taps,
-              tap_prefix=tap_prefix + "attn/")
-    if cfg.attention == "mla":
-        x = x + apply_mla(cfg, p["attn"], h, decode=decode, **kw)
+    if "mamba" in p:
+        x = x + apply_mamba(
+            cfg, p["mamba"], h, cache=cache, decode=decode,
+            positions=positions,
+            slots=None if paged is None else paged.get("slots"),
+            taps=taps, tap_prefix=tap_prefix + "mamba/")
     else:
-        x = x + apply_attention(cfg, p["attn"], h, **kw)
+        kw = dict(positions=positions, cache=cache, paged=paged, taps=taps,
+                  tap_prefix=tap_prefix + "attn/")
+        if cfg.attention == "mla":
+            x = x + apply_mla(cfg, p["attn"], h, decode=decode, **kw)
+        else:
+            x = x + apply_attention(cfg, p["attn"], h, **kw)
+    if "ln2" not in p:
+        return x, 0.0
     h2 = apply_norm(cfg, p["ln2"], x)
     if "moe" in p:
         y, aux = apply_moe(cfg, p["moe"], h2, taps, tap_prefix + "moe/",

@@ -2,9 +2,9 @@
 
 A plain-Python copy (the JAX module imports jax). It keeps the fields the
 ported slices use, with the JAX package's names and defaults, and
-``validate`` refuses what the port does not implement yet (Mamba,
-enc-dec, multimodal frontends, sinusoidal positions, the shard_map MoE)
-instead of running it wrong.
+``validate`` refuses what the port does not implement yet (enc-dec,
+multimodal frontends, sinusoidal positions, the shard_map MoE) instead of
+running it wrong.
 
 The layer stack is ``prefix_pattern`` (unstacked blocks, e.g. DeepSeek's
 first dense layer) followed by ``pattern`` repeated ``n_repeats`` times.
@@ -19,8 +19,8 @@ from typing import Optional
 class LayerSpec:
     """One layer of the repeating pattern."""
 
-    kind: str = "attn"        # "attn" (the only kind ported so far)
-    mlp: str = "dense"        # "dense" | "moe"
+    kind: str = "attn"        # "attn" | "mamba"
+    mlp: str = "dense"        # "dense" | "moe" | "none" (no ln2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +40,22 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2Config:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    d_conv: int = 4
+    n_groups: int = 1
+    chunk: int = 64             # SSD chunk length
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +84,7 @@ class ModelConfig:
     mlp_bias: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    mamba: Optional[Mamba2Config] = None
     enc_dec: bool = False       # not ported
     frontend: str = "none"      # not ported
     tie_embeddings: bool = False
@@ -99,11 +116,14 @@ class ModelConfig:
                              f"multiple of n_kv_heads {self.n_kv_heads}")
         unsupported = []
         specs = self.all_layer_specs()
-        if any(s.kind != "attn" or s.mlp not in ("dense", "moe")
-               for s in specs):
-            unsupported.append("non-attention layers or MLPs")
+        if any(s.kind not in ("attn", "mamba")
+               or s.mlp not in ("dense", "moe", "none") for s in specs):
+            unsupported.append("layer kinds other than attn/mamba or MLPs "
+                               "other than dense/moe/none")
         if any(s.mlp == "moe" for s in specs) and self.moe is None:
             raise ValueError(f"{self.name}: MoE layers need cfg.moe")
+        if any(s.kind == "mamba" for s in specs) and self.mamba is None:
+            raise ValueError(f"{self.name}: mamba layers need cfg.mamba")
         if self.moe_impl != "spmd":
             # the explicit all-to-all path exists only on a multi-device
             # mesh (ROADMAP.md queue 1, multi-device)

@@ -1,7 +1,8 @@
 """RMSNorm / LayerNorm — the paper's tweakable parameters (port of
 ``repro.models.norms``).
 
-Norm params live under keys starting with "ln" (and "final_norm") so the
+Norm params live under keys starting with "ln" (and "final_norm", "gnorm"
+for Mamba2's gated RMSNorm, "kvnorm" for MLA's latent norm) so the
 norm-tweaking pipeline can address exactly these leaves: RMSNorm's
 "scale", LayerNorm's "scale" and "bias".
 """
@@ -31,6 +32,15 @@ def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         ms = torch.mean(xf * xf, dim=-1, keepdim=True)
         y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def apply_gated_rmsnorm(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                        z: torch.Tensor) -> torch.Tensor:
+    """Mamba2 gated norm: RMSNorm(x * silu(z)) * scale, in f32."""
+    xf = x.to(torch.float32) * torch.nn.functional.silu(z.to(torch.float32))
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].to(torch.float32)
     return y.to(x.dtype)
 
 

@@ -6,7 +6,9 @@ blocks of ``cfg.prefix_pattern`` (DeepSeek's dense first layer) and the
 scan-stacked "stack/p0" blocks, whose leaves carry a leading layer dim.
 The JAX package scans over that dim; here ``_run_stack`` is a Python loop
 that runs the prefix blocks, then hands each stacked layer a view of its
-params and cache. The caches have the same "prefix" and "stack" subtrees;
+params and cache. A pattern may mix attention and mamba layers (Jamba);
+each position's cache is its layer kind's: page pools or contiguous KV
+for attention, slot-indexed recurrent state for mamba. The caches have the same "prefix" and "stack" subtrees;
 a prefix block's cache is a stack of one (leading dim 1), so every pool
 leaf has its page axis at 1. Per-layer access for the quantization
 pipeline goes through ``num_blocks`` / ``block_spec`` / ``get_block``, in
@@ -61,8 +63,11 @@ def _init_stacked(cfg: ModelConfig, spec, gen: torch.Generator,
     """``cfg.n_repeats`` blocks drawn in turn, each copied into its layer of
     the stacked leaves as it is drawn: the draws of ``tree_stack`` over a
     list of blocks, at a peak of the stack and one block (a 16-layer
-    DeepSeek stack is 35 GB in f32)."""
+    DeepSeek stack is 35 GB in f32). A stack of one is the block itself
+    with a leading dim, no copy (one Jamba MoE block is 38.7 GB)."""
     block = init_block(cfg, spec, gen, dev)
+    if cfg.n_repeats == 1:
+        return tree_map(lambda t: t.unsqueeze(0), block)
     stacked = tree_map(lambda t: t.new_empty((cfg.n_repeats,) + t.shape),
                        block)
     for r in range(cfg.n_repeats):
@@ -74,20 +79,29 @@ def _init_stacked(cfg: ModelConfig, spec, gen: torch.Generator,
 
 def _caches(cfg: ModelConfig, device, **kw) -> dict:
     """The "prefix" (one stack of one per prefix block) and "stack" cache
-    subtrees, each built by ``init_block_cache(..., **kw)``."""
+    subtrees, each built by ``init_block_cache`` for its position's layer
+    kind with ``**kw``."""
     cache = {}
     if cfg.prefix_pattern:
-        cache["prefix"] = {str(i): init_block_cache(cfg, device, 1, **kw)
-                           for i in range(len(cfg.prefix_pattern))}
-    cache["stack"] = {f"p{j}": init_block_cache(cfg, device, cfg.n_repeats,
-                                                **kw)
-                      for j in range(len(cfg.pattern))}
+        cache["prefix"] = {str(i): init_block_cache(cfg, spec, device, 1,
+                                                    **kw)
+                           for i, spec in enumerate(cfg.prefix_pattern)}
+    cache["stack"] = {f"p{j}": init_block_cache(cfg, spec, device,
+                                                cfg.n_repeats, **kw)
+                      for j, spec in enumerate(cfg.pattern)}
     return cache
 
 
-def init_cache(cfg: ModelConfig, spec: PageSpec, device) -> dict:
-    """Page pools for the continuous-batching engine."""
-    return _caches(cfg, device, paged=spec)
+def init_cache(cfg: ModelConfig, spec: PageSpec, device,
+               n_slots: int = 0) -> dict:
+    """Page pools for the continuous-batching engine; a mamba layer's
+    recurrent state has one row per slot (``n_slots``, which a model with
+    mamba layers needs)."""
+    if n_slots <= 0 and any(s.kind == "mamba"
+                            for s in cfg.all_layer_specs()):
+        raise ValueError(f"{cfg.name}: mamba layers keep per-slot state; "
+                         f"pass n_slots")
+    return _caches(cfg, device, paged=spec, batch=n_slots)
 
 
 def init_contiguous_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -178,7 +192,8 @@ def lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                paged: Optional[dict] = None) -> torch.Tensor:
     """Prompt ingestion into the cache. tokens, positions (B, S), pads left
     with position -1 so the real last token sits at index -1. With page
-    pools, paged holds the slots' block-table rows ("bt_rows") and, for a
+    pools, paged holds the slots' block-table rows ("bt_rows"), the slots
+    themselves ("slots": the rows a mamba layer's state lands in) and, for a
     later chunk or a suffix after shared prefix pages, the fill counts
     after this call ("kv_len"); without ``paged`` the cache is contiguous
     (``init_contiguous_cache``, the static engine's). Returns the logits of

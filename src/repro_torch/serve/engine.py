@@ -57,9 +57,14 @@ is not ported.
 MLA (DeepSeek) keeps a latent cache, c_kv and k_pe, in its pools, and
 its decode reads them by a gather and plain f32 einsums, as in the JAX
 package: the paged kernel is not on its path. Its prefill attends to the
-chunk alone, so the engine refuses on it what would prefill after
-context — ``preempt``, ``prefix_share``, ``chunked_prefill`` and
-``spec_decode`` — with the JAX engine's messages (``mla_refusal``).
+chunk alone. A mamba layer (mamba2, Jamba) keeps its recurrent state in
+slot-indexed rows beside the pools, never paged: a prefill chunk writes
+each request's final state into its slot's row (``paged["slots"]``), and
+every decode step steps every slot's state, idle slots included, as in
+the JAX package (admission's prefill overwrites the row). So on both the
+engine refuses what would resume from pages or rewind — ``preempt``,
+``prefix_share``, ``chunked_prefill`` and ``spec_decode`` — with the JAX
+engine's messages (``attention_only_refusal``).
 """
 from __future__ import annotations
 
@@ -398,15 +403,20 @@ def _spec_round(cfg: ModelConfig, params: dict, draft_params: dict,
     return out, torch.where(active, n_emit, 0)
 
 
-def mla_refusal(cfg: ModelConfig, *, preempt: bool = False,
-                prefix_share: bool = False, chunked_prefill: int = 0,
-                spec_decode: bool = False) -> Optional[str]:
+def attention_only_refusal(cfg: ModelConfig, *, preempt: bool = False,
+                           prefix_share: bool = False,
+                           chunked_prefill: int = 0,
+                           spec_decode: bool = False) -> Optional[str]:
     """Why the engine refuses these features on ``cfg``, or None: the JAX
-    package's refusals for MLA, word for word. MLA's non-absorbed prefill
-    attends to the chunk alone, so a later chunk, a suffix after shared
-    pages, a preempted request resumed mid-prefill and a speculative
-    verify would all be silently wrong."""
-    if cfg.attention != "mla":
+    package's refusals for models with a non-attention (SSM) layer or MLA,
+    word for word. An SSM layer's recurrent state is slot-indexed, not
+    page-addressed: a spill of pages, a shared page or a later chunk
+    carries none of it, and a speculative verify cannot rewind it. MLA's
+    non-absorbed prefill attends to the chunk alone, so a later chunk, a
+    suffix after shared pages, a preempted request resumed mid-prefill and
+    a speculative verify would all be silently wrong."""
+    has_ssm = any(s.kind != "attn" for s in cfg.all_layer_specs())
+    if not has_ssm and cfg.attention != "mla":
         return None
     if preempt:
         return ("preempt covers attention-only decoders (no SSM blocks, "
@@ -468,9 +478,9 @@ class ContinuousEngine:
                  faults: Optional[FaultPlan] = None, debug: bool = False,
                  device="cuda"):
         cfg.validate()
-        why = mla_refusal(cfg, preempt=preempt, prefix_share=prefix_share,
-                          chunked_prefill=chunked_prefill,
-                          spec_decode=spec_decode)
+        why = attention_only_refusal(
+            cfg, preempt=preempt, prefix_share=prefix_share,
+            chunked_prefill=chunked_prefill, spec_decode=spec_decode)
         if why:
             raise NotImplementedError(why)
         self.device = resolve_device(device)
@@ -534,9 +544,10 @@ class ContinuousEngine:
                                age_promote=age_promote,
                                preempt_hook=(self._spill_slot
                                              if self.preempt else None))
-        self.cache = init_cache(cfg, self.spec, self.device)
+        self.cache = init_cache(cfg, self.spec, self.device, n_slots)
         if self.spec_decode:
-            self.draft_cache = init_cache(cfg, self.spec, self.device)
+            self.draft_cache = init_cache(cfg, self.spec, self.device,
+                                          n_slots)
         # host mirrors are int32, the dtype the device steps consume
         self.cur_len = np.zeros(n_slots, np.int32)   # tokens in cache
         self.last_tok = np.zeros(n_slots, np.int32)  # next token to feed
@@ -1026,18 +1037,20 @@ class ContinuousEngine:
             pos[row, padded - n:] = np.arange(start, end, dtype=np.int32)
         slots = [slot for slot, _, _, _ in items]
         dev = self.device
+        # the slots, where a mamba layer writes each row's final state
+        paged = {"slots": torch.tensor(slots, dtype=torch.int32, device=dev)}
         if has_ctx:
             # the pow2 read width over the deepest chunk end: the walk
             # scales with the fill, not the provisioned max_len
             kv_end = [end for _, _, _, end in items]
             width = self._read_width(max(kv_end))
-            paged = {"bt_rows": torch.tensor(self.pool.tables[slots, :width],
-                                             dtype=torch.int32, device=dev),
-                     "kv_len": torch.tensor(kv_end, dtype=torch.int32,
-                                            device=dev)}
+            paged["bt_rows"] = torch.tensor(self.pool.tables[slots, :width],
+                                            dtype=torch.int32, device=dev)
+            paged["kv_len"] = torch.tensor(kv_end, dtype=torch.int32,
+                                           device=dev)
         else:
-            paged = {"bt_rows": torch.tensor(self.pool.tables[slots],
-                                             dtype=torch.int32, device=dev)}
+            paged["bt_rows"] = torch.tensor(self.pool.tables[slots],
+                                            dtype=torch.int32, device=dev)
         toks_d = torch.tensor(toks, device=dev)
         pos_d = torch.tensor(pos, device=dev)
         logits = lm_prefill(self.cfg, self.params, toks_d, self.cache, pos_d,

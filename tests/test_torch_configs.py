@@ -1,9 +1,10 @@
 """The port's copies of ModelConfig, TINY and the CONFIG/SMOKE pairs of
-llama3.2-1b, mixtral-8x22b, qwen2-0.5b, chatglm3-6b, granite-20b and
-deepseek-v2-lite-16b equal the JAX package's field for field, on the
-fields the port keeps (deepseek's ``moe_impl`` aside: the JAX package's
-shard_map dispatch runs only under a multi-device mesh, and the port
-keeps the spmd dispatch it runs on one device)."""
+llama3.2-1b, mixtral-8x22b, qwen2-0.5b, chatglm3-6b, granite-20b,
+deepseek-v2-lite-16b, mamba2-2.7b and jamba-1.5-large-398b equal the JAX
+package's field for field, on the fields the port keeps (deepseek's and
+Jamba's ``moe_impl`` aside: the JAX package's shard_map dispatch runs
+only under a multi-device mesh, and the port keeps the spmd dispatch it
+runs on one device)."""
 import dataclasses
 
 import pytest
@@ -12,14 +13,18 @@ import repro.configs as jc
 from repro.configs import chatglm3_6b as jglm
 from repro.configs import deepseek_v2_lite_16b as jds
 from repro.configs import granite_20b as jgranite
+from repro.configs import jamba_1_5_large_398b as jjamba
 from repro.configs import llama3_2_1b as jllama
+from repro.configs import mamba2_2_7b as jmamba
 from repro.configs import mixtral_8x22b as jmix
 from repro.configs import qwen2_0_5b as jqwen
 from repro_torch import configs as tc
 from repro_torch.configs import chatglm3_6b as tglm
 from repro_torch.configs import deepseek_v2_lite_16b as tds
 from repro_torch.configs import granite_20b as tgranite
+from repro_torch.configs import jamba_1_5_large_398b as tjamba
 from repro_torch.configs import llama3_2_1b as tllama
+from repro_torch.configs import mamba2_2_7b as tmamba
 from repro_torch.configs import mixtral_8x22b as tmix
 from repro_torch.configs import qwen2_0_5b as tqwen
 from repro_torch.configs.registry import list_archs
@@ -32,9 +37,10 @@ def _same(tcfg, jcfg):
         if f.name in ("pattern", "prefix_pattern"):
             assert [(s.kind, s.mlp) for s in tv] == \
                 [(s.kind, s.mlp) for s in jv]
-        elif f.name in ("moe", "mla") and tv is not None:
+        elif f.name in ("moe", "mla", "mamba") and tv is not None:
             assert dataclasses.asdict(tv) == dataclasses.asdict(jv)
-        elif f.name == "moe_impl" and jcfg.name == "deepseek-v2-lite-16b":
+        elif f.name == "moe_impl" and jcfg.name in ("deepseek-v2-lite-16b",
+                                                    "jamba-1.5-large-398b"):
             assert (tv, jv) == ("spmd", "shard_map")
         else:
             assert tv == jv, f.name
@@ -56,6 +62,11 @@ def _same(tcfg, jcfg):
     (tds.CONFIG, jds.CONFIG), (tds.SMOKE, jds.SMOKE),
     (tc.get_smoke_config("deepseek-v2-lite-16b"),
      jc.get_smoke_config("deepseek-v2-lite-16b")),
+    (tmamba.CONFIG, jmamba.CONFIG), (tmamba.SMOKE, jmamba.SMOKE),
+    (tc.get_smoke_config("mamba2-2.7b"), jc.get_smoke_config("mamba2-2.7b")),
+    (tjamba.CONFIG, jjamba.CONFIG), (tjamba.SMOKE, jjamba.SMOKE),
+    (tc.get_smoke_config("jamba-1.5-large-398b"),
+     jc.get_smoke_config("jamba-1.5-large-398b")),
 ])
 def test_configs_match_jax(pair):
     _same(*pair)
@@ -78,7 +89,10 @@ def test_unported_features_refused():
     dict(act="relu"), dict(rope="yarn"),
 ])
 def test_other_unported_features_refused(change):
-    with pytest.raises(NotImplementedError):
+    # a mamba layer is ported: without cfg.mamba it is an error of the
+    # config, as in the JAX package
+    exc = ValueError if "pattern" in change else NotImplementedError
+    with pytest.raises(exc):
         tc.TINY.replace(**change).validate()
 
 
@@ -108,3 +122,24 @@ def test_mla_accepted(name):
         [(s.kind, s.mlp) for s in jcfg.all_layer_specs()]
     with pytest.raises(ValueError, match="cfg.mla"):
         cfg.replace(mla=None).validate()
+
+
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_ssm_and_hybrid_accepted(name):
+    """Mamba2 blocks, mlp="none" and attention/mamba interleaves pass
+    ``validate``; the launcher's --arch lists each arch; the layer kinds
+    and order are the JAX package's; a mamba layer without ``cfg.mamba``
+    is an error of the config, as in the JAX package. Whisper, InternVL2
+    and sinusoidal positions stay refused."""
+    assert name in list_archs()
+    cfg = tc.get_config(name)
+    cfg.validate()
+    tc.get_smoke_config(name).validate()
+    jcfg = jc.get_config(name)
+    assert cfg.n_layers == jcfg.n_layers
+    assert [(s.kind, s.mlp) for s in cfg.all_layer_specs()] == \
+        [(s.kind, s.mlp) for s in jcfg.all_layer_specs()]
+    with pytest.raises(ValueError, match="cfg.mamba"):
+        cfg.replace(mamba=None).validate()
+    for other in ("whisper-medium", "internvl2-2b"):
+        assert other not in list_archs()

@@ -1186,3 +1186,165 @@ def test_mla_on_the_card_matches_the_cpu(gen, packed, block_kv):
     # in the prefill, wq, wdkv and wo in each of the 3 decode steps
     assert ops.launch_counts()["dequant_matmul"] == (4 + 3 * 3 if packed
                                                      else 0)
+
+
+# kernels 1 and 3 on mamba2-2.7b's in_proj (2560 x 10576: N = 16 x 661, no
+# multiple of 32, so the streaming body's and the tile's last strips are
+# ragged) at a decode M and a 256-token prefill, and its out_proj (5120 x
+# 2560), W4 g128 (kernel 1) and per-channel (kernel 3)
+@pytest.mark.parametrize("m,k,n", [(8, 2560, 10576), (256, 2560, 10576),
+                                   (8, 5120, 2560)])
+@pytest.mark.parametrize("act_bits", [0, 8])
+def test_mamba2_linears_match_plain(gen, m, k, n, act_bits):
+    from repro_torch.core.quant.types import quantize_activation, unpack
+    from repro_torch.kernels.w8a8_matmul import w8a8_matmul_cuda
+
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    if act_bits:
+        qt = quantize(w, 4, -1, act_bits=8)
+        xq, _ = quantize_activation(x)
+        kw = dict(bits=4, group_size=-1, k=k)
+        got = w8a8_matmul_cuda(xq, qt.qw, qt.scale, **kw)
+        want = ref.w8a8_matmul_ref(xq, qt.qw, qt.scale, **kw)
+        # exact group sums rescaled alike, f32 sums in another order
+        wabs = unpack(qt.qw, 4, k).abs().double() * qt.scale.double()
+        bound = 1e-5 * float((xq.double().abs() @ wabs).max())
+    else:
+        qt = quantize(w, 4, 128)
+        kw = dict(bits=4, group_size=128, k=k)
+        got = dequant_matmul_cuda(x, qt.qw, qt.scale, **kw)
+        want = ref.dequant_matmul_ref(x, qt.qw, qt.scale, **kw)
+        bound = 4e-5 * float((x.to(torch.bfloat16).float().abs()
+                              @ dequantize(qt).to(torch.bfloat16).float()
+                              .abs()).max())
+    assert got.shape == (m, n)
+    assert float((got - want).abs().max()) <= bound
+
+
+# kernel 4 on Jamba's expert shapes (wi / wg 8192 x 24576, wo 24576 x
+# 8192) at its decode capacity, two experts, W4 g128
+@pytest.mark.parametrize("k,n", [(8192, 24576), (24576, 8192)])
+def test_jamba_experts_match_plain(gen, k, n):
+    from repro_torch.kernels.expert_dequant_matmul import (
+        expert_dequant_matmul_cuda)
+
+    x, qt = _expert_case(gen, 2, 8, k, n, 4, 128)
+    kw = dict(bits=4, group_size=128, k=k)
+    got = expert_dequant_matmul_cuda(x, qt.qw, qt.scale, **kw)
+    want = ref.expert_dequant_matmul_ref(x, qt.qw, qt.scale, **kw)
+    bound = 4e-5 * float(torch.matmul(
+        x.to(torch.bfloat16).float().abs(),
+        dequantize(qt).to(torch.bfloat16).float().abs()).max())
+    assert float((got - want).abs().max()) <= bound
+    assert torch.all(got[:, -1] == 0)
+
+
+# kernel 6 on mamba2-2.7b's in_proj stack (N 10576: no multiple of the
+# planner's 128-column tiles; 4 of its 64 layers) and out_proj
+@pytest.mark.parametrize("shape", [(4, 2560, 10576), (5120, 2560)])
+def test_mamba2_quantize_pack_matches_plain(gen, shape):
+    from repro_torch.core.quant.types import compute_scales
+    from repro_torch.kernels.quantize_pack import quantize_pack_cuda
+
+    w = torch.randn(shape, generator=gen, device="cuda") / math.sqrt(
+        shape[-2])
+    scale = compute_scales(w, 4, 128)
+    got = quantize_pack_cuda(w, scale, bits=4)
+    assert torch.equal(got, ref.quantize_pack_ref(w, scale, bits=4))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_mamba_on_the_card_matches_the_cpu(gen, packed):
+    """``apply_mamba`` on the card (kernel 1 in the packed in_proj and
+    out_proj) against the port on the CPU: a left-padded slot-prefill of
+    two prompts into rows (2, 0) of a 3-row cache, then decode steps over
+    all three rows; outputs and the state, conv and len rows."""
+    from repro_torch.core.quant.deploy import (quantize_params_for_serving,
+                                               to_device)
+    from repro_torch.models import mamba2
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.utils.tree import tree_index
+
+    cfg = get_smoke_config("mamba2-2.7b")
+    p = init_lm(cfg, seed=0, device="cpu")["stack"]["p0"]["mamba"]
+    p = tree_index(p, 0)
+    p["dt_bias"] = 0.5 * torch.randn(p["dt_bias"].shape,
+                                     generator=torch.Generator().manual_seed(1))
+    if packed:
+        p = quantize_params_for_serving(cfg, p, bits=4, group_size=32,
+                                        device="cpu")
+    x = torch.randn((3, 19, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+    pos = torch.arange(19, dtype=torch.int32)[None].repeat(2, 1)
+    pos[1, :5] = -1
+    pos[1, 5:] = torch.arange(14)
+    out = {}
+    ops.reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        pd = to_device(p, torch.device(dev))
+        cache = tree_index(mamba2.init_mamba_cache(cfg, 3, dev, n_layers=1),
+                           0)
+        ys = [mamba2.apply_mamba(
+            cfg, pd, x[:2, :16].to(dev), positions=pos[:, :16].to(dev),
+            cache=cache,
+            slots=torch.tensor([2, 0], dtype=torch.int32, device=dev)).cpu()]
+        for t in range(16, 19):
+            ys.append(mamba2.apply_mamba(cfg, pd, x[:, t:t + 1].to(dev),
+                                         cache=cache, decode=True).cpu())
+        out[dev] = (ys, {k: v.cpu() for k, v in cache.items()})
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        assert float((a - b).abs().max()) <= (2e-4 if packed else 2e-5)
+    for key in ("state", "conv"):
+        assert float((out["cpu"][1][key] - out["cuda"][1][key])
+                     .abs().max()) <= 2e-5
+    assert torch.equal(out["cpu"][1]["len"], out["cuda"][1]["len"])
+    # in_proj and out_proj on kernel 1: the prefill and 3 decode steps
+    assert ops.launch_counts()["dequant_matmul"] == (2 * 4 if packed else 0)
+
+
+def _ssm_engines(arch, **engine_kw):
+    """``arch``'s SMOKE config served on the CPU and on the card: (tokens
+    by device, engines, the card run's launch counts, requests, cfg)."""
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.engine import ContinuousEngine
+
+    cfg = get_smoke_config(arch)
+    params = init_lm(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(4, 40))),
+             int(rng.integers(3, 12))) for _ in range(6)]
+    out, engines = {}, {}
+    for device in ("cpu", "cuda"):
+        eng = ContinuousEngine(cfg, params, n_slots=4, max_len=64,
+                               page_size=8, device=device, **engine_kw)
+        for i, (prompt, max_new) in enumerate(reqs):
+            eng.submit(prompt, max_new=max_new, arrival=float(i))
+        ops.reset_launch_counts()
+        out[device] = [r.tokens for r in eng.run(max_steps=500)]
+        engines[device] = eng
+        eng.pool.check_invariants()
+    return out, engines, ops.launch_counts(), reqs, cfg
+
+
+def test_mamba2_engine_on_the_card_matches_the_cpu(gen):
+    """mamba2 SMOKE served W4 g32 on the card (slot-prefill of co-batched
+    prompts, every slot's state stepped): tokens as the CPU's but at
+    near-ties, kernel 1 launched and no paged read."""
+    out, eng, counts, reqs, cfg = _ssm_engines(
+        "mamba2-2.7b", prefill_bucket=8, prefill_batch=2, quant_bits=4,
+        quant_group=32)
+    assert counts["dequant_matmul"] > 0 and counts["paged_attention"] == 0
+    _agree_but_near_ties(cfg, eng["cpu"].params, reqs, out["cpu"],
+                         out["cuda"])
+
+
+def test_jamba_engine_on_the_card_matches_the_cpu(gen):
+    """Jamba SMOKE (float) served on the card at the reference's hybrid
+    case (prefill_bucket 1, prefill_batch 1): the attention layer's paged
+    read on kernel 2 beside the mamba layers' slot rows; the CPU's tokens
+    (full-f32 products on both)."""
+    out, eng, counts, reqs, cfg = _ssm_engines(
+        "jamba-1.5-large-398b", prefill_bucket=1, prefill_batch=1)
+    assert counts["paged_attention"] > 0
+    assert out["cuda"] == out["cpu"]
