@@ -1,6 +1,7 @@
 """Norm-Tweaking PTQ pipeline — the paper's Algorithm 1 (port of
-``repro.core.normtweak.pipeline``, decoder-only LMs: dense, MoE, MLA,
-Mamba2 and attention/Mamba hybrids).
+``repro.core.normtweak.pipeline``: decoder-only LMs — dense, MoE, MLA,
+Mamba2, attention/Mamba hybrids and a VLM's patch-prefixed sequences —
+and whisper's encoder-decoder, ``norm_tweak_ptq_encdec``).
 
 Layer-by-layer over the model, the prefix blocks (DeepSeek's dense first
 layer) first, then the repeats:
@@ -25,7 +26,14 @@ calibration taps are its router input and (E, C, d) capacity buffers;
 every call here is unpaged, so no token is masked out of routing. A
 mamba block's taps are "mamba/in_proj" and "mamba/out_proj" (the gated
 norm's output); its tweak moves "ln1" and the gated norm "gnorm" (and
-"ln2" under an MLP or MoE) through autograd over the SSD scan. Set
+"ln2" under an MLP or MoE) through autograd over the SSD scan. An
+enc-dec decoder block's cross-attention taps "xattn/wk" and "xattn/wv"
+are the encoder output, and its tweak moves "lnx" beside ln1 and ln2.
+Two behaviours of the JAX package are kept as they are: every block runs
+causally here, an encoder block too (``encode`` runs it non-causally),
+and the tweak's loss runs a decoder block without the encoder output, so
+its cross sub-layer attends over its own normed input (while the float
+stream, the taps and the qX advance read the encoder output). Set
 ``tweak=False`` for the plain quantizer baseline.
 
 Beside the JAX package's per-layer loss and LR, ``stats`` records each
@@ -45,8 +53,10 @@ from repro_torch.core.normtweak.schedule import layer_lr
 from repro_torch.core.quant.blockquant import quantize_block
 from repro_torch.models.blocks import apply_block
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.norms import is_norm_path
-from repro_torch.models.transformer import _embed, get_block, num_blocks
+from repro_torch.models.encdec import dec_config, enc_config, encoder_input
+from repro_torch.models.norms import apply_norm, is_norm_path
+from repro_torch.models.transformer import (_arange_positions, _embed,
+                                            get_block, num_blocks)
 from repro_torch.optim.adam import adam_init, adam_update
 from repro_torch.utils.tree import (tree_map, tree_merge, tree_partition,
                                     tree_stack)
@@ -127,12 +137,16 @@ def tweak_block(cfg: ModelConfig, qbp: dict, qx: torch.Tensor,
 
 
 def tweak_layers(cfg: ModelConfig, blocks: list, x0: torch.Tensor,
-                 nt: NTConfig, *, layer_offset: int = 0,
+                 nt: NTConfig, *, enc_out: Optional[torch.Tensor] = None,
+                 layer_offset: int = 0,
                  total_layers: Optional[int] = None,
                  log: Optional[Callable[[str], None]] = None):
     """Core loop over an ordered list of blocks. Returns (qblocks, qX,
     stats). x0: (n_samples, seq, d) activations entering the first
-    block."""
+    block; ``enc_out`` (n_samples, enc_len, d): the encoder output an
+    enc-dec decoder's cross-attention reads in the block applies (not in
+    the tweak's loss, as in the JAX package). Eq. 3's lr takes layer
+    ``layer_offset + i`` of ``total_layers``."""
     total_layers = total_layers or len(blocks)
     n, s, _ = x0.shape
     positions = torch.arange(s, dtype=torch.int32,
@@ -153,13 +167,14 @@ def tweak_layers(cfg: ModelConfig, blocks: list, x0: torch.Tensor,
         step = n if "moe" in bp else max(1, APPLY_TOKENS // s)
         if step >= n:
             return apply_block(cfg, bp, x, positions=positions,
-                               taps=taps)[0]
+                               enc_out=enc_out, taps=taps)[0]
         outs, parts = [], {}
         for s0 in range(0, n, step):
             ctaps = None if taps is None else {}
-            outs.append(apply_block(cfg, bp, x[s0:s0 + step],
-                                    positions=positions[s0:s0 + step],
-                                    taps=ctaps)[0])
+            outs.append(apply_block(
+                cfg, bp, x[s0:s0 + step], positions=positions[s0:s0 + step],
+                enc_out=None if enc_out is None else enc_out[s0:s0 + step],
+                taps=ctaps)[0])
             for key, t in (ctaps or {}).items():
                 parts.setdefault(key, []).append(t)
         joined = {}
@@ -226,15 +241,45 @@ def _restack(cfg: ModelConfig, params: dict, qblocks: list) -> dict:
 
 def norm_tweak_ptq(cfg: ModelConfig, params: dict,
                    calib_tokens: torch.Tensor, nt: NTConfig,
+                   ext_embeds: Optional[torch.Tensor] = None,
                    log: Optional[Callable[[str], None]] = None):
     """Quantize a decoder-only LM with Norm-Tweaking. Returns (qparams,
     stats). calib_tokens: (n_samples, token_length) on the params' device
     — the paper uses 128 x 2048 self-generated samples (see
-    core/calibration)."""
-    n, s = calib_tokens.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=calib_tokens.device)[None].expand(n, s)
-    x0 = _embed(cfg, params, calib_tokens, positions)
+    core/calibration); ``ext_embeds`` (n_samples, P, d): a VLM's patch
+    embeddings ahead of each sample's tokens."""
+    positions = _arange_positions(calib_tokens, ext_embeds)
+    x0 = _embed(cfg, params, calib_tokens, positions, ext_embeds)
     blocks = [get_block(cfg, params, i) for i in range(num_blocks(cfg))]
     qblocks, _, stats = tweak_layers(cfg, blocks, x0, nt, log=log)
     return _restack(cfg, params, qblocks), stats
+
+
+def norm_tweak_ptq_encdec(cfg: ModelConfig, params: dict,
+                          calib_frames: torch.Tensor,
+                          calib_tokens: torch.Tensor, nt: NTConfig,
+                          log: Optional[Callable[[str], None]] = None):
+    """Whisper: tweak the encoder's layers on the frame stream, then the
+    decoder's on the token stream, its cross-attention reading the
+    *quantized* encoder's output (after its final norm). Eq. 3's lr runs
+    over the encoder's and the decoder's layers as one depth. Returns
+    (qparams, stats: the two halves' records joined, encoder first).
+    calib_frames (n, S_enc, d); calib_tokens (n, S)."""
+    ecfg, dcfg = enc_config(cfg), dec_config(cfg)
+    x0 = encoder_input(calib_frames)
+    n_enc, n_dec = num_blocks(ecfg), num_blocks(dcfg)
+    total = n_enc + n_dec
+    enc_blocks = [get_block(ecfg, params["enc"], i) for i in range(n_enc)]
+    q_enc, q_enc_out, st1 = tweak_layers(ecfg, enc_blocks, x0, nt,
+                                         total_layers=total, log=log)
+    q_enc_out = apply_norm(ecfg, params["enc"]["final_norm"], q_enc_out)
+    positions = _arange_positions(calib_tokens, None)
+    xd0 = _embed(dcfg, params["dec"], calib_tokens, positions)
+    dec_blocks = [get_block(dcfg, params["dec"], i) for i in range(n_dec)]
+    q_dec, _, st2 = tweak_layers(dcfg, dec_blocks, xd0, nt,
+                                 enc_out=q_enc_out, layer_offset=n_enc,
+                                 total_layers=total, log=log)
+    qparams = dict(params)
+    qparams["enc"] = _restack(ecfg, params["enc"], q_enc)
+    qparams["dec"] = _restack(dcfg, params["dec"], q_dec)
+    return qparams, {k: st1[k] + st2[k] for k in st1}

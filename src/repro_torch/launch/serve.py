@@ -38,6 +38,10 @@ on the same workload (groups of one prompt length, lockstep decode),
 ``--engine both`` the two side by side.
 
 ``--tp`` (tensor parallelism) is not ported and is refused, never ignored.
+``--arch whisper-medium`` is refused, as by the JAX launcher (the
+encoder-decoder has no paged serving; ``models/encdec.py`` serves it on
+contiguous caches); ``--arch internvl2-2b`` is served as a text LM, with
+no patch embeddings, as the JAX launcher serves it.
 """
 from __future__ import annotations
 
@@ -356,6 +360,10 @@ def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.enc_dec:
+        # the JAX launcher's refusal, word for word: whisper has no paged
+        # serving (models/encdec.py serves it on contiguous caches)
+        raise SystemExit("whisper serving demo lives in tests/test_system.py")
     why = attention_only_refusal(cfg, preempt=args.preempt,
                                  prefix_share=args.prefix_share,
                                  chunked_prefill=args.chunked_prefill,

@@ -1,10 +1,16 @@
-"""GQA attention with a paged KV cache (port of ``repro.models.attention``).
+"""GQA attention with a paged KV cache, and cross-attention (port of
+``repro.models.attention``).
 
-Five calls reach ``apply_attention``:
+Seven calls reach ``apply_attention``:
 
-  * no cache (``lm_forward``, the quantization pipeline): causal
-    self-attention over the sequence; ``taps`` then captures each
-    linear's input for calibration;
+  * no cache (``lm_forward``, the quantization pipeline, whisper's
+    ``encode`` with ``causal=False``): self-attention over the sequence;
+    ``taps`` then captures each linear's input for calibration;
+  * cross-attention (``kv_src``: the encoder output, at ``kv_positions``):
+    K/V from ``kv_src``, a non-causal read; with a cross cache (no "len")
+    the K/V are also written into it (``encdec_prefill``);
+  * a cross cache without ``kv_src`` (``encdec_decode``): the K/V written
+    at prefill are read as they are;
   * contiguous cache (``init_kv_cache``: the calibration generator's
     decode): the new K/V are written at ring slots ``position % size``,
     then a one-token query attends over the whole cache, masked by the
@@ -21,13 +27,16 @@ Five calls reach ``apply_attention``:
     paged-attention kernel reads all of them in one page walk, row j at
     fill position kv_len - S + j.
 
-Page pools are f32 ``(P, page, KVH, hd)`` tensors, or int8 with
-``(P, page, KVH)`` f32 scale pools when ``cfg.kv_cache_bits == 8``. The
-scatters write the pools (and the contiguous cache) IN PLACE
-(``index_put_``) — the JAX package returns new arrays instead; the engine
-hands each layer a view into the stacked pools, so the writes land in the
-engine's cache. RoPE (full, half or none, ``cfg.rope``) is applied before
-cache insertion (post-rope keys are cached).
+A self-attention contiguous cache has "len" (fill counts); a cross cache
+has "k", "v" and "pos" only, and page pools have "k_pool": that is how the
+calls above tell the three apart. Page pools are f32 ``(P, page, KVH,
+hd)`` tensors, or int8 with ``(P, page, KVH)`` f32 scale pools when
+``cfg.kv_cache_bits == 8``. The scatters write the pools (and the
+contiguous and cross caches) IN PLACE (``index_put_``, ``copy_``) — the
+JAX package returns new arrays instead; the engine hands each layer a view
+into the stacked pools, so the writes land in the engine's cache. RoPE
+(full, half or none, ``cfg.rope``, or the call's ``rope_variant``) is
+applied before cache insertion (post-rope keys are cached).
 """
 from __future__ import annotations
 
@@ -46,32 +55,36 @@ from repro_torch.serve.kvcache import PageSpec, prefill_page_index
 NEG = -1e30
 
 
-def _mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+def _mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
           window: Optional[int]) -> torch.Tensor:
-    """Causal mask. q_pos: (B, Sq); kv_pos: (B, Skv) absolute positions,
-    -1 = invalid. Returns (B, Sq, Skv) bool."""
-    m = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    """q_pos: (B, Sq); kv_pos: (B, Skv) absolute positions, -1 = invalid.
+    Returns (B, Sq, Skv) bool: every valid key, or with ``causal`` those at
+    or before the query's position."""
+    m = kv_pos[:, None, :] >= 0
+    if causal:
+        m = m & (kv_pos[:, None, :] <= q_pos[:, :, None])
     if window is not None:
-        m &= kv_pos[:, None, :] > (q_pos[:, :, None] - window)
-    return m
+        m = m & (kv_pos[:, None, :] > (q_pos[:, :, None] - window))
+    return m.expand(q_pos.shape[0], q_pos.shape[1], kv_pos.shape[1])
 
 
-def _single_shot(qg, k, v, *, q_pos, kv_pos, window, scale):
+def _single_shot(qg, k, v, *, q_pos, kv_pos, causal, window, scale):
     """Masked softmax over all of K at once. qg: (B, Sq, KVH, G, hd)."""
     s = torch.einsum("bqkgh,btkh->bkgqt", qg, k) * scale
-    m = _mask(q_pos, kv_pos, window=window)
+    m = _mask(q_pos, kv_pos, causal=causal, window=window)
     s = torch.where(m[:, None, None], s, NEG)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bkgqt,btkh->bqkgh", p, v)
 
 
-def _kv_block(qg, kb, vb, pb, m_run, l_run, acc, *, q_pos, window, scale):
+def _kv_block(qg, kb, vb, pb, m_run, l_run, acc, *, q_pos, causal, window,
+              scale):
     """One KV block of the online softmax: the carries (m, l, acc) after
     block (kb, vb, pb), all f32. A masked score is the finite NEG, so a
     row with no live key yet takes exp(0) = 1 from each of them; the
     first live block's correction exp(NEG - m) wipes those out."""
     s = torch.einsum("bqkgh,btkh->bkgqt", qg, kb) * scale
-    msk = _mask(q_pos, pb, window=window)
+    msk = _mask(q_pos, pb, causal=causal, window=window)
     s = torch.where(msk[:, None, None], s, NEG)
     m_new = torch.maximum(m_run, s.amax(dim=-1))
     corr = torch.exp(m_run - m_new)
@@ -81,7 +94,7 @@ def _kv_block(qg, kb, vb, pb, m_run, l_run, acc, *, q_pos, window, scale):
     return m_new, l_new, acc * corr[..., None] + pv
 
 
-def _chunked(qg, k, v, *, q_pos, kv_pos, window, scale, block_kv):
+def _chunked(qg, k, v, *, q_pos, kv_pos, causal, window, scale, block_kv):
     """Online softmax over KV blocks of ``block_kv`` (K padded with dead
     slots, position -1, to whole blocks). Under autograd each block runs
     checkpointed: the backward pass recomputes its scores from the saved
@@ -99,7 +112,7 @@ def _chunked(qg, k, v, *, q_pos, kv_pos, window, scale, block_kv):
     l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, kvh, g, sq, v.shape[-1]), dtype=torch.float32,
                       device=dev)
-    kw = dict(q_pos=q_pos, window=window, scale=scale)
+    kw = dict(q_pos=q_pos, causal=causal, window=window, scale=scale)
     for t0 in range(0, skv + pad, block_kv):
         blk = (qg, k[:, t0:t0 + block_kv], v[:, t0:t0 + block_kv],
                kv_pos[:, t0:t0 + block_kv], m, l, acc)
@@ -114,9 +127,10 @@ def _chunked(qg, k, v, *, q_pos, kv_pos, window, scale, block_kv):
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    q_pos: torch.Tensor, kv_pos: torch.Tensor,
-                   window: Optional[int] = None, block_kv: int = 512
-                   ) -> torch.Tensor:
-    """Causal GQA attention in f32, as the JAX package's ``attention_core``
+                   causal: bool = True, window: Optional[int] = None,
+                   block_kv: int = 512) -> torch.Tensor:
+    """GQA attention in f32, causal unless ``causal`` is False (whisper's
+    encoder and cross-attention), as the JAX package's ``attention_core``
     with its default options: single-shot where K fits one block
     (Skv <= block_kv) or for a decode query (Sq 1), else the chunked
     online softmax.
@@ -124,7 +138,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, hd)
-    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window,
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window,
               scale=1.0 / math.sqrt(hd))
     if skv <= block_kv or sq == 1:
         o = _single_shot(qg, k, v, **kw)
@@ -133,10 +147,11 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(b, sq, h, v.shape[-1])
 
 
-def _core(cfg: ModelConfig, q, k, v, q_pos, kv_pos) -> torch.Tensor:
-    """``attention_core`` with the config's window and KV block."""
+def _core(cfg: ModelConfig, q, k, v, q_pos, kv_pos, *, causal=True,
+          window=None) -> torch.Tensor:
+    """``attention_core`` with the config's KV block."""
     return attention_core(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
-                          window=cfg.attn_window,
+                          causal=causal, window=window,
                           block_kv=cfg.attn_block_kv)
 
 
@@ -190,6 +205,32 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,
             cache[name] = torch.zeros(shape, dtype=torch.float32,
                                       device=device)
     return cache
+
+
+def init_cross_cache(cfg: ModelConfig, batch: int, enc_len: int, device, *,
+                     n_layers: int) -> dict:
+    """Cross-attention caches for ``n_layers`` stacked decoder blocks of an
+    enc-dec model: "k"/"v" (L, B, enc_len, KVH, hd) f32 and "pos" (L, B,
+    enc_len) (-1 = empty), filled once from the encoder output at prefill.
+    No "len": that is what tells it from a self-attention cache."""
+    shape = (n_layers, batch, enc_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=torch.float32, device=device),
+            "v": torch.zeros(shape, dtype=torch.float32, device=device),
+            "pos": torch.full(shape[:3], -1, dtype=torch.int32,
+                              device=device)}
+
+
+def _cross_fill(cache: dict, k, v, positions) -> None:
+    """In-place write of the encoder output's K/V and positions into a
+    cross cache of the same (B, enc_len) (the JAX package replaces the
+    cache's arrays with them)."""
+    if tuple(k.shape) != tuple(cache["k"].shape):
+        raise ValueError(f"cross cache of {tuple(cache['k'].shape)} cannot "
+                         f"hold K/V of {tuple(k.shape)}: init the cache "
+                         f"with the encoder's length")
+    cache["k"].copy_(k)
+    cache["v"].copy_(v)
+    cache["pos"].copy_(positions)
 
 
 def _quant_kv(x: torch.Tensor):
@@ -264,36 +305,60 @@ def _paged_write_decode(cache: dict, k, v, paged: dict) -> None:
 
 
 def apply_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-                    positions: torch.Tensor, cache: Optional[dict] = None,
+                    positions: torch.Tensor, causal: bool = True,
+                    window: Optional[int] = None,
+                    cache: Optional[dict] = None,
+                    kv_src: Optional[torch.Tensor] = None,
+                    kv_positions: Optional[torch.Tensor] = None,
+                    rope_variant: Optional[str] = None,
                     paged: Optional[dict] = None,
                     taps: Optional[dict] = None,
                     tap_prefix: str = "") -> torch.Tensor:
     """Returns the block's attention output (B, S, d_model); ``cache`` (a
-    layer's pools or contiguous cache) is updated in place. ``taps``
-    receives each linear's input under its param path."""
+    layer's pools, contiguous cache or cross cache) is updated in place.
+    ``kv_src`` makes it cross-attention: K/V from ``kv_src`` at
+    ``kv_positions`` (default ``positions``). ``rope_variant`` overrides
+    ``cfg.rope`` for this call (cross-attention passes "none"). ``taps``
+    receives each linear's input under its param path: wk's and wv's is
+    ``kv_src`` where there is one."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    window = cfg.attn_window
+    rope = dict(theta=cfg.rope_theta,
+                variant=cfg.rope if rope_variant is None else rope_variant)
+    src = x if kv_src is None else kv_src
     if taps is not None:
-        for name in ("wq", "wk", "wv"):
-            taps[tap_prefix + name] = x
+        taps[tap_prefix + "wq"] = x
+        taps[tap_prefix + "wk"] = src
+        taps[tap_prefix + "wv"] = src
     q = dense(p["wq"], x).reshape(b, s, h, hd)
-    q = apply_rope(q, positions, theta=cfg.rope_theta, variant=cfg.rope)
-    k = dense(p["wk"], x).reshape(b, s, kvh, hd)
-    v = dense(p["wv"], x).reshape(b, s, kvh, hd)
-    k = apply_rope(k, positions, theta=cfg.rope_theta, variant=cfg.rope)
+    q = apply_rope(q, positions, **rope)
+    core = dict(causal=causal, window=window)
+    if (cache is not None and "len" not in cache and "k_pool" not in cache
+            and kv_src is None):
+        # the cross cache filled at prefill (enc-dec decode): read as it is
+        o = _core(cfg, q, cache["k"], cache["v"], positions, cache["pos"],
+                  **core)
+        return _out(p, o.reshape(b, s, h * hd), taps, tap_prefix)
+    kpos = positions if kv_positions is None else kv_positions
+    k = dense(p["wk"], src).reshape(src.shape[0], src.shape[1], kvh, hd)
+    v = dense(p["wv"], src).reshape(src.shape[0], src.shape[1], kvh, hd)
+    k = apply_rope(k, kpos, **rope)
     if cache is None:
-        o = _core(cfg, q, k, v, positions, positions)
-    elif "pos" in cache:
+        o = _core(cfg, q, k, v, positions, kpos, **core)
+    elif "k_pool" not in cache and "len" not in cache:
+        # enc-dec prefill: fill the cross cache from the encoder output
+        _cross_fill(cache, k, v, kpos)
+        o = _core(cfg, q, k, v, positions, kpos, **core)
+    elif "len" in cache:
         _cache_write(cache, k, v, positions)
         if s == 1:
             # decode: attend over the whole (ring) cache
             kc, vc = _cached_kv(cache)
-            o = _core(cfg, q, kc, vc, positions, cache["pos"])
+            o = _core(cfg, q, kc, vc, positions, cache["pos"], **core)
         else:
             # prefill: attend over the sequence itself (a ring may already
             # have evicted positions that early queries need)
-            o = _core(cfg, q, k, v, positions, positions)
+            o = _core(cfg, q, k, v, positions, positions, **core)
     elif "block_table" in paged:
         if s != 1:
             raise ValueError("paged decode takes one token per slot")
@@ -317,12 +382,17 @@ def apply_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     elif "bt_rows" in paged:
         # fresh full prompt: write the pages, self-attend to the prompt
         _paged_write_prefill(cache, k, v, positions, paged["bt_rows"])
-        o = _core(cfg, q, k, v, positions, positions)
+        o = _core(cfg, q, k, v, positions, positions, **core)
     else:
         raise ValueError("a paged cache needs 'block_table' (decode) or "
                          "'bt_rows' (prefill, with 'kv_len' when the rows "
                          "read earlier context) indices")
-    o = o.reshape(b, s, h * hd)
+    return _out(p, o.reshape(b, s, h * hd), taps, tap_prefix)
+
+
+def _out(p: dict, o: torch.Tensor, taps: Optional[dict],
+         tap_prefix: str) -> torch.Tensor:
+    """The output projection of the heads' concatenated outputs."""
     if taps is not None:
         taps[tap_prefix + "wo"] = o
     return dense(p["wo"], o)

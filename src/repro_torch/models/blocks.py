@@ -1,5 +1,6 @@
 """Transformer / Mamba block: attention (GQA or MLA) or a Mamba2 mixer,
-then a dense MLP, an MoE or nothing (port of ``repro.models.blocks``)."""
+then an enc-dec decoder's cross-attention, then a dense MLP, an MoE or
+nothing (port of ``repro.models.blocks``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,7 +8,8 @@ from typing import Optional
 import torch
 
 from repro_torch.models.attention import (apply_attention, init_attention,
-                                          init_kv_cache, init_paged_kv_cache)
+                                          init_cross_cache, init_kv_cache,
+                                          init_paged_kv_cache)
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.mamba2 import (apply_mamba, init_mamba,
                                        init_mamba_cache)
@@ -26,6 +28,9 @@ def init_block(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
     else:
         attn = init_mla if cfg.attention == "mla" else init_attention
         p["attn"] = attn(cfg, gen, device)
+        if spec.cross_attn:
+            p["lnx"] = init_norm(cfg, cfg.d_model, device)
+            p["xattn"] = init_attention(cfg, gen, device)
     if spec.mlp != "none":
         p["ln2"] = init_norm(cfg, cfg.d_model, device)
     if spec.mlp == "moe":
@@ -37,14 +42,26 @@ def init_block(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator,
 
 def init_block_cache(cfg: ModelConfig, spec: LayerSpec, device,
                      n_layers: int, *, paged: Optional[PageSpec] = None,
-                     batch: int = 0, max_len: int = 0) -> dict:
+                     batch: int = 0, max_len: int = 0,
+                     enc_len: int = 0) -> dict:
     """One layer kind's caches for ``n_layers`` stacked blocks: an
     attention layer's page pools with ``paged``, else its contiguous
     caches of (batch, max_len); a mamba layer's recurrent state of
     ``batch`` rows either way (the serving slots with ``paged``: the
-    state is slot-indexed, never paged)."""
+    state is slot-indexed, never paged). A decoder layer with
+    cross-attention has {"attn": its contiguous cache, "xattn": a cross
+    cache of (batch, enc_len)}; it has no paged form."""
     if spec.kind == "mamba":
         return init_mamba_cache(cfg, batch, device, n_layers=n_layers)
+    if paged is not None and spec.cross_attn:
+        raise NotImplementedError(
+            "paged serving does not cover enc-dec cross-attention")
+    if spec.cross_attn:
+        return {"attn": init_block_cache(
+                    cfg, LayerSpec(kind=spec.kind, mlp=spec.mlp), device,
+                    n_layers, batch=batch, max_len=max_len),
+                "xattn": init_cross_cache(cfg, batch, enc_len, device,
+                                          n_layers=n_layers)}
     if paged is not None:
         if cfg.attention == "mla":
             return init_paged_mla_cache(cfg, paged, device, n_layers)
@@ -70,6 +87,8 @@ def _moe_valid(paged: Optional[dict],
 def apply_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                 positions: torch.Tensor, cache: Optional[dict] = None,
                 paged: Optional[dict] = None, decode: bool = False,
+                causal: bool = True,
+                enc_out: Optional[torch.Tensor] = None,
                 taps: Optional[dict] = None, tap_prefix: str = ""):
     """Pre-norm residual block; ``cache`` (this layer's pools or contiguous
     cache) is updated in place. ``taps`` (calibration) receives every
@@ -81,7 +100,18 @@ def apply_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     reads its cache alike either way). The layer's kind and MLP come from
     its params: "mamba" or "attn", then "moe", "mlp" or neither (no
     "ln2"). A mamba prefill on page pools writes its final state into
-    the rows of ``paged["slots"]``."""
+    the rows of ``paged["slots"]``.
+
+    ``causal`` False is whisper's encoder (its ``encode``; the JAX
+    package's mode "encode"). A block with "xattn" (an enc-dec decoder
+    layer) adds a cross-attention sub-layer after self-attention, normed by
+    "lnx", its taps under "xattn/": over ``enc_out`` where given (filling
+    the cache's "xattn" part at prefill), else over the cache's "xattn"
+    (decode); with neither (the tweak's loss, as in the JAX package) it
+    attends non-causally over its own normed input."""
+    cross_cache = None
+    if "xattn" in p and cache is not None:
+        cache, cross_cache = cache["attn"], cache["xattn"]
     h = apply_norm(cfg, p["ln1"], x)
     if "mamba" in p:
         x = x + apply_mamba(
@@ -95,7 +125,20 @@ def apply_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         if cfg.attention == "mla":
             x = x + apply_mla(cfg, p["attn"], h, decode=decode, **kw)
         else:
-            x = x + apply_attention(cfg, p["attn"], h, **kw)
+            x = x + apply_attention(cfg, p["attn"], h, causal=causal,
+                                    window=cfg.attn_window, **kw)
+    if "xattn" in p:
+        kv_pos = None
+        if enc_out is not None:
+            b, s_enc = enc_out.shape[:2]
+            kv_pos = torch.arange(s_enc, dtype=torch.int32,
+                                  device=enc_out.device)[None].expand(b,
+                                                                      s_enc)
+        x = x + apply_attention(
+            cfg, p["xattn"], apply_norm(cfg, p["lnx"], x),
+            positions=positions, causal=False, cache=cross_cache,
+            kv_src=enc_out, kv_positions=kv_pos, rope_variant="none",
+            taps=taps, tap_prefix=tap_prefix + "xattn/")
     if "ln2" not in p:
         return x, 0.0
     h2 = apply_norm(cfg, p["ln2"], x)

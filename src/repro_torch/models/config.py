@@ -2,12 +2,15 @@
 
 A plain-Python copy (the JAX module imports jax). It keeps the fields the
 ported slices use, with the JAX package's names and defaults, and
-``validate`` refuses what the port does not implement yet (enc-dec,
-multimodal frontends, sinusoidal positions, the shard_map MoE) instead of
-running it wrong.
+``validate`` refuses what the port does not implement (sinusoidal
+position embeddings in ``_embed``, which the JAX package's ``_embed`` has
+no branch for either; the shard_map MoE) instead of running it wrong.
 
 The layer stack is ``prefix_pattern`` (unstacked blocks, e.g. DeepSeek's
 first dense layer) followed by ``pattern`` repeated ``n_repeats`` times.
+An encoder-decoder (whisper) adds an encoder stack of ``enc_pattern``
+repeated ``n_enc_repeats`` times (models/encdec.py); its decoder layers
+carry cross-attention (``LayerSpec.cross_attn``).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ class LayerSpec:
 
     kind: str = "attn"        # "attn" | "mamba"
     mlp: str = "dense"        # "dense" | "moe" | "none" (no ln2)
+    cross_attn: bool = False  # decoder layers of enc-dec models
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,8 +89,12 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     mamba: Optional[Mamba2Config] = None
-    enc_dec: bool = False       # not ported
-    frontend: str = "none"      # not ported
+    enc_dec: bool = False       # whisper: an encoder stack, cross-attn
+    n_enc_repeats: int = 0
+    enc_pattern: tuple[LayerSpec, ...] = ()
+    frontend: str = "none"      # none | audio | vision (a stub: the caller
+                                # passes frame or patch embeddings)
+    frontend_len: int = 0       # patches prepended (vision) or enc len (audio)
     tie_embeddings: bool = False
     dtype: str = "float32"
     param_dtype: str = "float32"
@@ -115,7 +123,7 @@ class ModelConfig:
             raise ValueError(f"{self.name}: n_heads {self.n_heads} is not a "
                              f"multiple of n_kv_heads {self.n_kv_heads}")
         unsupported = []
-        specs = self.all_layer_specs()
+        specs = self.all_layer_specs() + list(self.enc_pattern)
         if any(s.kind not in ("attn", "mamba")
                or s.mlp not in ("dense", "moe", "none") for s in specs):
             unsupported.append("layer kinds other than attn/mamba or MLPs "
@@ -132,9 +140,11 @@ class ModelConfig:
             raise ValueError(f"{self.name}: MLA attention needs cfg.mla")
         if self.attention not in ("gqa", "mla"):
             unsupported.append(f"attention={self.attention}")
-        if self.enc_dec:
-            unsupported.append("enc-dec")
-        if self.frontend != "none":
+        if self.enc_dec and not (self.n_enc_repeats > 0
+                                 and self.enc_pattern):
+            raise ValueError(f"{self.name}: an enc-dec model needs an "
+                             f"encoder (n_enc_repeats > 0 and enc_pattern)")
+        if self.frontend not in ("none", "audio", "vision"):
             unsupported.append(f"frontend={self.frontend}")
         if self.norm not in ("rmsnorm", "layernorm"):
             unsupported.append(f"norm={self.norm}")

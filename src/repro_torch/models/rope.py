@@ -1,6 +1,9 @@
 """Rotary position embeddings: llama's "full" and ChatGLM's "half"
-variants (port of ``repro.models.rope``)."""
+variants, and whisper's fixed sinusoidal table (port of
+``repro.models.rope``)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -26,3 +29,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     x2 = x[..., half:rot].to(torch.float32)
     rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([rotated.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int,
+                         device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal table (seq_len, d_model) f32: the sines
+    of half the channels, then their cosines, at frequencies
+    10000^(-i / (half - 1))."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=device) / (half - 1))
+    ang = torch.arange(seq_len, dtype=torch.float32,
+                       device=device)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

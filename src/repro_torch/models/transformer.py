@@ -12,7 +12,11 @@ for attention, slot-indexed recurrent state for mamba. The caches have the same 
 a prefix block's cache is a stack of one (leading dim 1), so every pool
 leaf has its page axis at 1. Per-layer access for the quantization
 pipeline goes through ``num_blocks`` / ``block_spec`` / ``get_block``, in
-the JAX package's order: the prefix blocks, then the repeats.
+the JAX package's order: the prefix blocks, then the repeats. A VLM
+(InternVL2) takes its stub frontend's patch embeddings as ``ext_embeds``,
+prepended to the token embeddings, with positions running over both. An
+enc-dec decoder (models/encdec.py) runs the same stack with the encoder's
+output for its cross-attention.
 """
 from __future__ import annotations
 
@@ -105,11 +109,13 @@ def init_cache(cfg: ModelConfig, spec: PageSpec, device,
 
 
 def init_contiguous_cache(cfg: ModelConfig, batch: int, max_len: int,
-                          device) -> dict:
+                          device, enc_len: int = 0) -> dict:
     """Contiguous caches for ``lm_decode`` without pages (the calibration
     generator's and the static engine's; the JAX package's
-    ``init_cache(cfg, batch, max_len)``)."""
-    return _caches(cfg, device, batch=batch, max_len=max_len)
+    ``init_cache(cfg, batch, max_len, enc_len)``); a cross-attention layer
+    also gets a cross cache of ``enc_len`` encoder positions."""
+    return _caches(cfg, device, batch=batch, max_len=max_len,
+                   enc_len=enc_len)
 
 
 def num_blocks(cfg: ModelConfig) -> int:
@@ -131,11 +137,15 @@ def get_block(cfg: ModelConfig, params: dict, i: int) -> dict:
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
-    """Token embeddings, plus the learned position table's rows at
-    ``positions`` clipped to the table (a left pad's -1 reads row 0, as in
-    the JAX package)."""
+           positions: torch.Tensor,
+           ext_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings, after ``ext_embeds`` (B, P, d) where given (a VLM's
+    patch embeddings, prepended), plus the learned position table's rows
+    at ``positions`` (over the whole sequence) clipped to the table (a
+    left pad's -1 reads row 0, as in the JAX package)."""
     x = params["embed"]["w"][tokens.to(torch.int64)].to(torch.float32)
+    if ext_embeds is not None:
+        x = torch.cat([ext_embeds.to(torch.float32), x], dim=1)
     if cfg.pos_emb == "learned":
         idx = positions.to(torch.int64).clamp(0, cfg.max_position - 1)
         x = x + params["pos"]["w"][idx].to(torch.float32)
@@ -144,12 +154,16 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                positions: torch.Tensor, cache: Optional[dict] = None,
-               paged: Optional[dict] = None, decode: bool = False):
+               paged: Optional[dict] = None, decode: bool = False,
+               causal: bool = True,
+               enc_out: Optional[torch.Tensor] = None):
     """The prefix blocks, then the pattern repeats in order, layer by
     layer. ``cache`` is updated in place through each layer's view of its
-    pools. Returns (x, the sum of the blocks' aux losses: a tensor, or 0.0
-    when no block is an MoE)."""
-    kw = dict(positions=positions, paged=paged, decode=decode)
+    pools. ``causal`` False runs an encoder; ``enc_out`` is the encoder
+    output a decoder's cross-attention reads. Returns (x, the sum of the
+    blocks' aux losses: a tensor, or 0.0 when no block is an MoE)."""
+    kw = dict(positions=positions, paged=paged, decode=decode, causal=causal,
+              enc_out=enc_out)
     aux_total = 0.0
     for i in range(len(cfg.prefix_pattern)):
         c = (tree_index(cache["prefix"][str(i)], 0)
@@ -175,30 +189,43 @@ def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return dense(params["lm_head"], x)
 
 
-def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    """Full-sequence causal forward. tokens (B, S) -> (logits (B, S, V)
-    f32, the MoE aux loss)."""
+def _arange_positions(tokens: torch.Tensor,
+                      ext_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Positions 0..S-1 of each row, S counting ``ext_embeds``' rows."""
     b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device)[None].expand(b, s)
-    x = _embed(cfg, params, tokens, positions)
+    s += 0 if ext_embeds is None else ext_embeds.shape[1]
+    return torch.arange(s, dtype=torch.int32,
+                        device=tokens.device)[None].expand(b, s)
+
+
+def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+               ext_embeds: Optional[torch.Tensor] = None):
+    """Full-sequence causal forward. tokens (B, S) -> (logits (B, P + S, V)
+    f32, the MoE aux loss), P the rows of ``ext_embeds`` (0 without)."""
+    positions = _arange_positions(tokens, ext_embeds)
+    x = _embed(cfg, params, tokens, positions, ext_embeds)
     x, aux = _run_stack(cfg, params, x, positions=positions)
     return _head(cfg, params, x), torch.as_tensor(aux, dtype=torch.float32,
                                                   device=x.device)
 
 
 def lm_prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-               cache: dict, positions: torch.Tensor,
-               paged: Optional[dict] = None) -> torch.Tensor:
+               cache: dict, positions: Optional[torch.Tensor] = None,
+               paged: Optional[dict] = None,
+               ext_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Prompt ingestion into the cache. tokens, positions (B, S), pads left
     with position -1 so the real last token sits at index -1. With page
     pools, paged holds the slots' block-table rows ("bt_rows"), the slots
     themselves ("slots": the rows a mamba layer's state lands in) and, for a
     later chunk or a suffix after shared prefix pages, the fill counts
     after this call ("kv_len"); without ``paged`` the cache is contiguous
-    (``init_contiguous_cache``, the static engine's). Returns the logits of
-    the last row, the chunk's last real token (B, V)."""
-    x = _embed(cfg, params, tokens, positions)
+    (``init_contiguous_cache``, the static engine's). ``ext_embeds`` (B, P,
+    d): a VLM's patch embeddings ahead of the tokens, and ``positions``
+    then defaults to 0..P + S - 1. Returns the logits of the last row, the
+    chunk's last real token (B, V)."""
+    if positions is None:
+        positions = _arange_positions(tokens, ext_embeds)
+    x = _embed(cfg, params, tokens, positions, ext_embeds)
     x, _ = _run_stack(cfg, params, x, positions=positions, cache=cache,
                       paged=paged)
     return _head(cfg, params, x[:, -1:, :])[:, 0, :]
@@ -234,8 +261,19 @@ def lm_decode(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 def lm_loss(cfg: ModelConfig, params: dict, batch: dict):
     """Next-token cross-entropy plus the MoE aux loss. batch: tokens,
-    labels, optional mask. Returns (loss, {"nll", "aux"})."""
-    logits, aux = lm_forward(cfg, params, batch["tokens"])
+    labels, optional mask and ``ext_embeds`` (a VLM's patch rows, not
+    scored). Returns (loss, {"nll", "aux"})."""
+    ext = batch.get("ext_embeds")
+    logits, aux = lm_forward(cfg, params, batch["tokens"], ext)
+    if ext is not None:
+        logits = logits[:, ext.shape[1]:]
+    return token_loss(logits, batch, aux)
+
+
+def token_loss(logits: torch.Tensor, batch: dict, aux):
+    """Mean next-token cross-entropy of ``logits`` against batch["labels"]
+    under the optional batch["mask"], plus ``aux``. Returns (loss, {"nll",
+    "aux"})."""
     labels = batch["labels"].to(torch.int64)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None])[..., 0]

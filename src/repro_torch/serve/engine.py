@@ -478,6 +478,8 @@ class ContinuousEngine:
                  faults: Optional[FaultPlan] = None, debug: bool = False,
                  device="cuda"):
         cfg.validate()
+        if cfg.enc_dec:
+            raise NotImplementedError("paged serving covers decoder-only LMs")
         why = attention_only_refusal(
             cfg, preempt=preempt, prefix_share=prefix_share,
             chunked_prefill=chunked_prefill, spec_decode=spec_decode)
