@@ -1,16 +1,11 @@
-"""GQA attention with a paged KV cache, and cross-attention (port of
-``repro.models.attention``).
+"""GQA attention with a paged KV cache, and an enc-dec decoder's
+cross-attention (port of ``repro.models.attention``).
 
-Seven calls reach ``apply_attention``:
+Five calls reach ``apply_attention``:
 
   * no cache (``lm_forward``, the quantization pipeline, whisper's
     ``encode`` with ``causal=False``): self-attention over the sequence;
     ``taps`` then captures each linear's input for calibration;
-  * cross-attention (``kv_src``: the encoder output, at ``kv_positions``):
-    K/V from ``kv_src``, a non-causal read; with a cross cache (no "len")
-    the K/V are also written into it (``encdec_prefill``);
-  * a cross cache without ``kv_src`` (``encdec_decode``): the K/V written
-    at prefill are read as they are;
   * contiguous cache (``init_kv_cache``: the calibration generator's
     decode): the new K/V are written at ring slots ``position % size``,
     then a one-token query attends over the whole cache, masked by the
@@ -27,15 +22,16 @@ Seven calls reach ``apply_attention``:
     paged-attention kernel reads all of them in one page walk, row j at
     fill position kv_len - S + j.
 
-A self-attention contiguous cache has "len" (fill counts); a cross cache
-has "k", "v" and "pos" only, and page pools have "k_pool": that is how the
-calls above tell the three apart. Page pools are f32 ``(P, page, KVH,
-hd)`` tensors, or int8 with ``(P, page, KVH)`` f32 scale pools when
-``cfg.kv_cache_bits == 8``. The scatters write the pools (and the
-contiguous and cross caches) IN PLACE (``index_put_``, ``copy_``) — the
-JAX package returns new arrays instead; the engine hands each layer a view
-into the stacked pools, so the writes land in the engine's cache. RoPE
-(full, half or none, ``cfg.rope``, or the call's ``rope_variant``) is
+``apply_cross_attention`` is the decoder's read of the encoder output:
+no RoPE, non-causal, its own cross cache ("k", "v", "pos") filled at
+prefill and read as it is at decode.
+
+Page pools are f32 ``(P, page, KVH, hd)`` tensors, or int8 with
+``(P, page, KVH)`` f32 scale pools when ``cfg.kv_cache_bits == 8``. The
+scatters write the pools (and the contiguous and cross caches) IN PLACE
+(``index_put_``, ``copy_``) — the JAX package returns new arrays instead;
+the engine hands each layer a view into the stacked pools, so the writes
+land in the engine's cache. RoPE (full, half or none, ``cfg.rope``) is
 applied before cache insertion (post-rope keys are cached).
 """
 from __future__ import annotations
@@ -147,11 +143,11 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(b, sq, h, v.shape[-1])
 
 
-def _core(cfg: ModelConfig, q, k, v, q_pos, kv_pos, *, causal=True,
-          window=None) -> torch.Tensor:
-    """``attention_core`` with the config's KV block."""
+def _core(cfg: ModelConfig, q, k, v, q_pos, kv_pos, *,
+          causal=True) -> torch.Tensor:
+    """``attention_core`` with the config's window and KV block."""
     return attention_core(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
-                          causal=causal, window=window,
+                          causal=causal, window=cfg.attn_window,
                           block_kv=cfg.attn_block_kv)
 
 
@@ -211,8 +207,8 @@ def init_cross_cache(cfg: ModelConfig, batch: int, enc_len: int, device, *,
                      n_layers: int) -> dict:
     """Cross-attention caches for ``n_layers`` stacked decoder blocks of an
     enc-dec model: "k"/"v" (L, B, enc_len, KVH, hd) f32 and "pos" (L, B,
-    enc_len) (-1 = empty), filled once from the encoder output at prefill.
-    No "len": that is what tells it from a self-attention cache."""
+    enc_len) (-1 = empty), filled once from the encoder output at prefill
+    (``apply_cross_attention``)."""
     shape = (n_layers, batch, enc_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=torch.float32, device=device),
             "v": torch.zeros(shape, dtype=torch.float32, device=device),
@@ -306,59 +302,37 @@ def _paged_write_decode(cache: dict, k, v, paged: dict) -> None:
 
 def apply_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                     positions: torch.Tensor, causal: bool = True,
-                    window: Optional[int] = None,
                     cache: Optional[dict] = None,
-                    kv_src: Optional[torch.Tensor] = None,
-                    kv_positions: Optional[torch.Tensor] = None,
-                    rope_variant: Optional[str] = None,
                     paged: Optional[dict] = None,
                     taps: Optional[dict] = None,
                     tap_prefix: str = "") -> torch.Tensor:
     """Returns the block's attention output (B, S, d_model); ``cache`` (a
-    layer's pools, contiguous cache or cross cache) is updated in place.
-    ``kv_src`` makes it cross-attention: K/V from ``kv_src`` at
-    ``kv_positions`` (default ``positions``). ``rope_variant`` overrides
-    ``cfg.rope`` for this call (cross-attention passes "none"). ``taps``
-    receives each linear's input under its param path: wk's and wv's is
-    ``kv_src`` where there is one."""
+    layer's pools or contiguous cache) is updated in place. ``causal``
+    False is whisper's encoder. ``taps`` receives each linear's input
+    under its param path."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    rope = dict(theta=cfg.rope_theta,
-                variant=cfg.rope if rope_variant is None else rope_variant)
-    src = x if kv_src is None else kv_src
+    window = cfg.attn_window
     if taps is not None:
-        taps[tap_prefix + "wq"] = x
-        taps[tap_prefix + "wk"] = src
-        taps[tap_prefix + "wv"] = src
+        for name in ("wq", "wk", "wv"):
+            taps[tap_prefix + name] = x
     q = dense(p["wq"], x).reshape(b, s, h, hd)
-    q = apply_rope(q, positions, **rope)
-    core = dict(causal=causal, window=window)
-    if (cache is not None and "len" not in cache and "k_pool" not in cache
-            and kv_src is None):
-        # the cross cache filled at prefill (enc-dec decode): read as it is
-        o = _core(cfg, q, cache["k"], cache["v"], positions, cache["pos"],
-                  **core)
-        return _out(p, o.reshape(b, s, h * hd), taps, tap_prefix)
-    kpos = positions if kv_positions is None else kv_positions
-    k = dense(p["wk"], src).reshape(src.shape[0], src.shape[1], kvh, hd)
-    v = dense(p["wv"], src).reshape(src.shape[0], src.shape[1], kvh, hd)
-    k = apply_rope(k, kpos, **rope)
+    q = apply_rope(q, positions, theta=cfg.rope_theta, variant=cfg.rope)
+    k = dense(p["wk"], x).reshape(b, s, kvh, hd)
+    v = dense(p["wv"], x).reshape(b, s, kvh, hd)
+    k = apply_rope(k, positions, theta=cfg.rope_theta, variant=cfg.rope)
     if cache is None:
-        o = _core(cfg, q, k, v, positions, kpos, **core)
-    elif "k_pool" not in cache and "len" not in cache:
-        # enc-dec prefill: fill the cross cache from the encoder output
-        _cross_fill(cache, k, v, kpos)
-        o = _core(cfg, q, k, v, positions, kpos, **core)
-    elif "len" in cache:
+        o = _core(cfg, q, k, v, positions, positions, causal=causal)
+    elif "pos" in cache:
         _cache_write(cache, k, v, positions)
         if s == 1:
             # decode: attend over the whole (ring) cache
             kc, vc = _cached_kv(cache)
-            o = _core(cfg, q, kc, vc, positions, cache["pos"], **core)
+            o = _core(cfg, q, kc, vc, positions, cache["pos"])
         else:
             # prefill: attend over the sequence itself (a ring may already
             # have evicted positions that early queries need)
-            o = _core(cfg, q, k, v, positions, positions, **core)
+            o = _core(cfg, q, k, v, positions, positions)
     elif "block_table" in paged:
         if s != 1:
             raise ValueError("paged decode takes one token per slot")
@@ -382,11 +356,50 @@ def apply_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     elif "bt_rows" in paged:
         # fresh full prompt: write the pages, self-attend to the prompt
         _paged_write_prefill(cache, k, v, positions, paged["bt_rows"])
-        o = _core(cfg, q, k, v, positions, positions, **core)
+        o = _core(cfg, q, k, v, positions, positions)
     else:
         raise ValueError("a paged cache needs 'block_table' (decode) or "
                          "'bt_rows' (prefill, with 'kv_len' when the rows "
                          "read earlier context) indices")
+    return _out(p, o.reshape(b, s, h * hd), taps, tap_prefix)
+
+
+def apply_cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+                          positions: torch.Tensor,
+                          enc_out: Optional[torch.Tensor] = None,
+                          cache: Optional[dict] = None,
+                          taps: Optional[dict] = None,
+                          tap_prefix: str = "") -> torch.Tensor:
+    """An enc-dec decoder's cross-attention (B, S, d_model): no RoPE, no
+    causal mask, no window. K/V come from ``enc_out`` (B, enc_len, d) at
+    positions 0..enc_len-1, written into ``cache`` (``init_cross_cache``'s
+    layer view) where there is one (``encdec_prefill``); without
+    ``enc_out`` they are the cache's, as prefill wrote them
+    (``encdec_decode``), or with no cache either (the tweak's loss, as in
+    the JAX package) ``x``'s own at ``positions``. ``taps`` receives
+    each linear's input: wk's and wv's is ``enc_out`` where given."""
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    src = x if enc_out is None else enc_out
+    if taps is not None:
+        taps[tap_prefix + "wq"] = x
+        taps[tap_prefix + "wk"] = src
+        taps[tap_prefix + "wv"] = src
+    q = dense(p["wq"], x).reshape(b, s, h, hd)
+    if enc_out is None and cache is not None:
+        k, v, kv_pos = cache["k"], cache["v"], cache["pos"]
+    else:
+        sb, s_kv = src.shape[:2]
+        k = dense(p["wk"], src).reshape(sb, s_kv, kvh, hd)
+        v = dense(p["wv"], src).reshape(sb, s_kv, kvh, hd)
+        kv_pos = positions
+        if enc_out is not None:
+            kv_pos = torch.arange(s_kv, dtype=torch.int32,
+                                  device=src.device)[None].expand(sb, s_kv)
+        if cache is not None:
+            _cross_fill(cache, k, v, kv_pos)
+    o = attention_core(q, k, v, q_pos=positions, kv_pos=kv_pos, causal=False,
+                       block_kv=cfg.attn_block_kv)
     return _out(p, o.reshape(b, s, h * hd), taps, tap_prefix)
 
 

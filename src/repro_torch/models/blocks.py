@@ -7,9 +7,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.attention import (apply_attention, init_attention,
-                                          init_cross_cache, init_kv_cache,
-                                          init_paged_kv_cache)
+from repro_torch.models.attention import (apply_attention,
+                                          apply_cross_attention,
+                                          init_attention, init_cross_cache,
+                                          init_kv_cache, init_paged_kv_cache)
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.mamba2 import (apply_mamba, init_mamba,
                                        init_mamba_cache)
@@ -125,19 +126,11 @@ def apply_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         if cfg.attention == "mla":
             x = x + apply_mla(cfg, p["attn"], h, decode=decode, **kw)
         else:
-            x = x + apply_attention(cfg, p["attn"], h, causal=causal,
-                                    window=cfg.attn_window, **kw)
+            x = x + apply_attention(cfg, p["attn"], h, causal=causal, **kw)
     if "xattn" in p:
-        kv_pos = None
-        if enc_out is not None:
-            b, s_enc = enc_out.shape[:2]
-            kv_pos = torch.arange(s_enc, dtype=torch.int32,
-                                  device=enc_out.device)[None].expand(b,
-                                                                      s_enc)
-        x = x + apply_attention(
+        x = x + apply_cross_attention(
             cfg, p["xattn"], apply_norm(cfg, p["lnx"], x),
-            positions=positions, causal=False, cache=cross_cache,
-            kv_src=enc_out, kv_positions=kv_pos, rope_variant="none",
+            positions=positions, enc_out=enc_out, cache=cross_cache,
             taps=taps, tap_prefix=tap_prefix + "xattn/")
     if "ln2" not in p:
         return x, 0.0

@@ -190,8 +190,7 @@ def apply_mla(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
             b, s, h, m.qk_rope_head_dim)], dim=-1)
         q = torch.cat([q_nope, q_pe], dim=-1)
-        o = _core(cfg, q, k, v, positions, positions,
-                  window=cfg.attn_window).reshape(
+        o = _core(cfg, q, k, v, positions, positions).reshape(
             b, s, h * m.v_head_dim)
     if taps is not None:
         taps[tap_prefix + "wo"] = o
