@@ -7,7 +7,7 @@ Builds the seven CUDA kernels from src/repro_torch/kernels/csrc/ (nvcc,
 at first use, all in parallel) and holds each against its plain PyTorch
 version on the card at the shapes the main paths give it (the paged read
 also at the verify's and a prefill chunk's rows, and at fills below
-them). Then it drives forty paths, each with the kernels' launch
+them). Then it drives forty-seven paths, each with the kernels' launch
 counts set to 0 just before it and read just after. First the paper's quality
 path on TINY (d 192, 8 layers, the model the JAX package measures quality
 on), modelled on the JAX package's benchmarks/common.py, nt_common.py and
@@ -65,20 +65,43 @@ Then on llama3.2-1b at full width and depth, with seeded random weights:
      32 new, over a contiguous cache (no paged read);
   10. the paper's pipeline through the launcher's ``build_params`` — 8 x 32
      self-generated calibration tokens, then GPTQ W4 g128 + norm
-     tweaking on 4 of the 16 layers (path 13 runs all 16), then
+     tweaking on 4 of the 16 layers (path 13 runs 6), then
      SmoothQuant W4A8 + norm tweaking — with layer 0 quantized and
      tweaked again on a CPU copy of its inputs and held against the card;
   11. serving the SmoothQuant W4A8 + NT model (the same workload as 4),
      every quantized linear on the W8A8 kernel;
   12. AWQ W4 g128 + NT through the same ``build_params``, layer 0 again on
      the CPU;
-  13. the paper's own configuration: 128 self-generated samples of 2048
-     tokens, GPTQ W4 g128 + NT with the reference defaults (the chunked
-     attention core in every apply and tweak step, the channel-statistics
-     kernel twice a tweak step), layer 0 run again on the card with every
-     kernel replaced by its plain version (the host CPU would take many
-     minutes at 262,144 tokens), and the chunked attention core held
-     against the single-shot one.
+  13. the paper's own configuration on 6 of the 16 layers: 128
+     self-generated samples of 2048 tokens, GPTQ W4 g128 + NT with the
+     reference defaults (the chunked attention core in every apply and
+     tweak step, the channel-statistics kernel twice a tweak step), layer
+     0 run again on the card with every kernel replaced by its plain
+     version (the host CPU would take many minutes at 262,144 tokens),
+     and the chunked attention core held against the single-shot one. At
+     6 layers it no longer shows layers 6-15's calibration, applies and
+     tweaks at this size (each layer runs the same code on inputs of the
+     same shape), the model's full-depth peak memory, or the time of the
+     whole 16-layer pipeline.
+
+Then the multi-device paths (slice 16), each rank a process of its own
+in one gloo process group, all on the one card (NCCL refuses two ranks
+on one device): llama3.2-1b W4 g128 at full width served tensor-
+parallel by two ranks at tp 2 and four at tp 4 on llama's workload,
+every rank's tokens equal to each other's and to path 4's up to near-
+ties, and every token held against the plain forward over its own
+sequence as path 4's are, 112 kernel-1 and 16 kernel-2 launches a rank's
+decode step, 7 quantize-pack launches a rank's deploy (it packs the
+whole tree as one device would and keeps its shard), 32 all-reduces a
+forward and no packed or pool leaf left whole; W4A8 (RTN, per-channel)
+at 2 layers at tp 2 against the same deploy served at tp 1 and the plain
+forward at the measured margin, the activation amax all-reduced; one
+float MoE block of deepseek-v2-lite at published widths (64 experts
+top-6, 2 shared) expert-parallel at M 2 and 4 over all_to_all, each
+rank's rows held against the spmd dispatch of its token slice; TINY
+trained 20 steps data-parallel on 2 ranks, float and int8-compressed,
+the ranks' params equal bit for bit and the losses the one-rank run's,
+and a straggler through the elastic coordinator.
 
 On mixtral-8x22b at its published widths, cut to 2 layers (the float
 tree of 56 layers would not fit the card), the same four paths: serving
@@ -113,12 +136,13 @@ version; every layer's ln1, kvnorm and ln2 moved by the tweak) and the
 W4A8 + NT model served. Each decode step's and prefill call's launches
 are asserted exactly.
 
-Then the SSM slice: mamba2-2.7b whole at its published widths (64 Mamba2
-blocks, d 2560, d_state 128, 80 heads of 64; its SSD scan, conv and
-gated norm plain PyTorch, as the JAX package's are plain jnp, its in_proj
-and out_proj on kernel 1), served W4 g128 on llama's workload with 128
-kernel-1 launches a decode step and a prefill call, held to the measured
-margin; at 4 layers GPTQ W4 g128 + NT and at 2 SmoothQuant W4A8 + NT
+Then the SSM slice: mamba2-2.7b at its published widths (d 2560,
+d_state 128, 80 heads of 64; its SSD scan, conv and gated norm plain
+PyTorch, as the JAX package's are plain jnp, its in_proj and out_proj on
+kernel 1), cut to 8 of its 64 Mamba2 blocks, served W4 g128 on llama's
+workload with 16 kernel-1 launches a decode step and a prefill call, held
+to the measured margin; at 4 layers GPTQ W4 g128 + NT and at 2
+SmoothQuant W4A8 + NT
 (every ln1 and gated norm "gnorm" moved; layer 0 again on the card with
 plain kernels) and the W4A8 model served. Last, Jamba-1.5-Large at its
 published widths cut to layers 4-5 of its period (attention + dense MLP,
@@ -346,14 +370,17 @@ AFFINE_STD = 0.02
 DEEPSEEK_SERVE_REPEATS = 7
 DEEPSEEK_PIPE_REPEATS = 1
 DEEPSEEK_WORK = dict(LLAMA_WORK, prefill_batch=1)
-# mamba2-2.7b (slice 14) whole for serving: 64 mamba blocks at d 2560 (2.70
-# B parameters, 10.8 GB in f32; 1.34 GB of SSM state at 8 slots); its
+# mamba2-2.7b (slice 14) at its published widths, served at
+# MAMBA2_SERVE_LAYERS of its 64 mamba blocks at d 2560 (64 until the
+# multi-device phases of slice 16 took the script's budget: its served-
+# token check replays every decode step three times, 33.5 s at 64); its
 # pipelines at MAMBA2_PIPE_LAYERS (GPTQ) and 2 (SmoothQuant). Jamba-1.5-
 # Large at its published widths, cut by depth to layers 4-5 of its 8-layer
 # period: the attention + dense-MLP layer and a mamba + 16-expert MoE
 # layer (11.9 B parameters, 47.6 GB in f32 with the untied head; one MoE
 # layer alone is 38.7 GB, so two would not fit beside their packed copy).
 # Jamba serves one prompt a prefill, as deepseek does
+MAMBA2_SERVE_LAYERS = 8
 MAMBA2_PIPE_LAYERS = 4
 MAMBA2_SQ_LAYERS = 2
 MAMBA_LINEARS = ["mamba/in_proj", "mamba/out_proj"]
@@ -377,6 +404,23 @@ VLM_PIPE_LAYERS = 2
 VLM_CALIB = dict(n_samples=32, token_length=256)
 # the tweak's samples a step in the whisper and InternVL2 pipelines
 CALIB_SAMPLE_BATCH = 8
+# slice 16, multi-device: llama3.2-1b W4 g128 at full width served at tp 2
+# and then 4 on llama's workload, and W4A8 (RTN, per-channel) at
+# TP_W4A8_LAYERS at tp 2, by two and then four ranks on the one card
+# (gloo: NCCL refuses two ranks on one device). One float MoE block of
+# deepseek-v2-lite at published widths (64 experts of 1408, top-6, 2
+# shared) on EP_TOKENS tokens, expert-parallel over M 2 and 4. TINY
+# trained data-parallel on 2 ranks for DP_STEPS steps, float and int8-
+# compressed gradients
+TP_W4A8_LAYERS = 2
+EP_TOKENS = (8, 128)
+EP_TOL = 1e-4
+DP_RANKS = 2
+DP_STEPS = 20
+DP_LOSS_RTOL = 1e-3
+# the served tokens and the plain forward's logits of serve_w4 (tp=1), by
+# request id: what the TP phases are held against
+TP_REFERENCE: dict = {}
 # seconds of each phase (path with its checks), printed on the "phases"
 # line so a phase that drifts between machines shows by name
 PHASE_S: dict = {}
@@ -553,6 +597,11 @@ def check_dequant_matmul(timer, gen):
     cases += [(8, WH_D, WH_D, 4, 128), (8, WH_D, WH_FF, 4, 128),
               (8, WH_FF, WH_D, 4, 128), (WH_ENC_ROWS, WH_D, WH_FF, 4, 128),
               (8, 2048, 1024, 4, 128)]
+    # llama3.2-1b's decode linears as a rank holds them at tp 2: wq (N
+    # 1024, the shape above), wk / wv (N 256), wi / wg (N 4096), and the
+    # row-parallel attention wo (K 1024) and MLP wo (K 4096), W4 g128
+    cases += [(8, 2048, 256, 4, 128), (8, 2048, 4096, 4, 128),
+              (8, 1024, 2048, 4, 128), (8, 4096, 2048, 4, 128)]
     results = []
     for m, k, n, bits, group in cases:
         x = torch.randn((m, k), generator=gen, device="cuda")
@@ -1529,7 +1578,7 @@ def _llama_logits(cfg, params, done):
 
 def check_against_plain(cfg, engine, done, measure_margin=False,
                         replay=False, plain_on_card=False, routing=None,
-                        forward=None):
+                        forward=None, into=None):
     """Every served greedy token equals the plain forward's argmax wherever
     that forward's top-2 margin exceeds the margin: MARGIN, or with
     ``measure_margin`` the margin measured on these sequences (see NOISE).
@@ -1572,6 +1621,8 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
     plain router would have made otherwise are counted, and each must be
     one that the two runs' probabilities can order either way: its gap
     no more than twice their largest difference at that token.
+
+    ``into``: a dict the printed line is copied into.
 
     Returns the plain forward's logits at the served positions, per
     request."""
@@ -1710,6 +1761,8 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
                         else "cpu"),
                 seconds=time.perf_counter() - t0)
     print("plain_check", json.dumps(line))
+    if into is not None:
+        into.update(line)
     if failed:
         raise AssertionError(f"served tokens disagree with the plain "
                              f"forward: {line}")
@@ -2292,6 +2345,13 @@ def pipeline_phase(cfg, method, label, layer0="cpu", affine=False,
 # the paper's calibration set (its Calibration Data Generation section):
 # 128 self-generated samples of 2048 tokens, all 128 decoded together
 PAPER_CALIB = dict(n_samples=128, token_length=2048, batch_size=128)
+# the paper-sized pipeline runs PAPER_LAYERS of llama3.2-1b's 16 layers
+# (all 16 until slice 16: at ~16 s a layer it was a quarter of the
+# script, whose host-bound phases ran 15% slower on one machine than on
+# another, PERF.md section 5). Every layer runs the same code on inputs of
+# the same shape; what 6 layers no longer show is the other 10 layers'
+# numerics at this size, the full-depth peak memory and the 16-layer time
+PAPER_LAYERS = 6
 
 
 def check_chunked_attention(cfg, block, x):
@@ -2333,7 +2393,7 @@ def paper_pipeline_phase(cfg, device="cuda"):
     """The paper's configuration (slice 4): GPTQ W4 g128 + NT with the
     reference defaults (1 iteration, sample batch 8, lr0 1e-5, L_dist on
     the float stream) on PAPER_CALIB self-generated calibration, at full
-    width and depth. Checked: every linear packed, the tweak changed only
+    width and the depth of ``cfg``. Checked: every linear packed, the tweak changed only
     norms and ran through the dequant matmul, kernel 7 launched exactly
     twice a tweak step (L_dist of fOut and of the block output, 16 steps
     a layer); the chunked attention core against the single-shot one on
@@ -3003,21 +3063,24 @@ def same_tokens_but_near_ties(label, got, want, preds, rids):
     splits), and on the card a last-bit difference may flip a near-tie
     and the rest of that stream with it. Returns (requests equal
     throughout, the flips as (rid, position, margin))."""
-    same, flips, bad = 0, [], []
+    same, flips, bad, equal_tokens = 0, [], [], 0
     for rid in rids:
         a, b = got[rid], want[rid]
         if a == b:
             same += 1
+            equal_tokens += len(a)
             continue
         i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
                  min(len(a), len(b)))
+        equal_tokens += i
         top2 = torch.topk(preds[rid][i], 2).values
         gap = float(top2[0] - top2[1])
         flips.append((rid, i, gap))
         if gap > MARGIN or len(a) != len(b):
             bad.append((rid, i, gap, len(a), len(b)))
     line = dict(path=label, card=CARD, requests=len(rids), identical=same,
-                flips=flips)
+                tokens=sum(len(got[rid]) for rid in rids),
+                equal_before_first_difference=equal_tokens, flips=flips)
     print("token_identity", json.dumps(line))
     if bad:
         raise AssertionError(f"{label}: tokens differ away from a near-tie: "
@@ -3259,7 +3322,11 @@ def llama_paths(cfg):
         engine, done, out["serve_w4"] = serve(
             cfg, init_lm(cfg, seed=SEED, device="cuda"), "serve_w4",
             LLAMA_WORK, quant_bits=4, quant_group=128)
-        check_against_plain(cfg, engine, done, plain_on_card=True)
+        preds = check_against_plain(cfg, engine, done, plain_on_card=True)
+        TP_REFERENCE["serve_w4"] = ({r.rid: list(r.tokens) for r in done},
+                                    {r.rid: p for r, p in zip(done, preds)},
+                                    {r.rid: r.prompt for r in done})
+        del preds
         assert_decode_launches(out["serve_w4"], {"dequant_matmul": n_lin,
                                                  "paged_attention":
                                                  cfg.n_repeats})
@@ -3318,7 +3385,8 @@ def llama_paths(cfg):
         del params
         release()
     with phase("pipeline_paper_gptq"):
-        out["pipeline_paper_gptq"] = paper_pipeline_phase(cfg)
+        out["pipeline_paper_gptq"] = paper_pipeline_phase(
+            cfg.replace(n_repeats=PAPER_LAYERS))
         release()
     return out
 
@@ -3615,20 +3683,22 @@ def serve_ssm_phase(cfg, make_params, label, want_step, want_call,
 def mamba_paths():
     """The mamba2-2.7b paths; returns their metrics by path name. Each
     decode step and each prefill call launches the dense kernel once for
-    each of a layer's two linears, 128 at 64 layers, and no paged read."""
+    each of a layer's two linears, 16 at MAMBA2_SERVE_LAYERS (8), and no
+    paged read."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_lm
 
     m2 = get_config("mamba2-2.7b")
     out = {}
-    n_lin = 2 * m2.n_repeats
-    # W4 at 64 layers is held to the measured margin, as deepseek's W4 at
-    # depth: the kernels' bf16 sums and the plain versions' part by more
-    # than MARGIN at the top of 64 layers of recurrence (one of 667
-    # positions at a top-2 gap of 0.075; H100, 700 W)
+    cfg = m2.replace(n_repeats=MAMBA2_SERVE_LAYERS)
+    n_lin = 2 * cfg.n_repeats
+    # W4 is held to the measured margin, as deepseek's W4 at depth: at 64
+    # layers of recurrence the kernels' bf16 sums and the plain versions'
+    # parted by more than MARGIN (one of 667 positions at a top-2 gap of
+    # 0.075; H100, 700 W)
     with phase("serve_mamba2_w4"):
         out["serve_mamba2_w4"] = serve_ssm_phase(
-            m2, lambda: init_lm(m2, seed=SEED, device="cuda"),
+            cfg, lambda: init_lm(cfg, seed=SEED, device="cuda"),
             "serve_mamba2_w4", {"dequant_matmul": n_lin},
             {"dequant_matmul": n_lin}, deploy=2, measure_margin=True,
             quant_bits=4, quant_group=128)
@@ -4077,6 +4147,352 @@ def internvl2_paths():
         release()
     return out
 
+# ------------------------------------------------------ multi-device paths
+#
+# Slice 16: the port's tensor-parallel serving, expert-parallel MoE
+# dispatch and data-parallel training, each rank a process of its own in
+# one gloo process group, all ranks on the one card (NCCL refuses two ranks
+# on one device; gloo takes CUDA tensors for all_reduce, all_gather and
+# all_to_all_single, so nothing stages through the host by hand). The
+# kernels are built once, by this process, before any rank starts; a rank
+# loads them. Times of ranks that share one card through gloo say nothing
+# of TP across cards and are printed only under that label (MD_LABEL).
+
+MD_LABEL = "ranks sharing one card through gloo (not TP across cards)"
+
+
+def _quiet(rank):
+    """Rank 0 prints; the other ranks' lines would repeat it."""
+    import io
+    return (contextlib.nullcontext() if rank == 0
+            else contextlib.redirect_stdout(io.StringIO()))
+
+
+def tp_serve_rank(cfg, tp, mesh, label, work, act_bits=0):
+    """This rank's TP serving of llama's workload on ``cfg`` (RTN-packed by
+    the engine's deploy: W4 g128, or with ``act_bits`` 8 W4A8 per-channel)
+    through ``serve``. Asserts per rank: every decode step's launches
+    (kernel 1, or 3 at A8, on every linear, kernel 2 once a layer), the
+    deploy's 7 quantize-pack launches, no packed or pool leaf left whole,
+    and the all-reduces: 2 a layer (the two row-parallel sums) in every
+    decode step and prefill call, 4 at A8 (with the activation amax of
+    each). Returns the served tokens by request id and the metrics."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.models.transformer import init_lm
+
+    n_layers = cfg.n_repeats
+    coll.reset_counts()
+    bits, group = tp_deploy(act_bits)
+    engine, done, stats = serve(
+        cfg, init_lm(cfg, seed=SEED, device="cuda"), label, work, tp=tp,
+        mesh=mesh, quant_bits=bits, quant_group=group, act_bits=act_bits)
+    kernel = "w8a8_matmul" if act_bits else "dequant_matmul"
+    assert_decode_launches(stats, {kernel: 7 * n_layers,
+                                   "paged_attention": n_layers})
+    assert_deploy_launches(stats)
+    rep = engine.tp_placement_report()
+    if rep["replicated_quant_leaves"] or rep["replicated_pool_leaves"]:
+        raise AssertionError(f"{label}: leaves left whole: {rep}")
+    per_call = (4 if act_bits else 2) * n_layers
+    calls = stats["decode_steps"] + stats["prefill_calls"]
+    if coll.counts["all_reduce"] != per_call * calls:
+        raise AssertionError(
+            f"{label}: {coll.counts['all_reduce']} all-reduces, want "
+            f"{per_call} in each of {calls} decode steps and prefill calls")
+    stats.pop("call_records")
+    stats.update(placement=rep, all_reduces=coll.counts["all_reduce"],
+                 all_reduces_per_decode_step=per_call)
+    tokens = {r.rid: list(r.tokens) for r in done}
+    del engine, done
+    release()
+    return tokens, stats
+
+
+def tp_deploy(act_bits=0):
+    """(bits, group) of the TP phases' deploy: W4 g128, or with
+    ``act_bits`` 8 W4A8 per-channel."""
+    return 4, (-1 if act_bits else 128)
+
+
+def ep_block_rank(cfg, mesh, tokens):
+    """One float MoE block of ``cfg`` (seeded, every rank the same weights
+    and input) through ``apply_moe`` under ``mesh``: the expert-parallel
+    path must run (one dispatch: two all_to_all and one all_gather), and
+    this rank's rows must equal the port's spmd ``apply_moe`` on its token
+    slice within EP_TOL, the aux loss the slices' mean. Returns the
+    metrics."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import sharding_ctx
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe_shardmap
+    from repro_torch.models.mlp_moe import apply_moe, init_moe
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    p = init_moe(cfg, gen, "cuda")
+    b, s = tokens
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda")
+    spmd = cfg.replace(moe_impl="spmd")
+    m, r = mesh.shape["model"], mesh.coords["model"]
+    t_r = b * s // m
+    ops.reset_launch_counts()
+    coll.reset_counts()
+    moe_shardmap.dispatches = 0
+    xs = x.reshape(b * s, -1)[r * t_r:(r + 1) * t_r][None]
+    with torch.no_grad(), sharding_ctx(mesh):
+        y, aux = apply_moe(cfg, p, x)
+        torch.cuda.synchronize()
+        ep_counts = dict(coll.counts)
+        y_s, aux_s = apply_moe(spmd, p, xs)
+        aux_mean = float(coll.all_reduce(aux_s, "model", op="mean"))
+        timer = Timer(iters=5, flush=False)
+        ep_ms = timer(lambda: apply_moe(cfg, p, x))
+        spmd_ms = timer(lambda: apply_moe(spmd, p, xs))
+    launches = ops.launch_counts()
+    if moe_shardmap.dispatches < 1 or ep_counts != {
+            "all_reduce": 1, "all_gather": 1, "all_to_all": 2}:
+        raise AssertionError(f"moe_ep M={m}: the EP path did not run as "
+                             f"one dispatch: {moe_shardmap.dispatches}, "
+                             f"{ep_counts}")
+    rows = y.reshape(b * s, -1)[r * t_r:(r + 1) * t_r]
+    err = float((rows - y_s[0]).abs().max())
+    aux_err = abs(float(aux) - aux_mean)
+    if not (err <= EP_TOL and aux_err <= 1e-6 * abs(aux_mean)
+            and torch.isfinite(y).all()):
+        raise AssertionError(f"moe_ep M={m} rank {r}: max |err| {err} "
+                             f"(tol {EP_TOL}), aux {float(aux)} vs the "
+                             f"slices' mean {aux_mean}")
+    return dict(path=f"moe_ep_m{m}", experts=cfg.moe.n_experts,
+                local_experts=cfg.moe.n_experts // m, top_k=cfg.moe.top_k,
+                tokens=b * s, slice_tokens=t_r, max_abs_err=err, tol=EP_TOL,
+                aux=float(aux), collectives=ep_counts,
+                ep_ms=ep_ms, spmd_slice_ms=spmd_ms, label=MD_LABEL,
+                launches=launches)
+
+
+def dp_argv(bits, ckpt_dir, steps):
+    """The training launcher's arguments of train_dp_tiny: TINY, ``steps``
+    steps at the global batch 16 x 64 on the card, checkpointed only at
+    the end."""
+    return ["--device", "cuda", "--arch", "tiny", "--steps", str(steps),
+            "--batch", "16", "--seq", "64", "--ckpt-dir", ckpt_dir,
+            "--ckpt-every", "0", "--log-every", "0", "--grad-compress-bits",
+            str(bits)]
+
+
+def dp_run(argv):
+    """The training launcher on this process's world (its mesh (world, 1)
+    over ("data", "model")); returns its losses and every param, flat."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    trainer, result, _ = launcher.main(argv, log=lambda s: None)
+    flat = torch.cat([t.reshape(-1) for t in tree_leaves(trainer.params)])
+    return ([h["loss"] for h in trainer.history], flat.cpu().numpy(),
+            time.perf_counter() - t0)
+
+
+def md_rank(rank, world, llama, dp_ckpt):
+    """One rank of a multi-device spawn. Two ranks: TP serving at tp 2 (W4
+    and W4A8), the MoE block expert-parallel at M 2, and TINY trained data-
+    parallel through the launcher (float, then int8-compressed, into the
+    checkpoint directories ``dp_ckpt`` by bits). Four ranks: TP serving at
+    tp 4 and the MoE block at M 4. Returns the metrics and tokens by
+    path."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((world,), ("model",))
+    out = {}
+    with _quiet(rank):
+        label = f"serve_tp{world}_w4"
+        out[label] = tp_serve_rank(llama, world, mesh, label, LLAMA_WORK)
+        if world == 2:
+            out["serve_tp_w4a8"] = tp_serve_rank(
+                llama.replace(n_repeats=TP_W4A8_LAYERS), 2, mesh,
+                "serve_tp_w4a8", LLAMA_WORK, act_bits=8)
+        label = f"moe_ep_m{world}"
+        out[label] = ep_block_rank(get_config("deepseek-v2-lite-16b"), mesh,
+                                   EP_TOKENS)
+        print("moe_ep", json.dumps(out[label]))
+        release()
+        if world == 2:
+            out["train_dp"] = {
+                bits: dp_run(dp_argv(bits, ckpt, DP_STEPS))
+                for bits, ckpt in dp_ckpt.items()}
+    return out
+
+
+def check_tp_tokens(label, cfg, ranks, ref, act_bits=0):
+    """Every rank's streams equal each other's; rank 0's equal the tp=1
+    run's ``ref`` (tokens, plain logits and prompts by rid) up to near-
+    ties (``same_tokens_but_near_ties``: the row-parallel all-reduce sums
+    in another order than tp=1's K loop), and every one of their tokens is
+    held against the plain forward over their own sequences, as the tp=1
+    run's are (``check_against_plain`` on the card on the tp=1 deploy of
+    the same weights, whose slices the ranks hold; at A8 with the margin
+    measured), so a stream that parted at a near-tie is checked to its
+    end. Returns the counts of both checks."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.quant.deploy import quantize_params_for_serving
+    from repro_torch.models.transformer import init_lm
+
+    want, preds, prompts = ref
+    toks = [r[0] for r in ranks]
+    if any(t != toks[0] for t in toks):
+        raise AssertionError(f"{label}: the ranks' streams differ")
+    same, flips = same_tokens_but_near_ties(label, toks[0], want, preds,
+                                            sorted(want))
+    bits, group = tp_deploy(act_bits)
+    params = quantize_params_for_serving(
+        cfg, init_lm(cfg, seed=SEED, device="cuda"), bits=bits,
+        group_size=group, act_bits=act_bits, device="cuda")
+    done = [SimpleNamespace(rid=rid, prompt=prompts[rid],
+                            n_prompt=len(prompts[rid]), tokens=t)
+            for rid, t in sorted(toks[0].items())]
+    line = {}
+    check_against_plain(cfg, SimpleNamespace(params=params), done,
+                        measure_margin=bool(act_bits), plain_on_card=True,
+                        into=line)
+    del params, done
+    release()
+    return dict(identical_to_tp1=same, near_tie_flips=flips,
+                tokens=line["tokens"],
+                plain_check=dict(compared=line["compared"],
+                                 agreed=line["agreed"],
+                                 margin=line["margin"],
+                                 within_margin_of_top=line.get(
+                                     "within_margin_of_top"),
+                                 seconds=line["seconds"]))
+
+
+def tp_w4a8_reference(cfg):
+    """The tp=1 W4A8 run the TP one is held against: the same RTN W4A8
+    per-channel deploy, served by this process, its tokens held against
+    the plain forward at the measured margin (check_against_plain)."""
+    from repro_torch.models.transformer import init_lm
+
+    bits, group = tp_deploy(act_bits=8)
+    engine, done, stats = serve(cfg, init_lm(cfg, seed=SEED, device="cuda"),
+                                "serve_tp1_w4a8", LLAMA_WORK,
+                                quant_bits=bits, quant_group=group,
+                                act_bits=8)
+    preds = check_against_plain(cfg, engine, done, measure_margin=True,
+                                plain_on_card=True)
+    ref = ({r.rid: list(r.tokens) for r in done},
+           {r.rid: p for r, p in zip(done, preds)},
+           {r.rid: r.prompt for r in done})
+    del engine, done, preds
+    release()
+    return ref, stats
+
+
+def multi_device_paths(llama):
+    """The multi-device paths, in two spawns of gloo ranks on the one
+    card: two ranks (serve_tp2_w4, serve_tp_w4a8 against this process's
+    tp=1 run of it, moe_ep_m2, train_dp_tiny against this process's
+    one-rank runs), then four (serve_tp4_w4, moe_ep_m4); then a straggler
+    through the elastic coordinator. Returns their metrics by path
+    name."""
+    from repro_torch.launch.elastic import ElasticCoordinator
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.launch.train import straggler_handler
+
+    w4a8 = llama.replace(n_repeats=TP_W4A8_LAYERS)
+    out = {}
+    with phase("serve_tp1_w4a8"):
+        ref_a8, out["serve_tp1_w4a8"] = tp_w4a8_reference(w4a8)
+    ref_w4 = TP_REFERENCE.pop("serve_w4")
+    print("multi-device: ranks on one card, backend gloo (NCCL refuses "
+          "two ranks on one device)")
+    for world in (2, 4):
+        with phase(f"md_ranks_{world}"), \
+                tempfile.TemporaryDirectory() as tmp:
+            dp_ckpt = {bits: f"{tmp}/dp{bits}" for bits in (0, 8)}
+            ranks = run_ranks(md_rank, world, backend="gloo",
+                              args=(llama, dp_ckpt), timeout=600)
+        label = f"serve_tp{world}_w4"
+        got = [r[label] for r in ranks]
+        with phase(f"{label}_plain_check"):
+            held = check_tp_tokens(label, llama, got, ref_w4)
+        stats = out[label] = got[0][1]
+        print("tp_serve", json.dumps(dict(
+            path=label, tp=world, card=CARD, **held,
+            all_reduces_per_decode_step=stats["all_reduces_per_decode_step"],
+            per_rank_param_bytes=[g[1]["placement"]["params"]
+                                  ["per_device_bytes"] for g in got],
+            global_param_bytes=stats["placement"]["params"]["global_bytes"],
+            per_rank_kv_bytes=stats["placement"]["kv"]["per_device_bytes"],
+            global_kv_bytes=stats["placement"]["kv"]["global_bytes"],
+            launches_per_decode_step=stats["launches_per_decode_step"],
+            deploy_quantize_pack=stats["launches"]["quantize_pack"],
+            tpot_ms_p50=stats["tpot_ms_p50"], tpot_label=MD_LABEL)))
+        out[f"moe_ep_m{world}"] = ranks[0][f"moe_ep_m{world}"]
+        if world == 2:
+            got = [r["serve_tp_w4a8"] for r in ranks]
+            with phase("serve_tp_w4a8_plain_check"):
+                held = check_tp_tokens("serve_tp_w4a8", w4a8, got, ref_a8,
+                                       act_bits=8)
+            out["serve_tp_w4a8"] = got[0][1]
+            print("tp_serve", json.dumps(dict(
+                path="serve_tp_w4a8", tp=2, card=CARD, **held,
+                all_reduces_per_decode_step=got[0][1][
+                    "all_reduces_per_decode_step"],
+                tpot_ms_p50=got[0][1]["tpot_ms_p50"], tpot_label=MD_LABEL)))
+            with phase("train_dp_tiny_one_rank"):
+                out["train_dp_tiny"] = check_dp(
+                    [r["train_dp"] for r in ranks], DP_STEPS)
+        del ranks, got
+    del ref_w4, ref_a8
+    # one straggler through the elastic coordinator of the DP world (one
+    # chip a host, evicted at the first strike): the plan it leads to
+    lines = []
+    coord = ElasticCoordinator(DP_RANKS, model_parallel=1, chips_per_pod=64,
+                               straggler_tolerance=1)
+    straggler_handler(coord, lines.append)(7, 1.0)
+    print("elastic", json.dumps(dict(lines=lines, healthy=coord.healthy,
+                                     events=len(coord.events))))
+    if not any("remesh plan" in line for line in lines):
+        raise AssertionError(f"the coordinator gave no plan: {lines}")
+    for name in out:
+        out[name].setdefault("launches", dict.fromkeys(
+            out["serve_tp2_w4"]["launches"], 0))
+    return out
+
+
+def check_dp(ranks, steps):
+    """TINY's ``steps`` steps on DP_RANKS ranks against this process alone
+    at the same global batch, float and int8-compressed: the ranks' params
+    equal bit for bit, and their losses the one-rank run's within
+    DP_LOSS_RTOL (Adam's sign(g) steps turn last-bit gradient differences
+    into whole lr moves of a few params, which later losses feel).
+    Returns the metrics."""
+    out = {}
+    for bits in (0, 8):
+        runs = [r[bits] for r in ranks]
+        with tempfile.TemporaryDirectory() as tmp:
+            one = dp_run(dp_argv(bits, tmp, steps))
+        if any(not np.array_equal(r[1], runs[0][1]) for r in runs):
+            raise AssertionError(f"train_dp bits={bits}: the ranks' params "
+                                 f"differ")
+        rel = float(np.max(np.abs(np.asarray(runs[0][0])
+                                  / np.asarray(one[0]) - 1)))
+        line = dict(path="train_dp_tiny", grad_compress_bits=bits,
+                    ranks=len(runs), steps=steps, losses=runs[0][0],
+                    one_rank_losses=one[0], max_loss_rel_diff=rel,
+                    rtol=DP_LOSS_RTOL,
+                    max_param_diff=float(np.abs(runs[0][1]
+                                                - one[1]).max()),
+                    seconds=runs[0][2], one_rank_seconds=one[2],
+                    label=MD_LABEL)
+        print("train_dp", json.dumps(line))
+        if not (rel <= DP_LOSS_RTOL and runs[0][0][-1] < runs[0][0][0]):
+            raise AssertionError(f"train_dp bits={bits}: {line}")
+        out[f"bits{bits}"] = line
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4123,6 +4539,8 @@ def main() -> int:
     print(f"TINY quality paths done: {time.perf_counter() - t_all:.1f} s")
     paths.update(llama_paths(get_config("llama3.2-1b")))
     print(f"llama3.2-1b paths done: {time.perf_counter() - t_all:.1f} s")
+    paths.update(multi_device_paths(get_config("llama3.2-1b")))
+    print(f"multi-device paths done: {time.perf_counter() - t_all:.1f} s")
     paths.update(moe_paths(get_config("mixtral-8x22b").replace(
         n_repeats=MOE_LAYERS)))
     print(f"mixtral-8x22b paths done: {time.perf_counter() - t_all:.1f} s")

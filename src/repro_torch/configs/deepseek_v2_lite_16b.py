@@ -2,10 +2,9 @@
 (kv_lora 512, nope 128 + rope 64, v 128), MoE 64 routed top-6 + 2 shared
 experts (d_ff_expert 1408), first layer dense (d_ff 10944), vocab 102400.
 
-The JAX package's config names ``moe_impl="shard_map"``, its explicit
-all-to-all expert-parallel dispatch, which it takes only under an active
-multi-device mesh and otherwise runs the spmd dispatch. The port runs on
-one device, so it keeps the spmd dispatch that the JAX package runs there.
+``moe_impl="shard_map"``, as in the JAX package: the explicit all-to-all
+expert-parallel dispatch (models/moe_shardmap.py), taken only under a mesh
+with a "model" axis; without one the spmd dispatch runs.
 """
 from repro_torch.models.config import LayerSpec, MLAConfig, ModelConfig, \
     MoEConfig
@@ -28,6 +27,7 @@ CONFIG = ModelConfig(
     mla=MLAConfig(kv_lora_rank=512, q_lora_rank=0, qk_nope_head_dim=128,
                   qk_rope_head_dim=64, v_head_dim=128),
     moe=MoEConfig(n_experts=64, top_k=6, n_shared=2, d_ff_expert=1408),
+    moe_impl="shard_map",
     serve_quant_bits=4,
 )
 

@@ -3,12 +3,11 @@ attn:mamba 1:7 interleave (attn at index 4 of each 8-layer period), MoE 16
 experts top-2 (d_ff 24576) on every other layer, vocab 65536, no RoPE.
 
 Jamba uses Mamba-1 blocks upstream; the JAX package's SSM substrate is
-Mamba2/SSD, and so is the port's. The JAX package's config names
-``moe_impl="shard_map"``, its explicit all-to-all expert-parallel
-dispatch, which it takes only under an active multi-device mesh and
-otherwise runs the spmd dispatch. The port runs on one device, so it keeps
-the spmd dispatch that the JAX package runs there. (``fsdp``, a sharding
-knob of the JAX package, has no field here.)
+Mamba2/SSD, and so is the port's. ``moe_impl="shard_map"``, as in the
+JAX package: the explicit all-to-all expert-parallel dispatch
+(models/moe_shardmap.py), taken only under a mesh with a "model" axis;
+without one the spmd dispatch runs. (``fsdp``, a sharding knob of the JAX
+package's offline tools, has no field here.)
 
 At published widths one period does not fit one 80 GB card (each MoE
 layer is 16 x 3 x 8192 x 24576 f32 weights, 38.7 GB); a card run cuts the
@@ -37,6 +36,7 @@ CONFIG = ModelConfig(
     act="silu",
     rope="none",
     moe=MoEConfig(n_experts=16, top_k=2, d_ff_expert=24576),
+    moe_impl="shard_map",
     mamba=Mamba2Config(d_state=128, head_dim=64, expand=2, d_conv=4,
                        n_groups=1, chunk=128),
     serve_quant_bits=4,

@@ -17,6 +17,7 @@ Value i of packed group r holds K row ``r * vpg + i``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -197,16 +198,25 @@ def stack_quantized(parts: list) -> QuantizedTensor:
                            (len(parts),) + tuple(p0.shape), p0.act_bits)
 
 
-def quantize_activation(x: torch.Tensor, bits: int = 8):
+def quantize_activation(x: torch.Tensor, bits: int = 8,
+                        axis_name: Optional[str] = None):
     """Dynamic symmetric per-token activation quantization.
 
     Returns (q, scale): q int8 with the shape of x, scale f32 (..., 1) with
     q * scale ~= x, |error| <= scale / 2 (each row's amax lands on the
     grid). Rounds half to even like ``jnp.round``. q carries no gradient;
-    scale does, through the amax (to each row's largest |x|)."""
+    scale does, through the amax (to each row's largest |x|).
+
+    ``axis_name``: a mesh axis over which the token's feature dim is split
+    (a tensor-parallel row-parallel linear). The amax is then all-reduced
+    with MAX, so every rank quantizes its slice on the grid one device
+    would use; a rank-local amax would change the quantization itself."""
     qmax = qmax_for_bits(bits)
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1, keepdim=True)
+    if axis_name is not None:
+        from repro_torch.distributed.collectives import all_reduce
+        amax = all_reduce(amax, axis_name, op="max")
     scale = amax.clamp_min(1e-10) / qmax
     q = torch.round(xf / scale).clamp(-qmax, qmax).to(torch.int8)
     return q, scale

@@ -73,12 +73,15 @@ def dequant_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
                                    group_size=qt.group_size, k=qt.k)
 
 
-def w8a8_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+def w8a8_matmul(x: torch.Tensor, qt: QuantizedTensor,
+                amax_axis: Optional[str] = None) -> torch.Tensor:
     """True A8 path: per-token int8 activation quantize, the int8 x int8
     matmul (exact int32 per scale group), per-token rescale. x: (M, K) f32
     -> (M, N) f32. The int8 codes carry no gradient, so gradients reach x
-    through the per-token scale only, as in the JAX package."""
-    xq, xs = quantize_activation(x, 8)
+    through the per-token scale only, as in the JAX package. ``amax_axis``
+    (a row-parallel linear's K split) makes the token's grid global: its
+    amax is all-reduced with MAX over that mesh axis."""
+    xq, xs = quantize_activation(x, 8, axis_name=amax_axis)
     if xq.device.type == "cpu":
         y = ref.w8a8_matmul_ref(xq, qt.qw, qt.scale, bits=qt.bits,
                                 group_size=qt.group_size, k=qt.k)

@@ -37,7 +37,14 @@ virtual clock. ``--engine static`` runs the static-batch ``ServeEngine``
 on the same workload (groups of one prompt length, lockstep decode),
 ``--engine both`` the two side by side.
 
-``--tp`` (tensor parallelism) is not ported and is refused, never ignored.
+``--tp N`` serves tensor-parallel over N ranks, one process each: the
+launcher spawns them (or, started by ``torchrun --nproc-per-node N``,
+runs as the rank torchrun made), every rank runs this same program on its
+shard, and rank 0 prints. The process group's backend is ``gloo`` for
+``--device cpu`` and ``nccl`` for the card; ``--dist-backend`` overrides
+it. Several ranks on one card need ``--dist-backend gloo`` (NCCL refuses
+two ranks on one device). ``--tp`` with the static engine is refused, as
+by the JAX launcher.
 ``--arch whisper-medium`` is refused, as by the JAX launcher (the
 encoder-decoder has no paged serving; ``models/encdec.py`` serves it on
 contiguous caches); ``--arch internvl2-2b`` is served as a text LM, with
@@ -46,10 +53,15 @@ no patch embeddings, as the JAX launcher serves it.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.registry import list_archs
@@ -61,11 +73,6 @@ from repro_torch.serve import traffic
 from repro_torch.serve.engine import (ContinuousEngine, ServeEngine,
                                       attention_only_refusal)
 from repro_torch.serve.faults import FaultPlan, run_resilient
-
-# flag -> (its default, the later slice that brings it; ROADMAP.md queue 1)
-_LATER = {
-    "tp": (1, "multi-device serving"),
-}
 
 
 def tree_size_bytes(tree) -> int:
@@ -145,7 +152,14 @@ def run_continuous(cfg, params, work, args, device):
                                draft_bits=args.draft_bits,
                                spec_k=args.spec_k, preempt=args.preempt,
                                age_promote=args.age_promote,
-                               seed=args.seed, device=device)
+                               seed=args.seed, tp=args.tp, device=device)
+        if args.tp > 1:
+            rep = eng.tp_placement_report()
+            print(f"tensor-parallel x{args.tp}: params "
+                  f"{rep['params']['per_device_bytes'] / 1e6:.1f} MB/device "
+                  f"(global {rep['params']['global_bytes'] / 1e6:.1f} MB), "
+                  f"KV pools "
+                  f"{rep['kv']['per_device_bytes'] / 1e6:.1f} MB/device")
         buckets = sorted({eng._bucket(len(it.prompt)) for it in work})
         waves = 2 if args.prefix_share else 1
         shared_floor = ((args.shared_prefix // args.page_size)
@@ -334,14 +348,19 @@ def parse_args(argv=None):
     ap.add_argument("--snapshot-every", type=int, default=0,
                     help="snapshot the engine every N steps (0 = off); a "
                          "crash recovers from the latest")
-    # the JAX launcher's flag of a later slice (refused unless default)
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel width of the continuous engine: "
+                         "N ranks, one process each")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=["gloo", "nccl"],
+                    help="the ranks' process-group backend (default: gloo "
+                         "for --device cpu, nccl for the card; several "
+                         "ranks on one card need gloo)")
     args = ap.parse_args(argv)
-    for name, (default, later) in _LATER.items():
-        if getattr(args, name) != default:
-            raise SystemExit(
-                f"--{name.replace('_', '-')} is not ported yet: it comes "
-                f"with the {later} slice (ROADMAP.md, queue 1)")
+    if args.tp > 1 and args.engine != "continuous":
+        # the static baseline has no TP path
+        raise SystemExit("--tp applies to the continuous engine only "
+                         "(use --engine continuous)")
     if args.spec_decode and args.engine != "continuous":
         raise SystemExit("--spec-decode applies to the continuous engine "
                          "only (use --engine continuous)")
@@ -353,11 +372,52 @@ def parse_args(argv=None):
     return args
 
 
+def _rank_main(rank: int, world: int, argv):
+    """One rank of a ``--tp`` run: the launcher on this rank's shard,
+    printing on rank 0 only; returns the served tokens by request."""
+    out = contextlib.nullcontext() if rank == 0 else \
+        contextlib.redirect_stdout(io.StringIO())
+    with out:
+        _, report, _ = _serve(parse_args(argv), rank)
+    return [list(r.tokens) for r in report["requests"]]
+
+
 def main(argv=None):
     """Run the launcher; returns (engine, report, pipeline stats): the
     continuous engine's when it runs (with ``--engine both`` the static
-    run's report under report["static"]), else the static engine's."""
+    run's report under report["static"]), else the static engine's.
+
+    With ``--tp N`` outside a process group it spawns the N ranks and
+    returns (None, every rank's served tokens by request, None); started
+    by torchrun it joins torchrun's group and runs as its rank."""
     args = parse_args(argv)
+    if args.tp > 1 and not dist.is_initialized():
+        from repro_torch.launch.spawn import default_backend, run_ranks
+
+        backend = args.dist_backend or default_backend(args.device)
+        if "WORLD_SIZE" in os.environ:        # torchrun made this rank
+            dist.init_process_group(backend, init_method="env://")
+            rank = dist.get_rank()
+            try:
+                out = contextlib.nullcontext() if rank == 0 else \
+                    contextlib.redirect_stdout(io.StringIO())
+                with out:
+                    return _serve(args, rank)
+            finally:
+                dist.destroy_process_group()
+        print(f"--tp {args.tp}: {args.tp} ranks, backend {backend}")
+        argv = sys.argv[1:] if argv is None else list(argv)
+        tokens = run_ranks(_rank_main, args.tp, backend=backend,
+                           args=(argv,), timeout=24 * 3600.0)
+        return None, tokens, None
+    return _serve(args, dist.get_rank() if dist.is_initialized() else 0)
+
+
+def _serve(args, rank: int):
+    """The launcher's run on this process (one rank of ``--tp``, or the
+    only one)."""
+    if args.tp > 1 and args.device != "cpu" and torch.cuda.device_count():
+        torch.cuda.set_device(rank % torch.cuda.device_count())
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.enc_dec:

@@ -42,6 +42,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import TP_AXIS
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.linear import dense, init_dense
@@ -361,7 +362,7 @@ def apply_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         raise ValueError("a paged cache needs 'block_table' (decode) or "
                          "'bt_rows' (prefill, with 'kv_len' when the rows "
                          "read earlier context) indices")
-    return _out(p, o.reshape(b, s, h * hd), taps, tap_prefix)
+    return _out(cfg, p, o.reshape(b, s, h * hd), taps, tap_prefix)
 
 
 def apply_cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
@@ -400,12 +401,14 @@ def apply_cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
             _cross_fill(cache, k, v, kv_pos)
     o = attention_core(q, k, v, q_pos=positions, kv_pos=kv_pos, causal=False,
                        block_kv=cfg.attn_block_kv)
-    return _out(p, o.reshape(b, s, h * hd), taps, tap_prefix)
+    return _out(cfg, p, o.reshape(b, s, h * hd), taps, tap_prefix)
 
 
-def _out(p: dict, o: torch.Tensor, taps: Optional[dict],
+def _out(cfg: ModelConfig, p: dict, o: torch.Tensor, taps: Optional[dict],
          tap_prefix: str) -> torch.Tensor:
-    """The output projection of the heads' concatenated outputs."""
+    """The output projection of the heads' concatenated outputs; under
+    serving TP (``cfg.tp > 1``: a rank's heads) it is row-parallel and
+    all-reduces over the "model" axis."""
     if taps is not None:
         taps[tap_prefix + "wo"] = o
-    return dense(p["wo"], o)
+    return dense(p["wo"], o, reduce_axis=TP_AXIS if cfg.tp > 1 else None)

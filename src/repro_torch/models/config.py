@@ -4,7 +4,7 @@ A plain-Python copy (the JAX module imports jax). It keeps the fields the
 ported slices use, with the JAX package's names and defaults, and
 ``validate`` refuses what the port does not implement (sinusoidal
 position embeddings in ``_embed``, which the JAX package's ``_embed`` has
-no branch for either; the shard_map MoE) instead of running it wrong.
+no branch for either) instead of running it wrong.
 
 The layer stack is ``prefix_pattern`` (unstacked blocks, e.g. DeepSeek's
 first dense layer) followed by ``pattern`` repeated ``n_repeats`` times.
@@ -100,9 +100,16 @@ class ModelConfig:
     param_dtype: str = "float32"
     serve_quant_bits: int = 0
     serve_quant_group: int = 128
-    moe_impl: str = "spmd"      # spmd | shard_map (multi-device EP only)
+    moe_impl: str = "spmd"      # spmd | shard_map (expert-parallel
+                                # all-to-all dispatch under a mesh with a
+                                # "model" axis, models/moe_shardmap.py)
     kv_cache_bits: int = 0      # 8: int8 KV pools with f32 scale pools
     attn_block_kv: int = 512    # KV block of the chunked attention core
+    tp: int = 1                 # the tensor-parallel width the model code
+                                # runs under: a rank's config in TP serving
+                                # (partitioning.py, tp_local_cfg) has tp > 1,
+                                # so row-parallel linears all-reduce over
+                                # "model"; elsewhere 1 and no collective
 
     @property
     def hd(self) -> int:
@@ -132,9 +139,7 @@ class ModelConfig:
             raise ValueError(f"{self.name}: MoE layers need cfg.moe")
         if any(s.kind == "mamba" for s in specs) and self.mamba is None:
             raise ValueError(f"{self.name}: mamba layers need cfg.mamba")
-        if self.moe_impl != "spmd":
-            # the explicit all-to-all path exists only on a multi-device
-            # mesh (ROADMAP.md queue 1, multi-device)
+        if self.moe_impl not in ("spmd", "shard_map"):
             unsupported.append(f"moe_impl={self.moe_impl}")
         if self.attention == "mla" and self.mla is None:
             raise ValueError(f"{self.name}: MLA attention needs cfg.mla")

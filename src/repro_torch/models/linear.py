@@ -11,7 +11,8 @@ tensor or a packed ``QuantizedTensor``:
     int8 activations, the CUDA int8 matmul kernel (its plain version on
     the CPU), per-token rescale;
 
-for bits {2, 3, 4, 8}. Other ``act_bits`` (the JAX package's legacy
+for bits {2, 3, 4, 8}. ``reduce_axis`` marks a row-parallel call under
+tensor parallelism (see ``dense``). Other ``act_bits`` (the JAX package's legacy
 per-tensor fake-quant) are refused. ``dense_experts`` is the same for an
 MoE layer's stacked (E, K, N) experts over its (E, C, K) capacity buffer:
 a float stack goes to ``torch.matmul`` in f32, a packed one to the
@@ -34,9 +35,12 @@ through the per-token scale that rescales it (to each token's largest
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.quant.types import QuantizedTensor, dequantize
+from repro_torch.distributed.collectives import all_reduce
 from repro_torch.kernels import ops
 
 
@@ -56,11 +60,15 @@ class _DequantMatmul(torch.autograd.Function):
         return torch.matmul(grad, dequantize(ctx.qt).transpose(-1, -2)), None
 
 
-def _dense_quantized(w: QuantizedTensor, x: torch.Tensor) -> torch.Tensor:
+def _dense_quantized(w: QuantizedTensor, x: torch.Tensor,
+                     reduce_axis: Optional[str] = None) -> torch.Tensor:
+    """``reduce_axis`` (a row-parallel call: K split over that mesh axis)
+    makes the A8 per-token activation grid global, its amax all-reduced
+    with MAX; the sum of the partial outputs stays in ``dense``."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
     if w.act_bits == 8:
-        y = ops.w8a8_matmul(x2, w)
+        y = ops.w8a8_matmul(x2, w, amax_axis=reduce_axis)
     elif w.act_bits == 0:
         y = (_DequantMatmul.apply(x2, w)
              if torch.is_grad_enabled() and x2.requires_grad
@@ -72,13 +80,22 @@ def _dense_quantized(w: QuantizedTensor, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, w.n)
 
 
-def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ w (+ b). x: (..., K) f32 -> (..., N) f32."""
+def dense(p: dict, x: torch.Tensor, *,
+          reduce_axis: Optional[str] = None) -> torch.Tensor:
+    """y = x @ w (+ b). x: (..., K) f32 -> (..., N) f32.
+
+    ``reduce_axis`` marks a *row-parallel* call under tensor parallelism:
+    the weight's K dim is split over that mesh axis, so the rank's product
+    is a partial sum, all-reduced before the bias is added (adding the
+    replicated bias on every rank would count it ``tp`` times). Callers
+    pass it only when ``cfg.tp > 1``, under the engine's mesh."""
     w = p["w"]
     if isinstance(w, QuantizedTensor):
-        y = _dense_quantized(w, x)
+        y = _dense_quantized(w, x, reduce_axis)
     else:
         y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    if reduce_axis is not None:
+        y = all_reduce(y, reduce_axis)
     if p.get("b") is not None:
         y = y + p["b"]
     return y

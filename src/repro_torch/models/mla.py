@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import TP_AXIS
 from repro_torch.models.attention import (NEG, _cache_write, _core,
                                           _paged_write_decode,
                                           _paged_write_prefill)
@@ -194,4 +195,5 @@ def apply_mla(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
             b, s, h * m.v_head_dim)
     if taps is not None:
         taps[tap_prefix + "wo"] = o
-    return dense(p["wo"], o)
+    # serving TP: a rank's heads, so the output projection is row-parallel
+    return dense(p["wo"], o, reduce_axis=TP_AXIS if cfg.tp > 1 else None)

@@ -6,9 +6,12 @@ scattered into a per-expert (E, C, d) buffer (C = capacity), the experts
 run as one batched matmul per linear (``dense_experts``: packed stacks on
 the expert-batched kernels, every expert in one launch), and the results
 are gathered back with the router gates. Tokens past an expert's capacity
-are dropped, as in Switch/GShard. The index ops (``index_put`` with
-accumulation, advanced-index gathers) are ones autograd differentiates,
-so the norm tweak reaches ln2 through the router and the experts.
+are dropped, as in Switch/GShard. With ``moe_impl="shard_map"`` under a
+mesh, ``apply_moe`` dispatches expert-parallel instead where the JAX
+package's rule allows (models/moe_shardmap.py). The index ops
+(``index_put`` with accumulation, advanced-index gathers) are ones
+autograd differentiates, so the norm tweak reaches ln2 through the router
+and the experts.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quant.types import QuantizedTensor
+from repro_torch.distributed.sharding import TP_AXIS, active_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.linear import (dense, dense_experts, init_dense,
                                        init_dense_experts)
@@ -48,7 +53,9 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor,
         h = F.gelu(dense(p["wi"], x), approximate="tanh")
     if taps is not None:
         taps[tap_prefix + "wo"] = h
-    return dense(p["wo"], h)
+    # serving TP: wi/wg are column-parallel (a rank's d_ff slice), the down
+    # projection row-parallel, all-reduced over the "model" axis
+    return dense(p["wo"], h, reduce_axis=TP_AXIS if cfg.tp > 1 else None)
 
 
 # ------------------------------------------------------------------- MoE
@@ -85,6 +92,20 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor,
     Capacity counts all B*S tokens, pads included, as in the JAX package."""
     m = cfg.moe
     b, s, d = x.shape
+    if cfg.moe_impl == "shard_map" and taps is None and valid is None:
+        # expert parallelism (models/moe_shardmap.py) under the JAX
+        # package's rule: a mesh with a "model" axis, float experts, E
+        # divisible by the axis and the tokens too. x is the rank's data
+        # shard here, so the reference's batch-over-data condition holds
+        # by construction
+        mesh = active_mesh()
+        float_experts = not isinstance(p["experts"]["wi"]["w"],
+                                       QuantizedTensor)
+        if (mesh is not None and "model" in mesh.shape and float_experts
+                and m.n_experts % mesh.shape["model"] == 0
+                and (b * s) % mesh.shape["model"] == 0):
+            from repro_torch.models.moe_shardmap import moe_ep_shardmap
+            return moe_ep_shardmap(cfg, p, x)
     t = b * s
     e, k = m.n_experts, m.top_k
     cap = moe_capacity(cfg, t)

@@ -51,8 +51,18 @@ that fails raises, and an injected ``kernel_fault`` raises
 ``FaultInjected`` (a crash that ``serve.faults.run_resilient`` recovers
 from a snapshot). An MoE's capacity is cross-token: a prefill batch
 routes its padded tokens' count, so with ``prefill_batch`` > 1 which
-tokens are dropped depends on the co-batched prompts. Tensor parallelism
-is not ported.
+tokens are dropped depends on the co-batched prompts.
+
+``ContinuousEngine(tp=N)`` serves tensor-parallel over the "model" axis
+of a mesh of N ranks, one process each (``launch/serve.py --tp N`` spawns
+them): every rank builds the same engine, cuts its shard of the params
+(``distributed/partitioning.py``: column-parallel wq/wk/wv/wi/wg, row-
+parallel wo, packed weights and their scales jointly; a rank packs only
+its shard), holds its kv-head slice of every page, and runs the model on
+its heads with an all-reduce after each row-parallel projection. The
+lm_head is replicated, so the logits, and with them the scheduler, the
+page budget, the block tables and the sampling (a generator seeded alike
+on every rank), are the same on every rank without any exchange.
 
 MLA (DeepSeek) keeps a latent cache, c_kv and k_pe, in its pools, and
 its decode reads them by a gather and plain f32 einsums, as in the JAX
@@ -68,7 +78,9 @@ engine's messages (``attention_only_refusal``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import time
 import zlib
 from typing import Callable, Optional, Sequence
@@ -78,21 +90,26 @@ import torch
 
 from repro_torch.core.quant.deploy import (quantize_params_for_serving,
                                            to_device)
+from repro_torch.core.quant.types import QuantizedTensor
 from repro_torch.device import resolve_device
+from repro_torch.distributed.partitioning import (local_shard,
+                                                  paged_pool_pspecs,
+                                                  serve_param_shardings,
+                                                  serve_tp_widths,
+                                                  tp_local_cfg)
+from repro_torch.distributed.sharding import TP_AXIS, _flat, sharding_ctx
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (init_cache, init_contiguous_cache,
                                             is_quantized, lm_decode,
                                             lm_forward, lm_prefill, lm_verify)
 from repro_torch.serve.faults import Fault, FaultInjected, FaultPlan
-from repro_torch.serve.kvcache import PagePool, PageSpec, default_page_spec
+from repro_torch.serve.kvcache import (POOL_KEYS, PagePool, PageSpec,
+                                      default_page_spec, pool_head_dim)
 from repro_torch.serve.sampling import (sample, spec_accept_greedy,
                                         spec_accept_sample)
 from repro_torch.serve.scheduler import Request, Scheduler
 
-# the paged pool leaves of a cache tree; each is (L, P, page, KVH[, hd]),
-# its page axis 1
-POOL_KEYS = ("k_pool", "v_pool", "k_scale_pool", "v_scale_pool")
-_PAGE_AXIS = 1
+_PAGE_AXIS = 1      # the page axis of every pool leaf (serve/kvcache.py)
 
 
 def _serving_params(cfg: ModelConfig, params: dict, quant_bits: int,
@@ -110,6 +127,87 @@ def _serving_params(cfg: ModelConfig, params: dict, quant_bits: int,
         raise ValueError("act_bits needs quant_bits (the A8 tag lives on "
                          "packed weights)")
     return to_device(params, device)
+
+
+# ------------------------------------------------ tensor-parallel placement
+
+def _leaves(tree, specs=None, prefix: str = ""):
+    """(path, tensor, spec) of every tensor leaf of a param tree and its
+    spec tree (specs None: nothing split); a packed leaf's qw and scale
+    come as "path#qw" and "path#scale"."""
+    if isinstance(tree, QuantizedTensor):
+        yield (prefix + "#qw", tree.qw, None if specs is None else specs.qw)
+        yield (prefix + "#scale", tree.scale,
+               None if specs is None else specs.scale)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, None if specs is None else specs[k],
+                               f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree, specs
+
+
+def _split(spec, mesh) -> int:
+    """How many ranks a leaf's spec splits it over."""
+    if spec is None:
+        return 1
+    return math.prod(mesh.shape[a] for axes in spec for a in _flat(axes))
+
+
+def _left_whole(params, specs, intent, mesh) -> list[str]:
+    """The leaves the placement contract splits (their spec without a
+    mesh, ``intent``, names an axis) that ``specs`` leaves whole on
+    ``mesh``: a K split dropped for packed words or scale groups that do
+    not divide. A per-channel (1, N) scale of a row-parallel weight and
+    MLA's latent projection wdkv name no axis, so they are whole by
+    design and never listed."""
+    return [path for (path, _, spec), (_, _, want)
+            in zip(_leaves(params, specs), _leaves(params, intent))
+            if any(_flat(a) for a in want) and _split(spec, mesh) == 1]
+
+
+def _tp_serving_params(cfg: ModelConfig, params: dict, quant_bits: int,
+                       quant_group: int, act_bits: int,
+                       device: torch.device, mesh) -> tuple[dict, dict, dict]:
+    """This rank's serving params, their spec tree and the contract's
+    (the specs without a mesh). The rank packs the whole tree as one
+    device would, checks that every leaf the contract splits is split,
+    then keeps its shard: a legal K split holds whole packed words and
+    whole scale groups, so the shard's bytes are the whole tree's
+    sliced."""
+    packed = _serving_params(cfg, params, quant_bits, quant_group, act_bits,
+                             device)
+    specs = serve_param_shardings(mesh, cfg, packed)
+    intent = serve_param_shardings(None, cfg, packed)
+    bad = _left_whole(packed, specs, intent, mesh)
+    if bad:
+        raise ValueError(
+            f"tp={cfg.tp}: projection leaves stayed replicated: {bad}. "
+            f"For grouped quantization every shard must hold whole scale "
+            f"groups — pick a group_size dividing K/tp, or per-channel "
+            f"(group_size=-1)")
+    return local_shard(packed, specs, mesh), specs, intent
+
+
+def _tp_mesh(tp: int, mesh):
+    """The serving mesh: ``mesh`` checked against ``tp``, or a ("model",)
+    mesh over the whole initialised process group, whose size must be
+    ``tp``."""
+    from repro_torch.launch.mesh import make_mesh
+
+    if mesh is None:
+        import torch.distributed as dist
+
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world != tp:
+            raise ValueError(
+                f"tp={tp} needs {tp} ranks, the process group has {world} "
+                f"(spawn them with launch/serve.py --tp, or torchrun)")
+        mesh = make_mesh((tp,), (TP_AXIS,))
+    if int(mesh.shape.get(TP_AXIS, 1)) != tp:
+        raise ValueError(f"mesh axis {TP_AXIS!r} has size "
+                         f"{mesh.shape.get(TP_AXIS)} != tp={tp}")
+    return mesh
 
 
 @dataclasses.dataclass
@@ -458,7 +556,10 @@ class ContinuousEngine:
     re-stitches the block table and scatters the pages back, so the stream
     resumes where it stopped, mid-prefill included (a preempted request
     never prefills a token twice). ``age_promote`` bounds batch
-    starvation. ``faults`` is a ``FaultPlan`` fired step by step;
+    starvation. ``tp`` > 1 serves tensor-parallel over the "model" axis
+    of ``mesh`` (by default a mesh over the whole process group, which
+    must then have ``tp`` ranks); every rank builds this engine with the
+    same arguments. ``faults`` is a ``FaultPlan`` fired step by step;
     ``snapshot()`` / ``restore()`` capture and reload the whole serving
     state (serve/faults.py's ``run_resilient`` drives crash recovery).
     ``debug=True`` checks the pool's invariants and the slot mirrors
@@ -476,10 +577,30 @@ class ContinuousEngine:
                  spec_k: int = 4, preempt: bool = False,
                  age_promote: Optional[float] = None,
                  faults: Optional[FaultPlan] = None, debug: bool = False,
-                 device="cuda"):
+                 tp: int = 1, mesh=None, device="cuda"):
         cfg.validate()
         if cfg.enc_dec:
             raise NotImplementedError("paged serving covers decoder-only LMs")
+        if mesh is not None and tp == 1:
+            tp = int(mesh.shape.get(TP_AXIS, 1))
+        if tp > 1:
+            specs = cfg.all_layer_specs()
+            if any(s.kind != "attn" for s in specs) or \
+                    any(s.mlp == "moe" for s in specs):
+                # the placement contract covers dense attention decoders
+                # only, as in the JAX package
+                raise NotImplementedError(
+                    "tensor-parallel serving covers dense attention "
+                    "decoders (no MoE, no SSM blocks)")
+            if tp not in serve_tp_widths(cfg):
+                raise ValueError(
+                    f"tp={tp} is illegal for {cfg.name}: GQA head groups "
+                    f"must stay whole per shard and d_ff must split evenly "
+                    f"— legal widths {serve_tp_widths(cfg)}")
+            mesh = _tp_mesh(tp, mesh)
+            cfg = cfg.replace(tp=tp)
+        self.tp = tp
+        self.mesh = mesh if tp > 1 else None
         why = attention_only_refusal(
             cfg, preempt=preempt, prefix_share=prefix_share,
             chunked_prefill=chunked_prefill, spec_decode=spec_decode)
@@ -487,10 +608,16 @@ class ContinuousEngine:
             raise NotImplementedError(why)
         self.device = resolve_device(device)
         self.cfg = cfg
+        # the config the model code runs under: a rank's heads under TP
+        self.model_cfg = tp_local_cfg(cfg)
         self.spec_decode = bool(spec_decode)
         self.spec_k = spec_k
         self.draft_bits = draft_bits
         self.preempt = bool(preempt)
+        if self.preempt and tp > 1:
+            raise NotImplementedError(
+                "preempt + tensor-parallel serving is an open item "
+                "(spill must gather per-shard kv-head slices)")
         if self.preempt and self.spec_decode:
             raise NotImplementedError(
                 "preempt + spec_decode is not supported (the draft cache "
@@ -501,9 +628,10 @@ class ContinuousEngine:
                 # may route otherwise than M one-token decode steps
                 raise NotImplementedError(
                     "spec_decode does not cover capacity-routed MoE")
-            if prefix_share:
+            if tp > 1 or prefix_share:
                 raise NotImplementedError(
-                    "spec_decode is unshared for now (no prefix_share)")
+                    "spec_decode is single-device and unshared for now "
+                    "(no tp>1, no prefix_share)")
             if draft_bits not in (2, 3):
                 raise ValueError(f"draft_bits must be 2 or 3 (a draft at "
                                  f"the target's own width buys nothing), "
@@ -515,8 +643,15 @@ class ContinuousEngine:
                     "spec_decode requantizes the float params into the "
                     "draft; pass float params (+ quant_bits for the "
                     "target), not a pre-packed tree")
-        self.params = _serving_params(cfg, params, quant_bits, quant_group,
-                                      act_bits, self.device)
+        self._param_specs = self._param_intent = None
+        if self.tp > 1:
+            (self.params, self._param_specs,
+             self._param_intent) = _tp_serving_params(
+                cfg, params, quant_bits, quant_group, act_bits, self.device,
+                self.mesh)
+        else:
+            self.params = _serving_params(cfg, params, quant_bits,
+                                          quant_group, act_bits, self.device)
         if self.spec_decode:
             # the same params requantized harder, packed sub-byte
             self.draft_params = quantize_params_for_serving(
@@ -542,14 +677,21 @@ class ContinuousEngine:
         self.pool = PagePool(self.spec, n_slots,
                              prefix_cache=self.prefix_share)
         self.sched = Scheduler(n_slots, self.pool,
-                               prefix_share=self.prefix_share,
+                               prefix_share=self.prefix_share, tp=self.tp,
                                age_promote=age_promote,
                                preempt_hook=(self._spill_slot
                                              if self.preempt else None))
-        self.cache = init_cache(cfg, self.spec, self.device, n_slots)
+        self.cache = init_cache(self.model_cfg, self.spec, self.device,
+                                n_slots)
+        if self.tp > 1:
+            # the whole cache's shapes (meta tensors, no memory) and the
+            # pools' kv-head split: each rank's pools must be exactly its
+            # slice, the page geometry whole
+            self._global_cache = init_cache(cfg, self.spec, "meta", n_slots)
+            self._assert_pool_placement()
         if self.spec_decode:
-            self.draft_cache = init_cache(cfg, self.spec, self.device,
-                                          n_slots)
+            self.draft_cache = init_cache(self.model_cfg, self.spec,
+                                          self.device, n_slots)
         # host mirrors are int32, the dtype the device steps consume
         self.cur_len = np.zeros(n_slots, np.int32)   # tokens in cache
         self.last_tok = np.zeros(n_slots, np.int32)  # next token to feed
@@ -586,6 +728,82 @@ class ContinuousEngine:
         self.n_spec_emitted = 0      # tokens emitted by rounds
         self.spec_accept_sum = np.zeros(n_slots, np.int64)   # per-slot emits
         self.spec_round_count = np.zeros(n_slots, np.int64)  # per-slot rounds
+
+    def _agreed_clock(self, clock: Callable[[], float]) -> Callable:
+        """``clock`` as the TP axis's first rank reads it, on every rank
+        (one host broadcast a tick): a wall clock differs between ranks,
+        and their schedulers must decide alike."""
+        import torch.distributed as dist
+
+        group = self.mesh.host_group(TP_AXIS)
+
+        def agreed() -> float:
+            t = torch.tensor([clock()], dtype=torch.float64)
+            dist.broadcast(t, group=group, group_src=0)
+            return float(t)
+        return agreed
+
+    # -------------------------------------------------------- TP placement
+    def _cache_leaves(self, tree=None, key=None):
+        """(key, leaf) of every cache leaf, in tree order."""
+        tree = self.cache if tree is None else tree
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from self._cache_leaves(v, k)
+        else:
+            yield key, tree
+
+    def _assert_pool_placement(self) -> None:
+        """Every pool leaf of this rank is exactly its kv-head slice of the
+        whole pool (a head dim the axis cannot divide, MLA's latent, whole)
+        and keeps every page; raises otherwise."""
+        specs = paged_pool_pspecs(self._global_cache, self.mesh)
+        flat_specs = [sp for _, sp in self._cache_leaves(specs)]
+        for (key, leaf), (_, whole), spec in zip(
+                self._cache_leaves(), self._cache_leaves(self._global_cache),
+                flat_specs):
+            want = list(whole.shape)
+            if key in POOL_KEYS:
+                hdim = pool_head_dim(key, whole.ndim)
+                want[hdim] //= _split(spec, self.mesh)
+            if tuple(leaf.shape) != tuple(want):
+                raise RuntimeError(
+                    f"{key}: the rank holds {tuple(leaf.shape)}, its slice "
+                    f"of {tuple(whole.shape)} is {tuple(want)}")
+
+    def tp_placement_report(self) -> dict:
+        """What each rank holds: the bytes of its params and of its paged
+        KV pools against the whole trees', and any packed projection leaf
+        or pool leaf left whole that the contract splits (MLA's latent
+        projection wdkv and its KVH-1 latent pool are whole by design and
+        are not listed)."""
+        rep = {"tp": self.tp,
+               "params": {"global_bytes": 0, "per_device_bytes": 0},
+               "kv": {"global_bytes": 0, "per_device_bytes": 0},
+               "replicated_quant_leaves": [],
+               "replicated_pool_leaves": []}
+        for path, leaf, spec in _leaves(self.params, self._param_specs):
+            n = leaf.numel() * leaf.element_size()
+            split = _split(spec, self.mesh) if self.tp > 1 else 1
+            rep["params"]["global_bytes"] += n * split
+            rep["params"]["per_device_bytes"] += n
+        if self.tp > 1:
+            rep["replicated_quant_leaves"] = [
+                path for path in _left_whole(self.params, self._param_specs,
+                                             self._param_intent, self.mesh)
+                if "#" in path]
+        whole = self._global_cache if self.tp > 1 else self.cache
+        for (key, leaf), (_, g) in zip(self._cache_leaves(),
+                                       self._cache_leaves(whole)):
+            rep["kv"]["global_bytes"] += g.numel() * g.element_size()
+            rep["kv"]["per_device_bytes"] += leaf.numel() * \
+                leaf.element_size()
+            if key in POOL_KEYS and self.tp > 1:
+                hdim = pool_head_dim(key, g.ndim)
+                if (tuple(leaf.shape) == tuple(g.shape)
+                        and g.shape[hdim] % self.tp == 0):
+                    rep["replicated_pool_leaves"].append(key)
+        return rep
 
     # ------------------------------------------------------------- intake
     def submit(self, prompt, *, max_new: int = 32, arrival: float = 0.0,
@@ -700,6 +918,7 @@ class ContinuousEngine:
             "temperature": self.temperature, "top_k": self.top_k,
             "prefix_share": self.prefix_share,
             "chunk_tokens": self.chunk_tokens,
+            "tp": self.tp,
             "spec_decode": self.spec_decode,
             "draft_bits": self.draft_bits, "spec_k": self.spec_k,
             "preempt": self.preempt,
@@ -925,7 +1144,14 @@ class ContinuousEngine:
         requests, admit (restoring preempted ones), advance every
         mid-prefill slot by one chunk, then one block of decode steps (or
         one speculative round). Returns False when there was nothing to
-        do."""
+        do. Under TP the tick runs with the engine's mesh active, where
+        the row-parallel projections find their process group."""
+        ctx = (sharding_ctx(self.mesh) if self.mesh is not None
+               else contextlib.nullcontext())
+        with ctx:
+            return self._step(now)
+
+    def _step(self, now: float) -> bool:
         step_idx = self.n_steps_total
         self.n_steps_total += 1
         self._apply_faults(step_idx, now)        # may raise FaultInjected
@@ -973,8 +1199,12 @@ class ContinuousEngine:
         ``clock``: callable giving the current time for arrival gating and
         latency stamps; default is the virtual step counter ``self.t`` (so
         ``arrival`` is then measured in scheduler steps), which a restored
-        engine continues from and latency_spike faults advance. An injected
-        crash (``FaultInjected``) propagates."""
+        engine continues from and latency_spike faults advance. Under TP a
+        ``clock`` is read on the axis's first rank and broadcast every
+        tick, so every rank admits alike. An injected crash
+        (``FaultInjected``) propagates."""
+        if clock is not None and self.tp > 1:
+            clock = self._agreed_clock(clock)
         steps = 0
         while not self.sched.all_done():
             if max_steps is not None and steps >= max_steps:
@@ -1055,13 +1285,13 @@ class ContinuousEngine:
                                             dtype=torch.int32, device=dev)
         toks_d = torch.tensor(toks, device=dev)
         pos_d = torch.tensor(pos, device=dev)
-        logits = lm_prefill(self.cfg, self.params, toks_d, self.cache, pos_d,
-                            paged)
+        logits = lm_prefill(self.model_cfg, self.params, toks_d, self.cache,
+                            pos_d, paged)
         if self.spec_decode:
             # the draft cache takes the same chunk, so draft decode starts
             # from the same fill (the first token is the target's)
-            lm_prefill(self.cfg, self.draft_params, toks_d, self.draft_cache,
-                       pos_d, paged)
+            lm_prefill(self.model_cfg, self.draft_params, toks_d,
+                       self.draft_cache, pos_d, paged)
         self.n_prefills += 1
         self.n_prefill_tokens += sum(end - start for _, _, start, end in items)
         finish = []
@@ -1110,7 +1340,7 @@ class ContinuousEngine:
             poison = torch.tensor(mask, device=self.device)
         dev = self.device
         toks, alive = _decode_scan(
-            self.cfg, self.params, self.cache,
+            self.model_cfg, self.params, self.cache,
             torch.tensor(self.last_tok, device=dev),
             torch.tensor(self.cur_len, device=dev),
             torch.tensor(act, device=dev),
@@ -1141,7 +1371,7 @@ class ContinuousEngine:
         width = self._read_width(int(self.cur_len[act].max()) + m)
         dev = self.device
         out, n_emit = _spec_round(
-            self.cfg, self.params, self.draft_params, self.cache,
+            self.model_cfg, self.params, self.draft_params, self.cache,
             self.draft_cache, torch.tensor(self.last_tok, device=dev),
             torch.tensor(self.cur_len, device=dev),
             torch.tensor(act, device=dev),

@@ -23,6 +23,12 @@ exclusively owned live pages go to the caller's ``copy_out`` for host
 storage. Spill and ``hold`` references are counted apart, so
 ``check_invariants`` proves conservation across the whole preempt ->
 spill -> restore lifecycle and across fault-injected holds.
+
+Tensor parallelism: each rank's pools hold its kv-head slice of every
+page (``pool_head_dim`` names that dim; the engine builds a rank's pools
+from its head-local config). The page axes are never split, so the
+allocator, the block tables and the fill counts here are the same on
+every rank and need no exchange.
 """
 from __future__ import annotations
 
@@ -35,6 +41,16 @@ import numpy as np
 import torch
 
 SCRATCH_PAGE = 0
+
+# the paged pool leaves of a cache tree; each is (L, P, page, KVH[, hd]),
+# its page axis 1
+POOL_KEYS = ("k_pool", "v_pool", "k_scale_pool", "v_scale_pool")
+
+
+def pool_head_dim(key: str, ndim: int) -> int:
+    """Index of the kv-head dim of a paged pool leaf: value pools are
+    (..., P, page, KVH, hd), scale pools (..., P, page, KVH)."""
+    return ndim - 2 if key in ("k_pool", "v_pool") else ndim - 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,7 +28,13 @@ takes fresh pages, and ``req.n_shared`` tells the engine how many prompt
 tokens it need not prefill.
 
 Model-free: the execution core (and the spill's data movement) lives in
-serve/engine.py. Tensor parallelism is not ported (no ``tp`` argument).
+serve/engine.py.
+
+Admission is tensor-parallel-invariant: pages and budgets are counted in
+tokens, and under TP serving the KV pools split along the kv-head dim
+only, so every rank holds its head slice of every page and runs this
+scheduler to the same decisions with no exchange. ``tp`` is taken only
+to pin that contract.
 """
 from __future__ import annotations
 
@@ -151,12 +157,20 @@ class Scheduler:
     preemption."""
 
     def __init__(self, n_slots: int, pool: PagePool,
-                 prefix_share: bool = False,
+                 prefix_share: bool = False, tp: int = 1,
                  age_promote: Optional[float] = None,
                  preempt_hook: Optional[
                      Callable[[int, Request, float], SpillSnapshot]] = None):
+        # the page budget must not scale with tp: block tables stay host
+        # arrays, the same on every rank
+        if tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        if type(pool.tables) is not np.ndarray:
+            raise TypeError("block tables must stay host-side (the same on "
+                            "every rank) under TP")
         self.n_slots = n_slots
         self.pool = pool
+        self.tp = tp
         self.prefix_share = prefix_share
         self.age_promote = age_promote
         self.preempt_hook = preempt_hook

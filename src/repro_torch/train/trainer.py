@@ -23,6 +23,16 @@ from repro_torch.data.pipeline import DataPipeline
 from repro_torch.models.config import ModelConfig
 
 
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The step's random stream (the gradient compression's rounding
+    noise), a function of (seed, step) alone, as the JAX trainer's
+    ``fold_in(PRNGKey(seed), step)``: a resumed run draws what the
+    uninterrupted one drew."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed * (1 << 32) + step)
+    return gen
+
+
 class StepTimeMonitor:
     def __init__(self, alpha: float = 0.1, z: float = 4.0, warmup: int = 5):
         self.alpha = alpha
@@ -86,7 +96,8 @@ class Trainer:
             batch = {k: torch.as_tensor(v, device=self.device)
                      for k, v in self.pipe.batch_at(step).items()}
             self.params, self.opt_state, metrics = self.step_fn(
-                self.params, self.opt_state, batch, step)
+                self.params, self.opt_state, batch, step,
+                step_generator(self.rng_seed, step, self.device))
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
             if self.monitor.update(dt) and self.on_straggler:

@@ -1,10 +1,9 @@
 """The port's copies of ModelConfig, TINY and the CONFIG/SMOKE pairs of
 llama3.2-1b, mixtral-8x22b, qwen2-0.5b, chatglm3-6b, granite-20b,
 deepseek-v2-lite-16b, mamba2-2.7b, jamba-1.5-large-398b, whisper-medium
-and internvl2-2b equal the JAX package's field for field, on the fields the port keeps (deepseek's and
-Jamba's ``moe_impl`` aside: the JAX package's shard_map dispatch runs
-only under a multi-device mesh, and the port keeps the spmd dispatch it
-runs on one device)."""
+and internvl2-2b equal the JAX package's field for field, on the fields
+the port keeps (``moe_impl`` included: both take the shard_map dispatch
+only under a mesh with a "model" axis)."""
 import dataclasses
 
 import pytest
@@ -43,9 +42,6 @@ def _same(tcfg, jcfg):
                 [(s.kind, s.mlp, s.cross_attn) for s in jv]
         elif f.name in ("moe", "mla", "mamba") and tv is not None:
             assert dataclasses.asdict(tv) == dataclasses.asdict(jv)
-        elif f.name == "moe_impl" and jcfg.name in ("deepseek-v2-lite-16b",
-                                                    "jamba-1.5-large-398b"):
-            assert (tv, jv) == ("spmd", "shard_map")
         else:
             assert tv == jv, f.name
     assert tcfg.hd == jcfg.hd

@@ -100,7 +100,10 @@ def test_launcher_runs_mixtral_on_cpu(method):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--tp", "2"], "multi-device serving"),
+    # --tp is ported (tests/test_torch_tp_serve.py); what stays refused is
+    # what the JAX launcher refuses: TP with the static engine
+    (["--tp", "2", "--engine", "static"], "continuous engine only"),
+    (["--tp", "2", "--engine", "both"], "continuous engine only"),
 ])
 def test_launcher_refuses_later_slices(flags, slice_name):
     with pytest.raises(SystemExit, match=slice_name):

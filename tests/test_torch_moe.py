@@ -491,11 +491,13 @@ def test_packed_expert_gradient_is_the_f32_product():
 
 
 def test_config_refuses_what_is_not_ported():
-    """MoE blocks are accepted; the shard_map MoE (a multi-device path),
-    and MoE layers without a MoEConfig, are refused."""
+    """MoE blocks are accepted, and the shard_map MoE since the expert-
+    parallel dispatch is ported (models/moe_shardmap.py); a dispatch of
+    neither name, and MoE layers without a MoEConfig, are refused."""
     TMIX.validate()
+    TMIX.replace(moe_impl="shard_map").validate()
     with pytest.raises(NotImplementedError, match="moe_impl"):
-        TMIX.replace(moe_impl="shard_map").validate()
+        TMIX.replace(moe_impl="all_to_all").validate()
     with pytest.raises(ValueError, match="cfg.moe"):
         TMIX.replace(moe=None).validate()
     assert dataclasses.asdict(tmc.MoEConfig()) == dataclasses.asdict(

@@ -303,5 +303,18 @@ def test_train_launcher_runs_and_resumes_on_cpu(tmp_path):
 @pytest.mark.parametrize("flag", [["--grad-compress-bits", "8"],
                                   ["--multi-pod"]])
 def test_train_launcher_refuses_later_flags(flag, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item"):
-        launcher.parse_args(["--ckpt-dir", str(tmp_path)] + flag)
+    """Both flags are ported now (tests/test_torch_train_dp.py runs them):
+    the launcher takes them, and refuses only what the JAX launcher
+    fails on: --multi-pod on a world that is not the 512 ranks of its
+    2 x 16 x 16 mesh (jax.make_mesh's device count)."""
+    argv = ["--device", "cpu", "--arch", "tiny", "--steps", "1",
+            "--batch", "4", "--seq", "16", "--ckpt-dir", str(tmp_path)]
+    args = launcher.parse_args(argv + flag)
+    if flag == ["--multi-pod"]:
+        assert args.multi_pod
+        with pytest.raises(ValueError, match="needs 512 ranks"):
+            launcher.main(argv + flag, log=lambda s: None)
+    else:
+        assert args.grad_compress_bits == 8
+        _, result, _ = launcher.main(argv + flag, log=lambda s: None)
+        assert result["steps_run"] == 1
