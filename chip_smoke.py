@@ -7,7 +7,7 @@ Builds the seven CUDA kernels from src/repro_torch/kernels/csrc/ (nvcc,
 at first use, all in parallel) and holds each against its plain PyTorch
 version on the card at the shapes the main paths give it (the paged read
 also at the verify's and a prefill chunk's rows, and at fills below
-them). Then it drives forty-seven paths, each with the kernels' launch
+them). Then it drives forty-eight paths, each with the kernels' launch
 counts set to 0 just before it and read just after. First the paper's quality
 path on TINY (d 192, 8 layers, the model the JAX package measures quality
 on), modelled on the JAX package's benchmarks/common.py, nt_common.py and
@@ -65,21 +65,21 @@ Then on llama3.2-1b at full width and depth, with seeded random weights:
      32 new, over a contiguous cache (no paged read);
   10. the paper's pipeline through the launcher's ``build_params`` — 8 x 32
      self-generated calibration tokens, then GPTQ W4 g128 + norm
-     tweaking on 4 of the 16 layers (path 13 runs 6), then
+     tweaking on 4 of the 16 layers (path 13 runs 3), then
      SmoothQuant W4A8 + norm tweaking — with layer 0 quantized and
      tweaked again on a CPU copy of its inputs and held against the card;
   11. serving the SmoothQuant W4A8 + NT model (the same workload as 4),
      every quantized linear on the W8A8 kernel;
   12. AWQ W4 g128 + NT through the same ``build_params``, layer 0 again on
      the CPU;
-  13. the paper's own configuration on 6 of the 16 layers: 128
+  13. the paper's own configuration on 3 of the 16 layers: 128
      self-generated samples of 2048 tokens, GPTQ W4 g128 + NT with the
      reference defaults (the chunked attention core in every apply and
      tweak step, the channel-statistics kernel twice a tweak step), layer
      0 run again on the card with every kernel replaced by its plain
      version (the host CPU would take many minutes at 262,144 tokens),
      and the chunked attention core held against the single-shot one. At
-     6 layers it no longer shows layers 6-15's calibration, applies and
+     3 layers it no longer shows layers 3-15's calibration, applies and
      tweaks at this size (each layer runs the same code on inputs of the
      same shape), the model's full-depth peak memory, or the time of the
      whole 16-layer pipeline.
@@ -172,6 +172,21 @@ through ``lm_prefill(ext_embeds=)`` and 31 ``lm_decode`` steps on a
 contiguous cache (168 a call), and GPTQ W4 g128 + NT at 2 layers on 32
 samples of 256 patches and 256 random tokens.
 
+Last, the launch-plan tuner (``kernels/autotune.py``, slice 17): with
+its cache in a temporary file and RTORCH_AUTOTUNE=1, a search of kernel
+1's classes (W4 g128 at M 8 on llama's four decode linears, llama's (512,
+2048, 8192), mamba2's in_proj and whisper's encoder up projection), kernel
+3's (W4 per-channel, M 8 and 512 on 2048 x 8192), kernels 4 and 5's at
+deepseek-v2-lite's 64 experts, C 8, and kernel 2's (llama's decode read,
+f32 and int8 pools, and its verify at m_rows 5), every candidate held
+against the kernel's plain version before it may win; the cache reloaded
+warm, each class's tuned and fixed plans checked and timed side by side
+with the roofline's bound; llama3.2-1b W4 served from the warm cache
+(112 kernel-1 and 16 kernel-2 launches a decode step, tokens held against
+the plain forward and against path 4's up to near-ties); and the
+sanitizer CLI's two replays (``analysis/sanitize.py``), the second adding
+no event.
+
 Every served greedy token is held against a plain forward over the same
 sequence. On llama3.2-1b it is one right-padded batch on the card with
 every kernel replaced by its plain version (``plain_kernels``). Every
@@ -209,12 +224,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-BF16_TENSOR_FLOPS = 989e12
-INT8_TENSOR_OPS = 1979e12
-F32_FLOPS = 67e12
 
 SEED = 0
 # the llama3.2-1b serving workload: requests, prompt lengths, new tokens
@@ -421,6 +430,8 @@ DP_LOSS_RTOL = 1e-3
 # the served tokens and the plain forward's logits of serve_w4 (tp=1), by
 # request id: what the TP phases are held against
 TP_REFERENCE: dict = {}
+# serve_w4's tokens by request id: what the tuned serve is held against
+SERVE_W4_TOKENS: dict = {}
 # seconds of each phase (path with its checks), printed on the "phases"
 # line so a phase that drifts between machines shows by name
 PHASE_S: dict = {}
@@ -484,13 +495,6 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def bound(nbytes: float, flops: float, peak_flops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / peak_flops
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                      else "operations")
-
-
 # ----------------------------------------------------------- kernel phase
 
 # Mixtral's expert linears: wi and wg are 6144 x 16384, wo 16384 x 6144;
@@ -521,31 +525,28 @@ def dense_plan(m, k, n, bits, groups, int8):
 def dequant_tol(x, qt):
     """Kernel 1's tolerance: kernel and plain version multiply the same
     bf16-rounded operands (products exact in f32) and differ only in the
-    order of the f32 sum, so 4e-5 of the largest sum of |terms|."""
-    from repro_torch.core.quant.types import dequantize
+    order of the f32 sum, so 4e-5 of the largest sum of |terms| (the
+    tuner's search holds its candidates to the same,
+    ``kernels/autotune.py::dense_tol``)."""
+    from repro_torch.kernels.autotune import dense_tol
 
-    xb = x.to(torch.bfloat16).float()
-    wb = dequantize(qt).to(torch.bfloat16).float()
-    return 4e-5 * float((xb.abs() @ wb.abs()).max())
+    return dense_tol(x, qt, int8=False)
 
 
 def w8a8_tol(xq, qt):
     """Kernel 3's tolerance: both take each scale group's sum exactly and
     rescale it alike, and differ only in the order of the f32 sum over
     groups and K splits, so 1e-5 of the largest sum of |group terms|."""
-    from repro_torch.core.quant.types import unpack
+    from repro_torch.kernels.autotune import dense_tol
 
-    k = qt.k
-    q8 = unpack(qt.qw, qt.bits, k).to(torch.int8)
-    rows = torch.arange(k, device=xq.device) // (k // qt.scale.shape[0])
-    wabs = q8.abs().double() * qt.scale[rows].double()
-    return 1e-5 * float((xq.abs().double() @ wabs).max())
+    return dense_tol(xq, qt, int8=True)
 
 
 def check_dequant_matmul(timer, gen):
     from repro_torch.core.quant.types import dequantize, quantize
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.launch.roofline import BF16_TENSOR_FLOPS, bound
 
     # (M, K, N, bits, group): llama3.2-1b's four (K, N) linear shapes at a
     # decode M (8 slots) and a prefill M, W4 g128; Mixtral's attention
@@ -639,6 +640,7 @@ def check_w8a8_matmul(timer, gen):
                                               unpack)
     from repro_torch.kernels import ref
     from repro_torch.kernels.w8a8_matmul import w8a8_matmul_cuda
+    from repro_torch.launch.roofline import INT8_TENSOR_OPS, bound
 
     # (M, K, N, bits, group): llama3.2-1b's four (K, N) linear shapes at a
     # decode M (8 slots) and a prefill M, W4 per-channel (the launcher's
@@ -734,6 +736,7 @@ def check_expert_dequant_matmul(timer, gen):
     from repro_torch.kernels import ref
     from repro_torch.kernels.expert_dequant_matmul import (
         expert_dequant_matmul_cuda)
+    from repro_torch.launch.roofline import BF16_TENSOR_FLOPS, bound
 
     # (E, C, K, N, bits, group): the decode shape of wi/wg at W4 g128 (the
     # main case), wo, a prefill capacity, a ragged capacity, bits 2, 3 and
@@ -797,6 +800,7 @@ def check_expert_w8a8_matmul(timer, gen):
     from repro_torch.kernels import ref
     from repro_torch.kernels.expert_w8a8_matmul import (
         expert_w8a8_matmul_cuda)
+    from repro_torch.launch.roofline import INT8_TENSOR_OPS, bound
 
     # (E, C, K, N, bits, group): the decode shape of wi/wg at W4
     # per-channel (the launcher's SmoothQuant default; the main case), wo,
@@ -872,6 +876,7 @@ def check_quantize_pack(timer, gen):
     from repro_torch.kernels.quantize_pack import (plan_pack,
                                                    quantize_pack_cuda,
                                                    vector_ok)
+    from repro_torch.launch.roofline import F32_FLOPS, bound
 
     # (shape, bits, group, dtype): bits {2, 3, 4, 8} x group {-1, 32, 64,
     # 128} on a 2048 x 2048 weight; a group of 3, K = 2050 (not a multiple
@@ -936,6 +941,7 @@ def check_channel_stats(timer, gen):
     from repro_torch.kernels import ref
     from repro_torch.kernels.channel_stats import (channel_stats_cuda,
                                                    plan_stats, vector_ok)
+    from repro_torch.launch.roofline import F32_FLOPS, bound
 
     # (T, C, dtype, mean): one tweak step's output (sample_batch 8 x 2048
     # tokens at llama3.2-1b's d 2048: the main case), the whole 128 x 2048
@@ -1008,33 +1014,6 @@ def check_channel_stats(timer, gen):
     return results
 
 
-def _paged_case(gen, s, w, ps, kvh, g, hd, fills, quant):
-    """Pools of random pages in shuffled order; per-slot fills (0 = an
-    empty slot, its table row all -1) with -1 entries past each slot's
-    pages."""
-    n_pages = 1 + s * w
-    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
-    bt = torch.full((s, w), -1, dtype=torch.int32)
-    nxt = 0
-    for si, f in enumerate(fills):
-        need = -(-f // ps)
-        bt[si, :need] = perm[nxt:nxt + need].cpu().to(torch.int32)
-        nxt += need
-    kf = torch.randn((n_pages, ps, kvh, hd), generator=gen, device="cuda")
-    vf = torch.randn((n_pages, ps, kvh, hd), generator=gen, device="cuda")
-    if quant:
-        def q8(x):
-            sc = x.abs().amax(-1).clamp_min(1e-6) / 127.0
-            return (torch.round(x / sc[..., None]).clamp(-127, 127)
-                    .to(torch.int8), sc)
-        (kq, ks), (vq, vs) = q8(kf), q8(vf)
-        pools = (kq, vq, ks, vs)
-    else:
-        pools = (kf, vf, None, None)
-    return pools, bt.cuda(), torch.tensor(fills, dtype=torch.int32,
-                                          device="cuda")
-
-
 def check_paged_attention(timer, gen):
     # (kv heads, G, hd, table width, window, fills, m_rows, fills clamped
     # to at least m_rows), page 16, 8 slots with an empty slot and ragged
@@ -1064,28 +1043,71 @@ def check_paged_attention(timer, gen):
     results = []
     for kvh, g, hd, w, window, fills, m_rows_set, clamp in configs:
         s = len(fills)
+        # each configuration's seed for the harness, drawn from the run's:
+        # its cases share the harness's one draw of the pools (f32 draws,
+        # not bf16 values) and differ in q, rows and the pools' type
+        seed = int(torch.randint(1 << 31, (1,), generator=gen,
+                                 device="cuda"))
         for m_rows in m_rows_set:
             for quant in (False, True):
                 f = [x if x == 0 or x >= m_rows or not clamp else m_rows
                      for x in fills]
-                r = _check_paged_case(timer, gen, s, kvh, g, hd, ps, w,
-                                      window, f, m_rows, quant)
+                r = _check_paged_case(timer, seed, s, kvh, g, hd, ps, w,
+                                      window, f, m_rows, quant,
+                                      verify=clamp)
                 print("paged_attention", json.dumps(r))
                 results.append(r)
     return results
 
 
-def _check_paged_case(timer, gen, s, kvh, g, hd, ps, w, window, fills,
-                      m_rows, quant):
+def paged_work(q, bt, kl, window, m_rows, quant):
+    """(bytes, flops) a paged read of q (S, KVH, m_rows * G, hd) needs on
+    this run's data: each row reads its live keys (inside the window),
+    each slot's live tokens are read once, q, the tables and the output
+    (hd_v = hd) once."""
+    s, kvh, rows, hd = q.shape
+    g = rows // m_rows
+    r = torch.arange(rows, device=q.device)
+    lim = kl[:, None].long() - (m_rows - 1 - r // g)[None]       # (S, R)
+    live = lim.clamp_min(0)
+    tokens = kl.long()
+    if window is not None:
+        live = live.clamp_max(window)
+        tokens = tokens.clamp_max(window + m_rows - 1)
+    live_rows = int(live.sum())                              # (token, row)
+    tok_bytes = kvh * 2 * hd * (1 if quant else 4) + (
+        kvh * 2 * 4 if quant else 0)
+    nbytes = (2 * q.numel() * 4 + bt.numel() * 4 + kl.numel() * 4
+              + int(tokens.sum()) * tok_bytes)
+    return nbytes, live_rows * kvh * 2 * (hd + hd)
+
+
+def _check_paged_case(timer, seed, s, kvh, g, hd, ps, w, window, fills,
+                      m_rows, quant, verify=True):
+    """One paged case from ``kernels/paged_harness.py``'s builders (pools of
+    seeded pages in shuffled order, f32 draws that are not bf16 values, an
+    empty slot's table row all -1):
+    the decode builder at m_rows 1, else the verify builder, or with
+    ``verify`` False the prefill builder, whose fills may sit below
+    m_rows."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import paged_harness as ph
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                      plan_paged)
+    from repro_torch.launch.roofline import F32_FLOPS, bound
 
-    (kp, vp, ks, vs), bt, kl = _paged_case(gen, s, w, ps, kvh, g, hd, fills,
-                                           quant)
-    q = torch.randn((s, kvh, m_rows * g, hd), generator=gen, device="cuda")
+    kv_bits = 8 if quant else 16
+    if m_rows == 1:
+        case = ph.build_paged_case(seed, s, w, ps, kvh, g, hd, fills, kv_bits)
+    else:
+        build = ph.build_verify_case if verify else ph.build_prefill_case
+        case = build(seed, s, m_rows, w, ps, kvh, g, hd, fills, kv_bits)
+    q, pools, bt, kl = case
+    q = ph.kernel_rows(q, kvh)
+    kp, vp = pools["k_pool"], pools["v_pool"]
+    ks, vs = pools["k_scale_pool"], pools["v_scale_pool"]
     args = (q, kp, vp, bt, kl, ks, vs)
     kw = dict(window=window, m_rows=m_rows)
     got = paged_attention_cuda(*args, **kw)
@@ -1130,20 +1152,8 @@ def _check_paged_case(timer, gen, s, kvh, g, hd, ps, w, window, fills,
     del kg, vg, mask
     ms = timer(lambda: paged_attention_cuda(*args, **kw))
     plain_ms = timer(lambda: ref.paged_attention_ref(*args, **kw))
-    # what this run's data needs: each row reads its live keys (inside the
-    # window), each slot's live tokens once
-    live = lim.clamp_min(0)
-    tokens = kl.long()
-    if window is not None:
-        live = live.clamp_max(window)
-        tokens = tokens.clamp_max(window + m_rows - 1)
-    live_rows = int(live.sum())                              # (token, row)
-    tok_bytes = kvh * 2 * hd * (1 if quant else 4) + (
-        kvh * 2 * 4 if quant else 0)
-    nbytes = (q.numel() * 4 + bt.numel() * 4 + kl.numel() * 4
-              + got.numel() * 4 + int(tokens.sum()) * tok_bytes)
-    flops = live_rows * kvh * 2 * (hd + hd)
-    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    b_ms, b_by = bound(*paged_work(q, bt, kl, window, m_rows, quant),
+                       F32_FLOPS)
     return dict(hd=hd, kv_heads=kvh, group=g, window=window, m_rows=m_rows,
                 int8=quant, fills=fills, dead_rows=int(dead[:, 0].sum()),
                 n_split=n_split, max_abs_err=err, tol=tol, ms=ms,
@@ -2348,10 +2358,12 @@ PAPER_CALIB = dict(n_samples=128, token_length=2048, batch_size=128)
 # the paper-sized pipeline runs PAPER_LAYERS of llama3.2-1b's 16 layers
 # (all 16 until slice 16: at ~16 s a layer it was a quarter of the
 # script, whose host-bound phases ran 15% slower on one machine than on
-# another, PERF.md section 5). Every layer runs the same code on inputs of
-# the same shape; what 6 layers no longer show is the other 10 layers'
-# numerics at this size, the full-depth peak memory and the 16-layer time
-PAPER_LAYERS = 6
+# another, PERF.md section 5; 6 until slice 17, whose autotune phases and
+# harness-built paged cases took the time of three). Every layer runs the
+# same code on inputs of the same shape; what 3 layers no longer show is
+# the other 13 layers' numerics at this size, the full-depth peak memory
+# and the 16-layer time
+PAPER_LAYERS = 3
 
 
 def check_chunked_attention(cfg, block, x):
@@ -3323,6 +3335,7 @@ def llama_paths(cfg):
             cfg, init_lm(cfg, seed=SEED, device="cuda"), "serve_w4",
             LLAMA_WORK, quant_bits=4, quant_group=128)
         preds = check_against_plain(cfg, engine, done, plain_on_card=True)
+        SERVE_W4_TOKENS.update({r.rid: list(r.tokens) for r in done})
         TP_REFERENCE["serve_w4"] = ({r.rid: list(r.tokens) for r in done},
                                     {r.rid: p for r, p in zip(done, preds)},
                                     {r.rid: r.prompt for r in done})
@@ -4494,6 +4507,341 @@ def check_dp(ranks, steps):
     return out
 
 
+# ---------------------------------------------------------- autotune phase
+#
+# The tuner (kernels/autotune.py, slice 17) on the card: a search of the
+# shape classes below with the cache in a temporary file, each candidate
+# held against the kernel's plain version before it may win; the cache
+# reloaded warm and each class's tuned and fixed plans launched, checked
+# and timed at the class's shape; llama3.2-1b served W4 from the warm
+# cache; and the sanitizer CLI's two replays.
+
+# (kernel, shape, bits, group): kernel 1 W4 g128 at M 8 on llama's four
+# decode linears, at llama's (512, 2048, 8192), mamba2's in_proj and
+# whisper's encoder up projection; kernel 3 W4 per-channel at M 8 and 512
+# on (2048, 8192); kernels 4 (W4 g128) and 5 (W4 per-channel) at
+# deepseek-v2-lite's 64 experts, C 8, (2048, 1408)
+AUTOTUNE_MATMULS = (
+    [("dequant_matmul", (8, k, n), 4, 128)
+     for k, n in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))]
+    + [("dequant_matmul", (512, 2048, 8192), 4, 128),
+       ("dequant_matmul", (8, M2_D, M2_IN), 4, 128),
+       ("dequant_matmul", (WH_ENC_ROWS, WH_D, WH_FF), 4, 128)]
+    + [("w8a8_matmul", (m, 2048, 8192), 4, -1) for m in (8, 512)]
+    + [("expert_dequant_matmul", (DS_E, 8, 2048, DS_FF), 4, 128),
+       ("expert_w8a8_matmul", (DS_E, 8, 2048, DS_FF), 4, -1)])
+# kernel 2 at llama's decode read (8 slots, kv heads 8, G 4, hd 64, pages
+# of 16, a 20-page table) with ragged fills, f32 and int8 pools, and its
+# verify read at m_rows 5, as (m_rows, int8)
+AUTOTUNE_PAGED = [(1, False), (1, True), (5, False)]
+AUTOTUNE_PAGED_FILLS = [0, 1, 16, 37, 100, 256, 300, 320]
+TUNE_ENV = ("RTORCH_AUTOTUNE", "RTORCH_AUTOTUNE_CACHE", "RTORCH_SANITIZE")
+
+
+def _tune_matmul(kernel, shape, bits, group):
+    """One matmul class from the warm cache: its tuned and fixed plans
+    launched at the class's shape on seeded operands, each held against
+    the plain version with the kernel check's tolerance and timed in turns
+    (``autotune.time_interleaved``: medians of 20 rounds, L2 flushed); the
+    public wrapper must give the tuned launch's bytes (it resolved the
+    tuned plan)."""
+    from repro_torch.kernels import autotune, ops, template
+    from repro_torch.kernels import dequant_matmul as dq
+    from repro_torch.kernels import expert_dequant_matmul as edq
+    from repro_torch.launch.roofline import (BF16_TENSOR_FLOPS,
+                                             INT8_TENSOR_OPS, bound)
+
+    expert = kernel.startswith("expert_")
+    int8 = "w8a8" in kernel
+    k, n = shape[-2:]
+    groups = 1 if group == -1 else k // group
+    lead = shape[:1] if expert else ()
+    case = autotune._matmul_case(kernel, lead, shape[-3], k, n, bits, groups,
+                                 "cuda")
+    x, qt = case.args
+    if expert:
+        e, c = shape[:2]
+        tuned = autotune.expert_plan(kernel, e, c, k, n, bits, groups)
+        fixed = edq.plan(e, c, k, n, bits, groups, x_bytes=1 if int8 else 4)
+        choices = (template.expert_choice(tuned),
+                   template.expert_choice(fixed))
+
+        def launch(p):
+            return edq.launch_plan(kernel, x, qt.qw, qt.scale, p, bits=bits,
+                                   k=k)
+        wrapper = (ops._ew8.expert_w8a8_matmul_cuda if int8
+                   else ops._edq.expert_dequant_matmul_cuda)
+        key = autotune.matmul_key(autotune.KINDS[kernel], c, k, n, bits,
+                                  group)
+    else:
+        m = shape[0]
+        tuned = autotune.dense_plan(kernel, m, k, n, bits, groups)
+        fixed = dq.plan(m, k, n, bits, groups, int8=int8)
+        choices = (template.dense_choice(tuned),
+                   template.dense_choice(fixed))
+
+        def launch(p):
+            return dq.launch(kernel, x, qt.qw, qt.scale, p, bits=bits, k=k)
+        wrapper = (ops._w8.w8a8_matmul_cuda if int8
+                   else ops._dq.dequant_matmul_cuda)
+        key = autotune.matmul_key(autotune.KINDS[kernel], m, k, n, bits,
+                                  group)
+    errs = {}
+    for label, p in (("tuned", tuned), ("fixed", fixed)):
+        errs[label] = float((launch(p) - case.plain).abs().max())
+        if not errs[label] <= case.tol:
+            raise AssertionError(f"autotune {key} {label} {p}: max |err| "
+                                 f"{errs[label]} > {case.tol}")
+    kw = dict(bits=bits, group_size=group, k=k)
+    if not torch.equal(wrapper(x, qt.qw, qt.scale, **kw), launch(tuned)):
+        raise AssertionError(f"autotune {key}: the wrapper did not launch "
+                             f"the tuned plan")
+    tuned_ms, fixed_ms = autotune.time_interleaved(
+        [lambda: launch(tuned), lambda: launch(fixed)])
+    rows = math.prod(shape[:-2])
+    nbytes = (x.numel() * x.element_size() + qt.qw.numel()
+              + qt.scale.numel() * 4 + rows * n * 4)
+    b_ms, b_by = bound(nbytes, 2.0 * rows * k * n,
+                       INT8_TENSOR_OPS if int8 else BF16_TENSOR_FLOPS)
+    return dict(kernel=kernel, key=key, shape=list(shape), bits=bits,
+                group=group, tuned=choices[0], fixed=choices[1],
+                tuned_ms=tuned_ms, fixed_ms=fixed_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=errs, tol=case.tol, card=CARD)
+
+
+def _tune_paged(m_rows, quant):
+    """The paged class: tuned and fixed cluster sizes at llama's decode
+    (or verify) read on the harness's seeded pools, each held against the
+    plain version (1e-4, the kernel check's) and timed in turns."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_harness as ph
+    from repro_torch.kernels import ref
+    from repro_torch.launch.roofline import F32_FLOPS, bound
+
+    s, kvh, g, hd, w, ps = 8, 8, 4, 64, 20, 16
+    fills = [f if f == 0 or f >= m_rows else m_rows
+             for f in AUTOTUNE_PAGED_FILLS]
+    kv_bits = 8 if quant else 16
+    if m_rows == 1:
+        case = ph.build_paged_case(SEED, s, w, ps, kvh, g, hd, fills, kv_bits)
+    else:
+        case = ph.build_verify_case(SEED, s, m_rows, w, ps, kvh, g, hd,
+                                    fills, kv_bits)
+    q, pools, bt, kl = case
+    q = ph.kernel_rows(q, kvh)
+    pool_args = (pools["k_pool"], pools["v_pool"], bt, kl,
+                 pools["k_scale_pool"], pools["v_scale_pool"])
+    plain = ref.paged_attention_ref(q, *pool_args, m_rows=m_rows)
+    rows = m_rows * g
+    shape = (s, kvh, w, ps, rows, hd, hd, quant)
+    tuned = autotune.paged_split(*shape, m_rows=m_rows)
+    fixed = pa.plan_paged(*shape)
+    out = torch.empty_like(plain)
+
+    def launch(n):
+        pa._launch(q, *pool_args[:2], bt, kl, *pool_args[4:], out, None,
+                   m_rows, n)
+        return out
+
+    errs = {}
+    for label, n in (("tuned", tuned), ("fixed", fixed)):
+        errs[label] = float((launch(n) - plain).abs().max())
+        if not errs[label] <= 1e-4:
+            raise AssertionError(f"autotune paged {shape} n_split {n}: max "
+                                 f"|err| {errs[label]}")
+    if not torch.equal(pa.paged_attention_cuda(q, *pool_args, m_rows=m_rows),
+                       launch(tuned)):
+        raise AssertionError("autotune paged: the wrapper did not launch the "
+                             "tuned split")
+    tuned_ms, fixed_ms = autotune.time_interleaved(
+        [lambda: launch(tuned), lambda: launch(fixed)])
+    b_ms, b_by = bound(*paged_work(q, bt, kl, None, m_rows, quant),
+                       F32_FLOPS)
+    return dict(kernel="paged_attention", key=autotune.paged_key(*shape),
+                m_rows=m_rows, int8=quant, fills=fills,
+                tuned={"n_split": tuned}, fixed={"n_split": fixed},
+                tuned_ms=tuned_ms, fixed_ms=fixed_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=errs, tol=1e-4, card=CARD)
+
+
+def _plant_decode_plans(cfg, path):
+    """Rewrite the warm cache at ``path`` with entries that move each of
+    llama's decode classes off its fixed plan: kernel 1's M-8 classes to
+    half their fixed K splits (valid at every M of the bucket), kernel 2's
+    decode read at every read width the engine buckets to (its pow2 page
+    counts, capped at the table) to one cluster block fewer (2 where the
+    fixed is 1); the search's other entries stay. Returns {memo prefix:
+    (planted choice, fixed choice)} for ``_planted_resolved``."""
+    from repro_torch.kernels import autotune, template
+    from repro_torch.kernels import dequant_matmul as dq
+    from repro_torch.kernels import paged_attention as pa
+
+    d, q_w, kv_w = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    entries, planted = autotune.load_cache(path), {}
+    for k, n in ((d, q_w), (d, kv_w), (q_w, d), (d, cfg.d_ff), (cfg.d_ff, d)):
+        groups = k // 128
+        fixed = template.dense_choice(dq.plan(8, k, n, 4, groups,
+                                              int8=False))
+        ch = dict(fixed, splits=fixed["splits"] // 2)
+        if not all(template.valid_dense(ch, m, k, n, 4, groups, int8=False)
+                   for m in range(1, 9)):
+            raise AssertionError(f"planted {ch} at ({k}, {n}) is not a "
+                                 f"valid plan at every M of the bucket")
+        entries[autotune.matmul_key("dequant", 8, k, n, 4, 128)] = ch
+        planted[("dequant_matmul", k, n)] = (ch, fixed)
+    max_pages = LLAMA_WORK["max_len"] // 16
+    g = cfg.n_heads // cfg.n_kv_heads
+    for w in sorted({min(1 << i, max_pages)
+                     for i in range(max_pages.bit_length() + 1)}):
+        shape = (8, cfg.n_kv_heads, w, 16, g, cfg.hd, cfg.hd, False)
+        fixed = pa.plan_paged(*shape)
+        ch = template.paged_choice(fixed - 1 if fixed > 1 else 2)
+        if template.valid_paged(ch, *shape) is None:
+            raise AssertionError(f"planted {ch} at {shape} is not valid")
+        entries[autotune.paged_key(*shape)] = ch
+        planted[("paged_attention",) + shape] = (ch, {"n_split": fixed})
+    autotune.save_cache(path, entries)
+    return planted
+
+
+def _planted_resolved(planted):
+    """The plans the serve resolved at the planted classes: every decode
+    launch of a planted class (kernel 1 at M <= 8, kernel 2 at its decode
+    read) took the planted choice, and each kernel-1 class and the
+    table-wide read were launched. Returns a row per class."""
+    from repro_torch.kernels import autotune, template
+
+    rows = {}
+    for memo, plan in autotune._state["plans"].items():
+        if memo[0] == "dequant_matmul" and memo[1] <= 8:
+            cls = ("dequant_matmul",) + memo[2:4]
+            got = template.dense_choice(plan)
+        elif memo[0] == "paged_attention":
+            cls, got = memo, template.paged_choice(plan)
+        else:
+            continue
+        if cls not in planted:
+            continue
+        ch, fixed = planted[cls]
+        if got != ch:
+            raise AssertionError(f"serve_w4_tuned: {memo} ran {got}, not "
+                                 f"the planted {ch}")
+        r = rows.setdefault(str(cls), dict(planted=ch, fixed=fixed,
+                                           shapes=0))
+        r["shapes"] += 1
+    want = [c for c in planted if c[0] == "dequant_matmul"]
+    want.append(max((c for c in planted if c[0] == "paged_attention"),
+                    key=lambda c: c[3]))
+    missing = [c for c in want if str(c) not in rows]
+    if missing:
+        raise AssertionError(f"serve_w4_tuned: planted classes never "
+                             f"launched: {missing}")
+    print("serve_w4_tuned planted", json.dumps(rows))
+    return rows
+
+
+def autotune_paths(cfg):
+    """The tuner's phase on llama3.2-1b ``cfg``; returns the tuned serve's
+    metrics ("serve_w4_tuned"), the classes' rows ("autotune") and the
+    sanitizer's events ("sanitize")."""
+    import os
+
+    from repro_torch.analysis import sanitize
+    from repro_torch.kernels import autotune
+    from repro_torch.models.transformer import init_lm
+
+    out = {}
+    saved = {k: os.environ.get(k) for k in TUNE_ENV}
+    tmp = tempfile.mkdtemp(prefix="autotune-")
+    path = os.path.join(tmp, "autotune.json")
+    try:
+        # search every class (mode "1"): the resolution measures a cold
+        # class and writes the cache
+        with phase("autotune_search"):
+            os.environ["RTORCH_AUTOTUNE"] = "1"
+            os.environ["RTORCH_AUTOTUNE_CACHE"] = path
+            autotune.reset()
+            for kernel, shape, bits, group in AUTOTUNE_MATMULS:
+                k, n = shape[-2:]
+                groups = 1 if group == -1 else k // group
+                if kernel.startswith("expert_"):
+                    autotune.expert_plan(kernel, *shape, bits, groups)
+                else:
+                    autotune.dense_plan(kernel, *shape, bits, groups)
+            for m_rows, quant in AUTOTUNE_PAGED:
+                autotune.paged_split(8, 8, 20, 16, m_rows * 4, 64, 64, quant,
+                                     m_rows=m_rows)
+            release()
+        # reload warm (mode ""): tuned against fixed at each class
+        with phase("autotune_warm"):
+            os.environ["RTORCH_AUTOTUNE"] = ""
+            autotune.reset()
+            entries = autotune.load_cache(path)
+            want = len(AUTOTUNE_MATMULS) + len(AUTOTUNE_PAGED)
+            if len(entries) != want:
+                raise AssertionError(f"autotune: {len(entries)} entries in "
+                                     f"the cache, want {want}")
+            rows = [_tune_matmul(*c) for c in AUTOTUNE_MATMULS]
+            rows += [_tune_paged(*c) for c in AUTOTUNE_PAGED]
+            for r in rows:
+                print("autotune", json.dumps(r))
+            out["autotune"] = dict(classes=rows,
+                                   search_s=PHASE_S["autotune_search"],
+                                   cache_entries=len(entries))
+            release()
+        # llama3.2-1b W4 served from the warm cache, its decode classes
+        # moved off their fixed plans (the search kept the fixed plans at
+        # llama's classes): the served launches sum in other orders
+        with phase("serve_w4_tuned"):
+            planted = _plant_decode_plans(cfg, path)
+            autotune.reset()
+            engine, done, out["serve_w4_tuned"] = serve(
+                cfg, init_lm(cfg, seed=SEED, device="cuda"),
+                "serve_w4_tuned", LLAMA_WORK, quant_bits=4, quant_group=128)
+            out["serve_w4_tuned"]["planted"] = _planted_resolved(planted)
+            preds = check_against_plain(cfg, engine, done,
+                                        plain_on_card=True)
+            assert_decode_launches(out["serve_w4_tuned"],
+                                   {"dequant_matmul": 7 * cfg.n_repeats,
+                                    "paged_attention": cfg.n_repeats})
+            assert_deploy_launches(out["serve_w4_tuned"])
+            # serve_w4's streams against these, whose plain logits preds
+            # are: equal up to a near-tie (tuned splits sum in other orders)
+            same_tokens_but_near_ties(
+                "serve_w4_tuned", SERVE_W4_TOKENS,
+                {r.rid: list(r.tokens) for r in done},
+                {r.rid: p for r, p in zip(done, preds)},
+                sorted(r.rid for r in done))
+            del engine, done, preds
+            release()
+        # the sanitizer CLI's two replays, its searches cold in a cache of
+        # their own: the second adds no event
+        with phase("sanitize_cli"):
+            os.environ.update(RTORCH_AUTOTUNE="1", RTORCH_SANITIZE="1",
+                              RTORCH_AUTOTUNE_CACHE=os.path.join(
+                                  tmp, "sanitize.json"))
+            autotune.reset()
+            if sanitize.main([]) != 0:
+                raise AssertionError("sanitize: the second replay added "
+                                     "events or a key went over budget")
+            by_site: dict = {}
+            for (name, _), count in sanitize.trace_counts().items():
+                by_site[name] = by_site.get(name, 0) + count
+            out["sanitize"] = dict(events=by_site, second_replay_events=0,
+                                   card=CARD)
+            print("sanitize", json.dumps(out["sanitize"]))
+            release()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune.reset()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4559,6 +4907,9 @@ def main() -> int:
     print(f"whisper-medium paths done: {time.perf_counter() - t_all:.1f} s")
     paths.update(internvl2_paths())
     print(f"internvl2-2b paths done: {time.perf_counter() - t_all:.1f} s")
+    tuning = autotune_paths(get_config("llama3.2-1b"))
+    paths["serve_w4_tuned"] = tuning.pop("serve_w4_tuned")
+    print(f"autotune paths done: {time.perf_counter() - t_all:.1f} s")
 
     # each entry's times are at the shape its path runs most: for the
     # serving kernels the decode shape, M = 8 slots x the 2048 x 8192 MLP
@@ -4613,7 +4964,9 @@ def main() -> int:
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"], main_case=main_case,
-            cases=cases))
+            cases=cases,
+            autotune=[r for r in tuning["autotune"]["classes"]
+                      if r["kernel"] == name]))
     print(f"command time: {time.perf_counter() - t_all:.1f} s")
     print("phases", json.dumps({"seconds": PHASE_S}))
     print(json.dumps({"kernels": entries}))

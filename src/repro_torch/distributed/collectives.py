@@ -14,8 +14,10 @@ collectives here (probed on an H100 with torch 2.11: ``all_reduce`` SUM
 and MAX, ``all_gather``, ``all_to_all_single``), so nothing stages
 through host memory by hand.
 
-``counts`` counts the calls of each collective in this process (reset it
-with ``reset_counts``), so a caller can read how many a step made.
+``counts`` counts the calls of each collective in this process and
+``nbytes`` the bytes each sent (all-reduce and all-to-all: the result's
+size; all-gather: the input's), so a caller can read what a step moved
+(``launch/roofline.py::collective_bytes``); ``reset_counts`` zeroes both.
 """
 from __future__ import annotations
 
@@ -26,11 +28,18 @@ from repro_torch.distributed.sharding import active_mesh
 
 counts: dict[str, int] = {"all_reduce": 0, "all_gather": 0,
                           "all_to_all": 0}
+nbytes: dict[str, int] = dict.fromkeys(counts, 0)
 
 
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
+        nbytes[k] = 0
+
+
+def _count(kind: str, x: torch.Tensor) -> None:
+    counts[kind] += 1
+    nbytes[kind] += x.numel() * x.element_size()
 
 
 def _group(axis: str):
@@ -65,7 +74,7 @@ def all_reduce(x: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
     out = x.contiguous().clone()
     red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
     dist.all_reduce(out, op=red, group=group)
-    counts["all_reduce"] += 1
+    _count("all_reduce", out)
     if op == "mean":
         out = out / size
     return out
@@ -79,7 +88,7 @@ def all_gather(x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(size)]
     dist.all_gather(parts, x, group=group)
-    counts["all_gather"] += 1
+    _count("all_gather", x)
     return torch.cat(parts, dim=dim)
 
 
@@ -96,5 +105,5 @@ def all_to_all(x: torch.Tensor, axis: str) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
-    counts["all_to_all"] += 1
+    _count("all_to_all", out)
     return out

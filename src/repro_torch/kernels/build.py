@@ -34,6 +34,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from repro_torch.analysis.sanitize import note_trace
+
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -61,12 +63,21 @@ def nvcc_command(src: Path, out: Path, *extra: str) -> list[str]:
     return [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(out), str(src)]
 
 
+def source_hash(paths, salt: bytes = b"") -> str:
+    """16 hex digits of the sha256 of ``salt`` and the files' bytes, in
+    the order given: the libraries' names and the tuner's template
+    version (``kernels/template.py``)."""
+    h = hashlib.sha256(salt)
+    for path in paths:
+        h.update(Path(path).read_bytes())
+    return h.hexdigest()[:16]
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((SRC_DIR / f"{name}.cu").read_bytes())
-    for header in sorted(SRC_DIR.glob("*.cuh")):
-        h.update(header.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    digest = source_hash([SRC_DIR / f"{name}.cu",
+                          *sorted(SRC_DIR.glob("*.cuh"))],
+                         " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(names=SOURCES) -> list[str]:
@@ -99,6 +110,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if stale."""
     lib = _loaded.get(name)
     if lib is None:
+        note_trace("kernel_load", library=name)
         build((name,))
         lib = _loaded[name] = _open(name, library_path(name))
     return lib

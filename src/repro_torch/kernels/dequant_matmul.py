@@ -8,10 +8,12 @@ prefill a pipelined tensor-core tile (``csrc/prefill_tile.cuh``). The
 sources' headers say what bounds it on the H100 and what the design does
 about it; its plain version is ``kernels/ref.py::dequant_matmul_ref``.
 
-``plan`` is the one planner of both dense packed matmuls (this one and
-the W8A8 matmul, ``kernels/w8a8_matmul.py``): it picks the body by M,
-leaves the cut into blocks to that body's planner (``plan_stream``,
-``plan_tile``) and guards the W8A8 kernel's int32 sums.
+``plan`` is the one fixed planner of both dense packed matmuls (this one
+and the W8A8 matmul, ``kernels/w8a8_matmul.py``): it picks the body by
+M, leaves the cut into blocks to that body's planner (``plan_stream``,
+``plan_tile``) and guards the W8A8 kernel's int32 sums. ``run`` asks the
+tuner (``kernels/autotune.py``) for the plan, which is ``plan``'s unless
+a tuned entry for the shape class is in force.
 
 ``launches`` counts the kernel's launches in this process (reset it by
 assigning 0); nothing but the launch below adds to it.
@@ -26,11 +28,11 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.quant.types import qmax_for_bits
 from repro_torch.kernels import build
 from repro_torch.kernels import expert_dequant_matmul as edq
 from repro_torch.kernels.packed_operands import (MAX_GRID_Z, MAX_SMEM, SMS,
-                                                 check_operands)
+                                                 check_operands,
+                                                 int32_sum_fits)
 
 launches = 0
 
@@ -155,6 +157,16 @@ def plan_tile(m: int, k: int, n: int, bits: int, groups: int, *,
                    k, groups, splits, int8=int8)
 
 
+def check_int32(k: int, groups: int, bits: int) -> None:
+    """Raise ValueError if the W8A8 kernel's exact int32 sum could
+    overflow: one sum covers a group, or all of K per-channel (K splits
+    add their sums in int32), whatever the plan."""
+    rows = k // groups
+    if not int32_sum_fits(bits, rows):
+        raise ValueError(f"w8a8_matmul: {rows} rows per int32 sum could "
+                         f"overflow")
+
+
 @functools.lru_cache(maxsize=4096)
 def plan(m: int, k: int, n: int, bits: int, groups: int, *,
          int8: bool) -> DensePlan:
@@ -163,12 +175,8 @@ def plan(m: int, k: int, n: int, bits: int, groups: int, *,
     take, else ``plan_tile``. For the W8A8 kernel, raises ValueError if an exact
     int32 sum could overflow. Cached: every linear of a model asks again
     at every step."""
-    # one exact int32 sum covers a group, or all of K per-channel (K
-    # splits add their sums in int32)
-    rows = k // groups
-    if int8 and 127 * qmax_for_bits(bits) * rows >= 2 ** 31:
-        raise ValueError(f"w8a8_matmul: {rows} rows per int32 sum could "
-                         f"overflow")
+    if int8:
+        check_int32(k, groups, bits)
     most = STREAM_MAX_M["w8a8_matmul" if int8 else "dequant_matmul"]
     if m > most and tile_takes(k, groups):
         return plan_tile(m, k, n, bits, groups, int8=int8)
@@ -209,7 +217,9 @@ def run(name: str, x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     m, n = x.shape[-2], qw.shape[-1]
     if m == 0:
         return torch.empty((0, n), dtype=torch.float32, device=x.device)
-    p = plan(m, k, n, bits, scale.shape[-2], int8=int8)
+    # imported here: the tuner imports this module for its fixed planner
+    from repro_torch.kernels import autotune
+    p = autotune.dense_plan(name, m, k, n, bits, scale.shape[-2])
     return launch(name, x, qw, scale, p, bits=bits, k=k)
 
 

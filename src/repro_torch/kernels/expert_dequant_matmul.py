@@ -10,7 +10,9 @@ sources' headers say what bounds it on the H100 and what the design does
 about it. Its plain version is ``kernels/ref.py::expert_dequant_matmul_ref``.
 
 ``plan`` cuts the work of both expert kernels into blocks; it is the one
-place their strips, capacity chunks and K splits are chosen.
+fixed place their strips, capacity chunks and K splits are chosen
+(``plan_with`` builds the plan of a given capacity tile and split count,
+``plan``'s and a tuned entry's).
 
 ``launches`` counts the kernel's launches in this process (reset it by
 assigning 0); nothing but the launch below adds to it.
@@ -23,10 +25,10 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.quant.types import qmax_for_bits
 from repro_torch.kernels import build
 from repro_torch.kernels.packed_operands import (MAX_GRID_Z, MAX_SMEM, SMS,
-                                                 check_operands)
+                                                 check_operands,
+                                                 int32_sum_fits)
 
 launches = 0
 
@@ -100,25 +102,53 @@ def plan(e: int, c: int, k: int, n: int, bits: int, groups: int, *,
     blocks, each split walking at least ``min_stages`` stages; no split is
     empty. (The dense kernels' decode body plans as one expert with its
     own two numbers: ``kernels/dequant_matmul.py::plan_stream``.)"""
-    # the W8A8 kernel reads per-channel scales once, not through the ring
-    srows = 0 if x_bytes == 1 and groups == 1 else scale_rows(k, groups)
-    fitting = [t for t in CAPACITY_TILES
-               if STAGES * stage_bytes(bits, t, x_bytes, srows) <= MAX_SMEM]
+    fitting = fitting_tiles(bits, x_bytes,
+                            ring_scale_rows(k, groups, x_bytes))
     nt = next((t for t in fitting if 8 * t >= c), fitting[-1])
-    chunks = -(-c // (8 * nt))
-    strips = -(-n // STRIP)
-    unit = STAGE_K
-    if x_bytes == 1 and groups > 1:
-        unit = math.lcm(STAGE_K, k // groups)
+    unit = k_unit(k, groups, x_bytes)
     units = -(-k // unit)
-    tiles = e * chunks * strips
+    tiles = e * -(-c // (8 * nt)) * -(-n // STRIP)
     splits = max(1, min(-(-target_blocks // tiles),
                         units * unit // (STAGE_K * min_stages),
                         MAX_GRID_Z // e))
-    per = -(-units // splits)
-    return ExpertPlan(nt=nt, chunks=chunks, strips=strips,
+    return plan_with(e, c, k, n, bits, groups, x_bytes=x_bytes, nt=nt,
+                     splits=splits)
+
+
+def ring_scale_rows(k: int, groups: int, x_bytes: int) -> int:
+    """Scale rows a ring stage holds for an x of ``x_bytes`` bytes: the
+    W8A8 kernel reads per-channel scales once, not through the ring."""
+    return 0 if x_bytes == 1 and groups == 1 else scale_rows(k, groups)
+
+
+def fitting_tiles(bits: int, x_bytes: int, srows: int) -> list[int]:
+    """The capacity tiles of CAPACITY_TILES whose ring fits shared
+    memory."""
+    return [t for t in CAPACITY_TILES
+            if STAGES * stage_bytes(bits, t, x_bytes, srows) <= MAX_SMEM]
+
+
+def k_unit(k: int, groups: int, x_bytes: int) -> int:
+    """K rows a split holds a whole number of: a ring stage, and for the
+    W8A8 kernel's grouped scales whole groups."""
+    if x_bytes == 1 and groups > 1:
+        return math.lcm(STAGE_K, k // groups)
+    return STAGE_K
+
+
+def plan_with(e: int, c: int, k: int, n: int, bits: int, groups: int, *,
+              x_bytes: int, nt: int, splits: int) -> ExpertPlan:
+    """The plan of capacity tile ``nt`` with K cut into ``splits`` equal
+    ranges of whole ``k_unit``s, fewer where that would leave a split
+    empty (``plan``'s cut, and a tuned entry's)."""
+    unit = k_unit(k, groups, x_bytes)
+    units = -(-k // unit)
+    per = -(-units // max(1, min(splits, units)))
+    return ExpertPlan(nt=nt, chunks=-(-c // (8 * nt)), strips=-(-n // STRIP),
                       splits=-(-units // per), k_per_split=per * unit,
-                      smem=STAGES * stage_bytes(bits, nt, x_bytes, srows),
+                      smem=STAGES * stage_bytes(
+                          bits, nt, x_bytes,
+                          ring_scale_rows(k, groups, x_bytes)),
                       experts=e)
 
 
@@ -127,8 +157,10 @@ def launch(name: str, x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     """Check, plan and launch expert kernel ``name``: the dequant matmul
     on f32 x, or the W8A8 matmul on int8 x (its scale groups whole 16-row
     K steps, and no exact int32 group sum able to overflow), on the
-    (E, C, K) capacity buffer x and the (E, ...) packed stack. Returns the
-    (E, C, N) f32 output; the caller counts the launch."""
+    (E, C, K) capacity buffer x and the (E, ...) packed stack. The plan is
+    the tuner's (``kernels/autotune.py``: ``plan``'s unless a tuned entry
+    is in force). Returns the (E, C, N) f32 output; the caller counts the
+    launch."""
     int8 = name == "expert_w8a8_matmul"
     check_operands(name, x, torch.int8 if int8 else torch.float32, qw,
                    scale, bits=bits, group_size=group_size, k=k,
@@ -141,15 +173,28 @@ def launch(name: str, x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"{name}: {x.shape[0]} experts exceed the grid")
     e, c = x.shape[:2]
     n = qw.shape[-1]
-    groups = scale.shape[-2]
-    out = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
     if c == 0 or e == 0:
-        return out
-    p = plan(e, c, k, n, bits, groups, x_bytes=x.element_size())
+        return torch.empty((e, c, n), dtype=torch.float32, device=x.device)
+    # imported here: the tuner imports this module for its fixed planner
+    from repro_torch.kernels import autotune
+    p = autotune.expert_plan(name, e, c, k, n, bits, scale.shape[-2])
     # one exact int32 sum covers at most a group (or a split's rows)
     rows = min(group_rows, p.k_per_split)
-    if int8 and 127 * qmax_for_bits(bits) * rows >= 2 ** 31:
+    if int8 and not int32_sum_fits(bits, rows):
         raise ValueError(f"{name}: {rows} rows per int32 sum could overflow")
+    return launch_plan(name, x, qw, scale, p, bits=bits, k=k)
+
+
+def launch_plan(name: str, x: torch.Tensor, qw: torch.Tensor,
+                scale: torch.Tensor, p: ExpertPlan, *, bits: int,
+                k: int) -> torch.Tensor:
+    """Launch expert kernel ``name`` on checked operands as plan ``p``
+    cuts it (``launch``'s; the tuner's search passes its candidates).
+    Returns the (E, C, N) f32 output."""
+    e, c = x.shape[:2]
+    n = qw.shape[-1]
+    groups = scale.shape[-2]
+    out = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
     work = (torch.empty((e, p.splits, c, n), dtype=torch.float32,
                         device=x.device) if p.splits > 1 else None)
     fn = getattr(build.load(name), name)

@@ -1,5 +1,6 @@
 """What the four packed-matmul kernels share: the operand check of their
-wrappers and the card's limits their planners cut work to.
+wrappers, the card's limits their planners cut work to and the W8A8
+kernels' int32 guard.
 
 The dense kernels (1 and 3, ``kernels/dequant_matmul.py``) and the expert
 kernels (4 and 5, ``kernels/expert_dequant_matmul.py``) import both from
@@ -9,13 +10,19 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quant.types import packed_rows
+from repro_torch.core.quant.types import packed_rows, qmax_for_bits
 
 # the H100's SMs, the shared memory a block may take (bytes) and the
 # grid's z limit (csrc/expert_stream.cuh, csrc/prefill_tile.cuh)
 SMS = 132
 MAX_SMEM = 232448
 MAX_GRID_Z = 65535
+
+
+def int32_sum_fits(bits: int, rows: int) -> bool:
+    """True when an exact int32 sum of ``rows`` int8 x ``bits``-bit
+    products cannot overflow (the W8A8 kernels' guard)."""
+    return 127 * qmax_for_bits(bits) * rows < 2 ** 31
 
 
 def check_operands(name: str, x: torch.Tensor, x_dtype: torch.dtype,

@@ -6,10 +6,11 @@ Replaces the TPU kernel ``paged_attention_pallas``
 cluster per (slot, kv head, chunk of up to 8 query rows): its ``n_split``
 blocks split the slot's live pages and merge their partial softmaxes in
 rank order through distributed shared memory. ``plan_paged`` picks
-``n_split`` from host-known shapes; ``geometry`` mirrors the source's
-shared-memory layout. The source's header says what bounds it on the
-H100 and what the design does about it; its plain version is
-``kernels/ref.py::paged_attention_ref``.
+``n_split`` from host-known shapes (the tuner, ``kernels/autotune.py``,
+hands the wrapper its choice unless a tuned entry is in force);
+``geometry`` mirrors the source's shared-memory layout. The source's
+header says what bounds it on the H100 and what the design does about
+it; its plain version is ``kernels/ref.py::paged_attention_ref``.
 
 ``launches`` counts the kernel's launches in this process (reset it by
 assigning 0); nothing but the launch below adds to it.
@@ -113,8 +114,9 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     """q (S, KVH, m_rows*G, hd) f32 m-major; pools (P, page, KVH, hd[_v])
     f32, or int8 with (P, page, KVH) f32 scale pools; block_table (S, W)
     int32; kv_len (S,) int32 -> (S, KVH, m_rows*G, hd_v) f32, on the card.
-    One launch: a cluster of ``plan_paged``'s n_split blocks per (slot, kv
-    head, row chunk). Raises on anything the kernel does not take."""
+    One launch: a cluster of n_split blocks per (slot, kv head, row chunk),
+    ``plan_paged``'s unless a tuned entry is in force. Raises on anything
+    the kernel does not take."""
     global launches
     quant = k_scale_pool is not None
     if not q.is_cuda:
@@ -173,8 +175,10 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                       device=q.device)
     if s == 0:
         return out
-    w = block_table.shape[1]
-    n_split = plan_paged(s, kvh, w, page_size, rows, hd, hd_v, quant)
+    # imported here: the tuner imports this module for its fixed planner
+    from repro_torch.kernels import autotune
+    n_split = autotune.paged_split(s, kvh, block_table.shape[1], page_size,
+                                   rows, hd, hd_v, quant, m_rows=m_rows)
     _launch(q, k_pool, v_pool, block_table, kv_len, k_scale_pool,
             v_scale_pool, out, window, m_rows, n_split)
     launches += 1

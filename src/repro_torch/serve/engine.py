@@ -88,9 +88,11 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitize import note_variant
 from repro_torch.core.quant.deploy import (quantize_params_for_serving,
                                            to_device)
 from repro_torch.core.quant.types import QuantizedTensor
+from repro_torch.debug_flags import debug_enabled, sanitize_enabled
 from repro_torch.device import resolve_device
 from repro_torch.distributed.partitioning import (local_shard,
                                                   paged_pool_pspecs,
@@ -110,6 +112,24 @@ from repro_torch.serve.sampling import (sample, spec_accept_greedy,
 from repro_torch.serve.scheduler import Request, Scheduler
 
 _PAGE_AXIS = 1      # the page axis of every pool leaf (serve/kvcache.py)
+
+
+def _params_sig(params: dict) -> str:
+    """Coarse weight signature of the sanitizer's step keys, as the JAX
+    engine's: the packed bit widths in the tree ("w2", "w4/8"), or "f32".
+    Target and draft reach the same entry points with different leaves;
+    without it their two variants would read as one counted twice."""
+    bits: set = set()
+
+    def walk(t):
+        if isinstance(t, QuantizedTensor):
+            bits.add(t.bits)
+        elif isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+
+    walk(params)
+    return "w" + "/".join(map(str, sorted(bits))) if bits else "f32"
 
 
 def _serving_params(cfg: ModelConfig, params: dict, quant_bits: int,
@@ -231,6 +251,9 @@ class ServeEngine:
         self.cfg = cfg
         self.params = _serving_params(cfg, params, quant_bits, quant_group,
                                       act_bits, self.device)
+        # the sanitizer's flag, read once: its sites cost nothing when off
+        self._sanitize = sanitize_enabled()
+        self._w_sig = _params_sig(self.params) if self._sanitize else None
         self.eos_id = eos_id
 
     @torch.no_grad()
@@ -243,6 +266,10 @@ class ServeEngine:
         step, so ``max_new - 1`` steps run."""
         prompts = np.asarray(prompts, np.int32)
         b, s = prompts.shape
+        if self._sanitize:
+            note_variant("generate", batch=b, prompt=s, max_new=max_new,
+                         temperature=temperature, top_k=top_k,
+                         w=self._w_sig)
         dev = self.device
         cache = init_contiguous_cache(self.cfg, b, s + max_new, dev)
         pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(
@@ -563,7 +590,10 @@ class ContinuousEngine:
     ``snapshot()`` / ``restore()`` capture and reload the whole serving
     state (serve/faults.py's ``run_resilient`` drives crash recovery).
     ``debug=True`` checks the pool's invariants and the slot mirrors
-    against the scheduler after every step."""
+    against the scheduler after every step; ``debug=None`` takes the
+    RTORCH_DEBUG flag (``repro_torch.debug_flags``). Under RTORCH_SANITIZE
+    each step entry point notes its shape-bucket variant
+    (``analysis/sanitize.py``), keyed as the JAX engine keys its jits."""
 
     def __init__(self, cfg: ModelConfig, params: dict, *, n_slots: int = 8,
                  max_len: int = 512, page_size: int = 16,
@@ -576,8 +606,9 @@ class ContinuousEngine:
                  spec_decode: bool = False, draft_bits: int = 2,
                  spec_k: int = 4, preempt: bool = False,
                  age_promote: Optional[float] = None,
-                 faults: Optional[FaultPlan] = None, debug: bool = False,
-                 tp: int = 1, mesh=None, device="cuda"):
+                 faults: Optional[FaultPlan] = None,
+                 debug: Optional[bool] = None, tp: int = 1, mesh=None,
+                 device="cuda"):
         cfg.validate()
         if cfg.enc_dec:
             raise NotImplementedError("paged serving covers decoder-only LMs")
@@ -657,6 +688,12 @@ class ContinuousEngine:
             self.draft_params = quantize_params_for_serving(
                 cfg, params, bits=draft_bits, group_size=quant_group,
                 device=self.device)
+        # the sanitizer's flag, read once (its sites cost nothing when
+        # off), and the weights' part of its step keys
+        self._sanitize = sanitize_enabled()
+        self._w_sig = _params_sig(self.params) if self._sanitize else None
+        self._dw_sig = (_params_sig(self.draft_params)
+                        if self._sanitize and self.spec_decode else None)
         self.n_slots = n_slots
         self.eos_id = eos_id
         self.prefill_bucket = max(1, prefill_bucket)
@@ -706,7 +743,7 @@ class ContinuousEngine:
         self.n_steps_total = 0       # step() calls: the faults' step index
         # ------------------------------------------------ fault tolerance
         self.faults = faults
-        self.debug = bool(debug)
+        self.debug = debug_enabled() if debug is None else bool(debug)
         self.n_spill_corruptions = 0     # corruption faults injected
         self.n_spill_checksum_fails = 0  # ... caught at restore
         self.n_nonfinite = 0         # slots the isfinite sentinel killed
@@ -837,6 +874,8 @@ class ContinuousEngine:
         n_live = int(self.cur_len[slot])
 
         def copy_out(pages):
+            if self._sanitize:
+                note_variant("spill_gather", pages=len(pages))
             idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
             host = _host_tree(self.cache, lambda key, t: (
                 t.index_select(_PAGE_AXIS, idx) if key in POOL_KEYS
@@ -874,6 +913,8 @@ class ContinuousEngine:
             self.sched.quarantine(slot, now, "spill_corrupt")
             return
         if snap.copied:
+            if self._sanitize:
+                note_variant("spill_scatter", pages=len(snap.restored))
             idx = torch.tensor(snap.restored, dtype=torch.int64,
                                device=self.device)
             _put_tree(self.cache, snap.host,
@@ -1285,6 +1326,13 @@ class ContinuousEngine:
                                             dtype=torch.int32, device=dev)
         toks_d = torch.tensor(toks, device=dev)
         pos_d = torch.tensor(pos, device=dev)
+        if self._sanitize:
+            width = paged["bt_rows"].shape[1]
+            sigs = [self._w_sig] + ([self._dw_sig] if self.spec_decode
+                                    else [])
+            for sig in sigs:
+                note_variant("paged_prefill", batch=batch, bucket=padded,
+                             ctx=has_ctx, width=width, w=sig)
         logits = lm_prefill(self.model_cfg, self.params, toks_d, self.cache,
                             pos_d, paged)
         if self.spec_decode:
@@ -1302,6 +1350,9 @@ class ContinuousEngine:
         if not finish:
             return
         last = logits[finish]
+        if self._sanitize:
+            note_variant("sample_first", batch=len(finish),
+                         temperature=self.temperature, top_k=self.top_k)
         first = sample(last, temperature=self.temperature, top_k=self.top_k,
                        generator=self._gen)
         ok = torch.isfinite(last).all(dim=-1).to(first.dtype)
@@ -1339,6 +1390,10 @@ class ContinuousEngine:
             self._poison_slots.clear()
             poison = torch.tensor(mask, device=self.device)
         dev = self.device
+        if self._sanitize:
+            note_variant("paged_decode_scan", k=k_steps, slots=self.n_slots,
+                         width=width, temperature=self.temperature,
+                         top_k=self.top_k, w=self._w_sig)
         toks, alive = _decode_scan(
             self.model_cfg, self.params, self.cache,
             torch.tensor(self.last_tok, device=dev),
@@ -1369,6 +1424,10 @@ class ContinuousEngine:
             k_eff = 1 << (k_eff.bit_length() - 1)
         m = k_eff + 1
         width = self._read_width(int(self.cur_len[act].max()) + m)
+        if self._sanitize:
+            note_variant("spec_block", k=k_eff, slots=self.n_slots,
+                         width=width, temperature=self.temperature,
+                         top_k=self.top_k, w=self._w_sig, dw=self._dw_sig)
         dev = self.device
         out, n_emit = _spec_round(
             self.model_cfg, self.params, self.draft_params, self.cache,

@@ -6,12 +6,14 @@ on the card.
 For kernel 1 (dequant matmul, W4 g128) and kernel 3 (W8A8, W4
 per-channel), at each M of ``--ms`` on llama3.2-1b's 2048 x 8192 and
 2048 x 2048 linears, and at the decode M = 8 on its other two shapes and
-Mixtral's attention shapes, it times the streaming body at 1-64 K
-splits, the tile at 1-8, the planner's own plan and one ``torch.matmul``
-of bf16 operands. Each variant is first held against the plain version
-with ``chip_smoke.py``'s tolerance, and timed with its timer (device ms,
-L2 flushed before each run). This is where ``kernels/dequant_matmul.py``'s
-STREAM_MAX_M and STREAM_TARGET_BLOCKS come from. One JSON line per case
+Mixtral's attention shapes, it times the candidates the tuner searches
+(``kernels/template.py::dense_candidates``: the planner's own plan, the
+streaming body at 1-64 K splits up to M 512, the tile at 1-8) and one
+``torch.matmul`` of bf16 operands. Each variant is first held against
+the plain version with ``chip_smoke.py``'s tolerance, and timed with its
+timer (device ms, L2 flushed before each run). This is where
+``kernels/dequant_matmul.py``'s STREAM_MAX_M and STREAM_TARGET_BLOCKS
+come from. One JSON line per case
 on stdout (and in ``--out``), after the card's name and power limit.
 """
 from __future__ import annotations
@@ -31,11 +33,10 @@ import chip_smoke  # noqa: E402
 from repro_torch.core.quant.types import (dequantize, quantize,  # noqa: E402
                                           quantize_activation, unpack)
 from repro_torch.kernels import dequant_matmul as dq  # noqa: E402
-from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ref, template  # noqa: E402
 
 SWEEP_SHAPES = ((2048, 8192), (2048, 2048))
 DECODE_SHAPES = ((2048, 512), (8192, 2048), (6144, 6144), (6144, 1024))
-SPLITS = {dq.STREAM: (1, 2, 4, 8, 16, 32, 64), dq.TILE: (1, 2, 4, 8)}
 
 
 def sweep_case(name: str, m: int, k: int, n: int, timer, gen) -> dict:
@@ -57,19 +58,16 @@ def sweep_case(name: str, m: int, k: int, n: int, timer, gen) -> dict:
                                       group_size=group, k=k)
         tol = chip_smoke.dequant_tol(x, qt)
         lib = (x.to(torch.bfloat16), dequantize(qt).to(torch.bfloat16))
+    # the tuner's candidates (kernels/template.py), the planner's first
+    choices = template.dense_candidates(m, k, n, 4, groups, int8=int8)
     planned = dq.plan(m, k, n, 4, groups, int8=int8)
-    variants = [("planned", planned)]
-    for body, sub in ((dq.STREAM, dq.plan_stream), (dq.TILE, dq.plan_tile)):
-        base = sub(m, k, n, 4, groups, int8=int8)
-        for s in SPLITS[body]:
-            p = dq.split_k(base, k, groups, s, int8=int8)
-            if p.splits == s:
-                variants.append(("stream" if body == dq.STREAM else "tile",
-                                 p))
     row = dict(kernel=name, shape=[m, k, n],
                planned=dict(body=planned.body, splits=planned.splits),
                stream={}, tile={})
-    for label, p in variants:
+    for choice in choices:
+        p = template.valid_dense(choice, m, k, n, 4, groups, int8=int8)
+        label = "stream" if p.body == dq.STREAM else "tile"
+
         def call(p=p):
             return dq.launch(name, a, qt.qw, qt.scale, p, bits=4, k=k)
 
@@ -77,10 +75,9 @@ def sweep_case(name: str, m: int, k: int, n: int, timer, gen) -> dict:
         if not err <= tol:
             raise AssertionError(f"{name} {label} splits={p.splits} M={m} "
                                  f"K={k} N={n}: |err| {err} > {tol}")
-        if label == "planned":
-            row["planned"]["ms"] = timer(call)
-        else:
-            row[label][p.splits] = timer(call)
+        row[label][p.splits] = timer(call)
+        if p == planned:
+            row["planned"]["ms"] = row[label][p.splits]
     row["library_ms"] = timer(lambda: torch.matmul(*lib))
     return row
 

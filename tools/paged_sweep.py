@@ -6,7 +6,8 @@ At llama3.2-1b's decode read (GQA 32/8, hd 64, 20 pages of 16) with 8
 and 32 slots, f32 and int8 pools, and at Mixtral's 4096-token window
 (GQA 48/8, hd 128, 288 pages) with 8 slots, it launches the kernel at
 n_split 1-8 and at ``plan_paged``'s choice, with ``chip_smoke.py``'s
-ragged fills (an empty slot included). Each split is first held against
+ragged fills (an empty slot included), on pools and queries built by
+``kernels/paged_harness.py`` from a seed. Each split is first held against
 the plain version (1e-4) and timed with ``chip_smoke.py``'s timer (device
 ms, L2 flushed before each run). This is where
 ``kernels/paged_attention.py``'s TARGET_BLOCKS and MIN_SPLIT_TOKENS come
@@ -27,6 +28,7 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import chip_smoke  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import paged_harness as ph  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
 LLAMA_FILLS = [0, 1, 16, 37, 100, 256, 300, 320]
@@ -39,11 +41,13 @@ CASES = [("llama_s8", 8, 4, 64, 20, None, LLAMA_FILLS, False),
 
 
 def sweep_case(label, kvh, g, hd, w, window, fills, quant, timer,
-               gen) -> dict:
+               seed) -> dict:
     s, ps = len(fills), 16
-    (kp, vp, ks, vs), bt, kl = chip_smoke._paged_case(gen, s, w, ps, kvh, g,
-                                                      hd, fills, quant)
-    q = torch.randn((s, kvh, g, hd), generator=gen, device="cuda")
+    q, pools, bt, kl = ph.build_paged_case(seed, s, w, ps, kvh, g, hd, fills,
+                                           8 if quant else 16)
+    q = ph.kernel_rows(q, kvh)
+    kp, vp = pools["k_pool"], pools["v_pool"]
+    ks, vs = pools["k_scale_pool"], pools["v_scale_pool"]
     want = ref.paged_attention_ref(q, kp, vp, bt, kl, ks, vs, window=window)
     out = torch.empty_like(want)
     planned = pa.plan_paged(s, kvh, w, ps, g, hd, hd, quant)
@@ -70,12 +74,10 @@ def main() -> None:
         raise SystemExit("paged_sweep: needs a CUDA device")
     card = chip_smoke.nvidia_smi()
     print(card)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(chip_smoke.SEED)
     timer = chip_smoke.Timer()
     lines = [card]
-    for case in CASES:
-        line = json.dumps(sweep_case(*case, timer, gen))
+    for i, case in enumerate(CASES):
+        line = json.dumps(sweep_case(*case, timer, chip_smoke.SEED + i))
         print(line, flush=True)
         lines.append(line)
     if args.out:

@@ -42,6 +42,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import channel_stats as cs  # noqa: E402
 from repro_torch.kernels import quantize_pack as qp  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.launch.roofline import F32_FLOPS, bound  # noqa: E402
 
 KINDS = {"stats": ("channel_stats", cs), "pack": ("quantize_pack", qp)}
 # the default grid of each kind: the committed geometry first
@@ -155,8 +156,8 @@ def run_stats(gen, var) -> list[dict]:
         ms = time_ms(lambda: cs.channel_stats_cuda(x), warm)
         lib_ms = time_ms(lambda: torch.var_mean(x, dim=0, correction=0),
                          warm)
-        b_ms, _ = chip_smoke.bound(x.numel() * x.element_size() + 8 * c,
-                                   3.0 * x.numel(), chip_smoke.F32_FLOPS)
+        b_ms, _ = bound(x.numel() * x.element_size() + 8 * c,
+                        3.0 * x.numel(), F32_FLOPS)
         plan = cs.plan_stats(t, c, dtype == torch.bfloat16)
         rows.append(dict(variant=var, shape=[t, c],
                          dtype=str(dtype).split(".")[-1], warm=warm, ok=ok,
@@ -182,9 +183,8 @@ def run_pack(gen, var) -> list[dict]:
                                                          bits=bits)))
         ms = time_ms(lambda: qp.quantize_pack_cuda(w, scale, bits=bits),
                      warm)
-        b_ms, _ = chip_smoke.bound(w.numel() * w.element_size()
-                                   + scale.numel() * 4 + got.numel(), 0.0,
-                                   chip_smoke.F32_FLOPS)
+        b_ms, _ = bound(w.numel() * w.element_size()
+                        + scale.numel() * 4 + got.numel(), 0.0, F32_FLOPS)
         b = math.prod(shape[:-2])
         rows.append(dict(variant=var, shape=list(shape), bits=bits,
                          group=group, dtype=str(dtype).split(".")[-1],
