@@ -72,7 +72,7 @@ Then on llama3.2-1b at full width and depth, with seeded random weights:
      every quantized linear on the W8A8 kernel;
   12. AWQ W4 g128 + NT through the same ``build_params``, layer 0 again on
      the CPU;
-  13. the paper's own configuration on 3 of the 16 layers: 128
+  13. the paper's own configuration on 1 of the 16 layers: 128
      self-generated samples of 2048 tokens, GPTQ W4 g128 + NT with the
      reference defaults (the chunked attention core in every apply and
      tweak step, the channel-statistics kernel twice a tweak step), layer
@@ -231,8 +231,8 @@ SEED = 0
 # all submitted at t = 0, 8 slots, pages of 16, prompts padded to 16
 LLAMA_WORK = dict(n_requests=16, prompt_lens=(32, 257), new_lens=(32, 65),
                   max_len=320)
-# the 8 x 32 GPTQ + NT pipeline on llama3.2-1b runs 4 of its 16 layers:
-# the paper-sized GPTQ + NT pipeline runs all 16, and nothing later serves
+# the 8 x 32 GPTQ + NT pipeline on llama3.2-1b runs 4 of its 16 layers
+# (the paper-sized pipeline runs PAPER_LAYERS), and nothing later serves
 # these params
 GPTQ_8X32_LAYERS = 4
 # prefix-shared, chunked serving on llama3.2-1b: one 160-token system prompt
@@ -283,8 +283,10 @@ HOST_TINY = dict(n_repeats=2, d_model=64, head_dim=16, d_ff=128)
 # plain replay routes each prompt as the engine did
 MOE_WORK = dict(n_requests=8, prompt_lens=(16, 129), new_lens=(16, 33),
                 max_len=160, prefill_batch=1)
-# Mixtral's depth on the card: 2 of its 56 layers (each 10.0 GB in f32)
-MOE_LAYERS = 2
+# Mixtral's depth on the card: 1 of its 56 layers (each 10.0 GB in f32;
+# 2 until slice 18, whose bf16 and dry-run phases took the time of the
+# second)
+MOE_LAYERS = 1
 # the expert whose wi and wg layer 0's CPU check quantizes again
 CHECK_EXPERT = 0
 # the 99th percentile of |card - CPU| tweak deltas, in units of lr, that an
@@ -334,6 +336,10 @@ MARGIN = 0.05
 # vocabulary), its control and the fixed-margin count carry it (H100, 700
 # W)
 NOISE = 1e-7
+# a bf16 model's perturbation: one bf16 step of each embedding entry,
+# relative, as 1e-7 is about one f32 step (a 1e-7 change rounds away in a
+# bf16 table)
+BF16_NOISE = 2.0 ** -8
 # Jamba's MoE layer (top-2 of 16, after a mamba layer) flips routing on
 # last bits: at MARGIN its W4 tokens parted from the plain replay's argmax
 # at 4 of 707 positions (one at a top-2 gap of 0.81), and so did the
@@ -370,9 +376,9 @@ AFFINE_STD = 0.02
 # deepseek-v2-lite-16b (slice 13) at its published widths: 585.0 M
 # parameters an MoE layer (2.34 GB in f32), so its 27 layers (62.8 GB)
 # with the packed copy and the pools would not fit the card. Serving is cut
-# to 8 layers (the dense first layer and 7 MoE repeats, 18.4 GB; 16 until
-# the script's budget took the served-token check's three replays of 16
-# MoE layers down by half), the pipelines to 2 (the first layer and 1 MoE
+# to 8 layers (the dense first layer and 7 MoE repeats; 16 until the
+# script's budget took the served-token check's three replays of 16 MoE
+# layers down by half), the pipelines to 2 (the first layer and 1 MoE
 # repeat). Its serving workload is llama's with one prompt a prefill:
 # capacity routing counts a prefill's padded tokens, and replay_served
 # prefills each prompt alone
@@ -1014,7 +1020,77 @@ def check_channel_stats(timer, gen):
     return results
 
 
-def check_paged_attention(timer, gen):
+# one bf16 step of a value v in [2^e, 2^(e+1)) is 2^(e-7), at most 2^-7 of
+# |v|: a bf16 output is the f32 result rounded once, on the kernel's side
+# and the plain version's, and where the two f32 sums (in other orders)
+# straddle a rounding boundary the outputs sit one step apart
+BF16_STEP = 2.0 ** -7
+
+
+def check_bf16_matmuls(timer, gen):
+    """Kernels 1 and 4 on a bf16 x, writing bf16: kernel 1 at llama's MLP
+    2048 x 8192 at M 8 (the streaming body) and M 512 (the tile, reading
+    x as it is), kernel 4 at Mixtral's 8 experts of 6144 x 16384 and
+    deepseek's 64 of 2048 x 1408 at capacity 8, W4 g128; each held to
+    its plain version on the same bf16 operands within the f32 order
+    bound and one bf16 step, timed beside its bound (x and the output at
+    2 bytes) and the library's bf16 product (``torch.matmul``,
+    ``torch.bmm``). Returns {name: cases}."""
+    from repro_torch.core.quant.types import (dequantize, quantize,
+                                              quantize_stacked)
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.kernels.expert_dequant_matmul import (
+        expert_dequant_matmul_cuda)
+    from repro_torch.launch.roofline import BF16_TENSOR_FLOPS, bound
+
+    bf = torch.bfloat16
+    out = {"dequant_matmul_bf16": [], "expert_dequant_matmul_bf16": []}
+    cases = [("dequant_matmul_bf16", (), m, 2048, 8192) for m in (8, 512)]
+    cases += [("expert_dequant_matmul_bf16", (e,), 8, k, n)
+              for e, k, n in ((MOE_E, MOE_D, MOE_FF), (DS_E, 2048, DS_FF))]
+    for name, lead, m, k, n in cases:
+        x = torch.randn(lead + (m, k), generator=gen, device="cuda").to(bf)
+        w = torch.randn(lead + (k, n), generator=gen,
+                        device="cuda") / math.sqrt(k)
+        qt = (quantize_stacked(w, 4, 128) if lead else quantize(w, 4, 128))
+        del w
+        kw = dict(bits=4, group_size=128, k=k, out_dtype=bf)
+        fn = expert_dequant_matmul_cuda if lead else dequant_matmul_cuda
+        plain = (ref.expert_dequant_matmul_ref if lead
+                 else ref.dequant_matmul_ref)
+        args = (x, qt.qw, qt.scale)
+        got = fn(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        tol = dequant_tol(x, qt)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        excess = float((diff - BF16_STEP * want.float().abs()).max())
+        if not (got.dtype == bf and excess <= tol):
+            raise AssertionError(f"{name} {lead + (m, k, n)}: max |err| "
+                                 f"beyond a bf16 step {excess} > {tol}")
+        wbf = dequantize(qt).to(bf)
+        ms = timer(lambda: fn(*args, **kw))
+        plain_ms = timer(lambda: plain(*args, **kw))
+        library_ms = timer((lambda: torch.bmm(x, wbf)) if lead
+                           else (lambda: torch.matmul(x, wbf)))
+        rows = math.prod(lead) * m
+        nbytes = (rows * k * 2 + qt.qw.numel() + qt.scale.numel() * 4
+                  + rows * n * 2)
+        b_ms, b_by = bound(nbytes, 2.0 * rows * k * n, BF16_TENSOR_FLOPS)
+        r = dict(shape=list(lead) + [m, k, n], bits=4, group=128, x="bf16",
+                 out="bf16", max_abs_err=err, beyond_bf16_step=excess,
+                 tol=tol, ms=ms,
+                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                 bound_by=b_by)
+        print(name, json.dumps(r))
+        out[name].append(r)
+        del x, qt, wbf, got, want
+    return out
+
+
+def check_paged_attention(timer, gen, bf16_cases=None):
     # (kv heads, G, hd, table width, window, fills, m_rows, fills clamped
     # to at least m_rows), page 16, 8 slots with an empty slot and ragged
     # fills, f32 and int8 pools: llama3.2-1b (GQA 32/8, hd 64) with a full
@@ -1027,7 +1103,9 @@ def check_paged_attention(timer, gen):
     # (GQA 14/2: G 7, a dead row in each 8-row block), chatglm3-6b (32/2:
     # G 16) and granite-20b (MQA 48/1: G 48, six row chunks on one slot's
     # pages); Jamba's attention layer (GQA 64/8: G 8, hd 128); InternVL2's
-    # (GQA 16/8: G 2, hd 128)
+    # (GQA 16/8: G 2, hd 128). bf16 pools (into ``bf16_cases``, when
+    # given): llama's decode read and its verify at m_rows 5, and
+    # Mixtral's window
     ps = 16
     fills = [0, 1, 16, 37, 100, 256, 300, 320]
     configs = [(8, 4, 64, 20, None, fills, (1, 2, 3, 4, 5, 64), True),
@@ -1057,14 +1135,24 @@ def check_paged_attention(timer, gen):
                                       verify=clamp)
                 print("paged_attention", json.dumps(r))
                 results.append(r)
+            if bf16_cases is not None and clamp and m_rows in (1, 5) and (
+                    window or hd == 64 and g == 4):
+                if window and m_rows != 1:
+                    continue
+                f = [x if x == 0 or x >= m_rows else m_rows for x in fills]
+                r = _check_paged_case(timer, seed, s, kvh, g, hd, ps, w,
+                                      window, f, m_rows, False, bf16=True)
+                print("paged_attention_bf16", json.dumps(r))
+                bf16_cases.append(r)
     return results
 
 
-def paged_work(q, bt, kl, window, m_rows, quant):
+def paged_work(q, bt, kl, window, m_rows, quant, pool_bytes=None):
     """(bytes, flops) a paged read of q (S, KVH, m_rows * G, hd) needs on
     this run's data: each row reads its live keys (inside the window),
-    each slot's live tokens are read once, q, the tables and the output
-    (hd_v = hd) once."""
+    each slot's live tokens are read once (``pool_bytes`` an element: 1
+    int8, else 4, or 2 for bf16 pools), q, the tables and the output
+    (hd_v = hd, q's dtype) once."""
     s, kvh, rows, hd = q.shape
     g = rows // m_rows
     r = torch.arange(rows, device=q.device)
@@ -1075,21 +1163,23 @@ def paged_work(q, bt, kl, window, m_rows, quant):
         live = live.clamp_max(window)
         tokens = tokens.clamp_max(window + m_rows - 1)
     live_rows = int(live.sum())                              # (token, row)
-    tok_bytes = kvh * 2 * hd * (1 if quant else 4) + (
-        kvh * 2 * 4 if quant else 0)
-    nbytes = (2 * q.numel() * 4 + bt.numel() * 4 + kl.numel() * 4
+    pool_bytes = pool_bytes or (1 if quant else 4)
+    tok_bytes = kvh * 2 * hd * pool_bytes + (kvh * 2 * 4 if quant else 0)
+    nbytes = (2 * q.numel() * q.element_size() + bt.numel() * 4
+              + kl.numel() * 4
               + int(tokens.sum()) * tok_bytes)
     return nbytes, live_rows * kvh * 2 * (hd + hd)
 
 
 def _check_paged_case(timer, seed, s, kvh, g, hd, ps, w, window, fills,
-                      m_rows, quant, verify=True):
+                      m_rows, quant, verify=True, bf16=False):
     """One paged case from ``kernels/paged_harness.py``'s builders (pools of
     seeded pages in shuffled order, f32 draws that are not bf16 values, an
     empty slot's table row all -1):
     the decode builder at m_rows 1, else the verify builder, or with
     ``verify`` False the prefill builder, whose fills may sit below
-    m_rows."""
+    m_rows. ``bf16``: the harness's bf16 pools (the draws rounded), q and
+    the output in bf16."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import paged_harness as ph
@@ -1099,13 +1189,17 @@ def _check_paged_case(timer, seed, s, kvh, g, hd, ps, w, window, fills,
     from repro_torch.launch.roofline import F32_FLOPS, bound
 
     kv_bits = 8 if quant else 16
+    pk = dict(pools="bf16" if bf16 else "f32")
     if m_rows == 1:
-        case = ph.build_paged_case(seed, s, w, ps, kvh, g, hd, fills, kv_bits)
+        case = ph.build_paged_case(seed, s, w, ps, kvh, g, hd, fills, kv_bits,
+                                   **pk)
     else:
         build = ph.build_verify_case if verify else ph.build_prefill_case
-        case = build(seed, s, m_rows, w, ps, kvh, g, hd, fills, kv_bits)
+        case = build(seed, s, m_rows, w, ps, kvh, g, hd, fills, kv_bits, **pk)
     q, pools, bt, kl = case
     q = ph.kernel_rows(q, kvh)
+    if bf16:
+        q = q.to(torch.bfloat16)
     kp, vp = pools["k_pool"], pools["v_pool"]
     ks, vs = pools["k_scale_pool"], pools["v_scale_pool"]
     args = (q, kp, vp, bt, kl, ks, vs)
@@ -1114,9 +1208,15 @@ def _check_paged_case(timer, seed, s, kvh, g, hd, ps, w, window, fills,
     want = ref.paged_attention_ref(*args, **kw)
     torch.cuda.synchronize()
     # f32 throughout on both sides; outputs are convex combinations of O(1)
-    # values and differ only by rounding in another order
+    # values and differ only by rounding in another order (a bf16 output:
+    # and one bf16 step of each value, where the two f32 results straddle
+    # a rounding boundary)
     tol = 1e-4
-    err = float((got - want).abs().max())
+    diff = (got.float() - want.float()).abs()
+    raw_err = float(diff.max())
+    if bf16:
+        diff = diff - BF16_STEP * want.float().abs()
+    err = float(diff.max())
     # rows at fill positions < 0 (and the empty slot) read nothing: exact
     # zeros, as the plain version gives
     rows = torch.arange(m_rows * g, device="cuda")
@@ -1126,17 +1226,18 @@ def _check_paged_case(timer, seed, s, kvh, g, hd, ps, w, window, fills,
             or not torch.all(got[dead] == 0)
             or not torch.all(want[dead] == 0)):
         raise AssertionError(f"paged_attention hd={hd} G={g} window={window} "
-                             f"m_rows={m_rows} int8={quant} fills={fills}: "
-                             f"max |err| {err}")
+                             f"m_rows={m_rows} int8={quant} bf16={bf16} "
+                             f"fills={fills}: max |err| {err}")
     # the split walk's partials merge in rank order, never by atomics
     if not torch.equal(paged_attention_cuda(*args, **kw), got):
         raise AssertionError("paged_attention: two calls differ")
-    n_split = plan_paged(s, kvh, w, ps, m_rows * g, hd, hd, quant)
+    n_split = plan_paged(s, kvh, w, ps, m_rows * g, hd, hd,
+                         "bf16" if bf16 else "int8" if quant else "f32")
     # yardstick: SDPA over the gathered (dequantized) pages with a boolean
-    # mask of the same per-row causal (and window) limits
+    # mask of the same per-row causal (and window) limits, in q's dtype
     idx = bt.long().clamp_min(0)
-    kg = kp[idx].float()
-    vg = vp[idx].float()
+    kg = kp[idx].to(q.dtype)
+    vg = vp[idx].to(q.dtype)
     if quant:
         kg = kg * ks[idx][..., None]
         vg = vg * vs[idx][..., None]
@@ -1152,11 +1253,13 @@ def _check_paged_case(timer, seed, s, kvh, g, hd, ps, w, window, fills,
     del kg, vg, mask
     ms = timer(lambda: paged_attention_cuda(*args, **kw))
     plain_ms = timer(lambda: ref.paged_attention_ref(*args, **kw))
-    b_ms, b_by = bound(*paged_work(q, bt, kl, window, m_rows, quant),
-                       F32_FLOPS)
+    b_ms, b_by = bound(*paged_work(q, bt, kl, window, m_rows, quant,
+                                   2 if bf16 else None), F32_FLOPS)
     return dict(hd=hd, kv_heads=kvh, group=g, window=window, m_rows=m_rows,
-                int8=quant, fills=fills, dead_rows=int(dead[:, 0].sum()),
-                n_split=n_split, max_abs_err=err, tol=tol, ms=ms,
+                int8=quant, pools="bf16" if bf16 else
+                ("int8" if quant else "f32"), fills=fills, dead_rows=int(dead[:, 0].sum()),
+                n_split=n_split, max_abs_err=raw_err,
+                beyond_bf16_step=err if bf16 else None, tol=tol, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -1588,7 +1691,7 @@ def _llama_logits(cfg, params, done):
 
 def check_against_plain(cfg, engine, done, measure_margin=False,
                         replay=False, plain_on_card=False, routing=None,
-                        forward=None, into=None):
+                        forward=None, into=None, noise=NOISE):
     """Every served greedy token equals the plain forward's argmax wherever
     that forward's top-2 margin exceeds the margin: MARGIN, or with
     ``measure_margin`` the margin measured on these sequences (see NOISE).
@@ -1632,7 +1735,9 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
     one that the two runs' probabilities can order either way: its gap
     no more than twice their largest difference at that token.
 
-    ``into``: a dict the printed line is copied into.
+    ``into``: a dict the printed line is copied into. ``noise``: the
+    relative perturbation of the embedding table (NOISE; BF16_NOISE for a
+    bf16 model, whose embedding rounds 1e-7 away).
 
     Returns the plain forward's logits at the served positions, per
     request."""
@@ -1667,6 +1772,7 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
     preds = plain(params)
     served_toks = [torch.tensor(r.tokens, dtype=torch.int64) for r in done]
     margin, noise_preds, card_shift = MARGIN, None, None
+    noise_rel = noise
     if measure_margin:
         # the token embedding table (a decoder's, under "dec" for whisper)
         # perturbed by NOISE relative
@@ -1675,7 +1781,8 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
         gen = torch.Generator().manual_seed(SEED)
         noise = torch.randn(emb.shape, generator=gen).to(emb.device)
         noisy = dict(params[sub] if sub else params,
-                     embed={"w": emb * (1 + NOISE * noise)})
+                     embed={"w": (emb * (1 + noise_rel * noise)).to(
+                         emb.dtype)})
         noise_preds = plain(dict(params, dec=noisy) if sub else noisy)
         del noise, noisy
         noise_shift = max(float((a - b).abs().max())
@@ -1738,7 +1845,7 @@ def check_against_plain(cfg, engine, done, measure_margin=False,
             control_total += n
         band = torch.cat(band_sizes).double()
         line.update(
-            noise=NOISE, noise_logit_shift=noise_shift,
+            noise=noise_rel, noise_logit_shift=noise_shift,
             card_logit_shift=card_shift,
             card_logit_shift_limit=shift_limit,
             within_margin_of_top=in_band,
@@ -2359,11 +2466,14 @@ PAPER_CALIB = dict(n_samples=128, token_length=2048, batch_size=128)
 # (all 16 until slice 16: at ~16 s a layer it was a quarter of the
 # script, whose host-bound phases ran 15% slower on one machine than on
 # another, PERF.md section 5; 6 until slice 17, whose autotune phases and
-# harness-built paged cases took the time of three). Every layer runs the
-# same code on inputs of the same shape; what 3 layers no longer show is
-# the other 13 layers' numerics at this size, the full-depth peak memory
-# and the 16-layer time
-PAPER_LAYERS = 3
+# harness-built paged cases took the time of three; 3, then 2, in slice
+# 18, whose bf16 and dry-run phases and deepseek's 8 served layers took
+# the time of two). Every layer runs the same code on inputs of the same
+# shape; what 1 layer no longer shows is the other 15 layers' numerics at
+# this size, a layer reading a tweaked layer's output at this size (the
+# 2-layer pipelines above show that), the full-depth peak memory and the
+# 16-layer time
+PAPER_LAYERS = 1
 
 
 def check_chunked_attention(cfg, block, x):
@@ -3323,6 +3433,112 @@ def serve_static_phase(cfg, params):
     return stats
 
 
+# the bf16 SiLU's launches beyond the f32 step's fused one, a layer: the
+# JAX package's rounding points (``mlp_moe.silu``: neg, exp, add,
+# reciprocal, then the product), none of them a cast
+BF16_SILU_EXTRA = 4
+
+
+def decode_step_kernels(engine, reps: int = 20) -> dict:
+    """The CUDA kernels of one decode step: the engine's last recorded
+    ``lm_decode`` call run again (after one warm call) under
+    ``torch.profiler`` with CUDA activity, then ``reps`` times more, each
+    to its end (host clock). Returns {"kernels": count (None when the
+    profiler saw no device activity), "by_name": count of each kernel
+    name, "copies": the memcpy / memset events, "step_ms": the replays'
+    median}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import lm_decode
+
+    call = next(c for c in reversed(engine.recorded_calls)
+                if c["kind"] == "decode")
+    args = (engine.model_cfg, engine.params, call["tokens"], engine.cache,
+            call["positions"], call["paged"])
+    with torch.no_grad():
+        lm_decode(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lm_decode(*args)
+            torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            lm_decode(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
+    kernels = [e.name for e in events if e not in copies]
+    by_name: dict = {}
+    for n in kernels:
+        by_name[n] = by_name.get(n, 0) + 1
+    return dict(kernels=len(kernels) if events else None, by_name=by_name,
+                copies=len(copies), step_ms=float(np.median(times)))
+
+
+def serve_bf16_phase(cfg, f32_stats):
+    """llama3.2-1b W4 g128 served in bf16 (params and activations; the
+    engine packs the bf16 weights): 112 kernel-1 and 16 kernel-2 launches
+    a decode step, every one the bf16 variant; every served token held to
+    the plain bf16 forward on the card, the margin measured under a one-
+    bf16-step perturbation of the embedding table (BF16_NOISE); TPOT p50
+    and a replayed decode step's ms beside the f32 run's; and one decode
+    step's CUDA kernels, counted by the profiler, no more than the f32
+    step's but for the SiLU's own bf16 roundings (``BF16_SILU_EXTRA`` a
+    layer): the bf16 activations meet each kernel as they are, no cast
+    pass before it."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_lm
+
+    cfg16 = cfg.replace(dtype="bfloat16", param_dtype="bfloat16")
+    n_lin = 7 * cfg.n_repeats
+    engine, done, st = serve(cfg16, init_lm(cfg16, seed=SEED, device="cuda"),
+                             "serve_w4_bf16", LLAMA_WORK, quant_bits=4,
+                             quant_group=128)
+    st["bf16_launches"] = ops.bf16_launch_counts()
+    assert_decode_launches(st, {"dequant_matmul": n_lin,
+                                "paged_attention": cfg.n_repeats})
+    assert_deploy_launches(st)
+    run, b16 = st["run_launches"], st["bf16_launches"]
+    if not (b16["dequant_matmul"] == run["dequant_matmul"] > 0
+            and b16["paged_attention"] == run["paged_attention"] > 0):
+        raise AssertionError(f"serve_w4_bf16: launches {run}, of them on "
+                             f"bf16 operands {b16}")
+    check_against_plain(cfg16, engine, done, measure_margin=True,
+                        plain_on_card=True, noise=BF16_NOISE,
+                        into=st.setdefault("plain_check", {}))
+    st["decode_step_kernels"] = decode_step_kernels(engine)
+    f32_k = f32_stats["decode_step_kernels"]["kernels"]
+    bf16_k = st["decode_step_kernels"]["kernels"]
+    # the kernel names whose counts differ between the two steps, cut to
+    # their first 80 characters
+    names_16 = st["decode_step_kernels"]["by_name"]
+    names_32 = f32_stats["decode_step_kernels"]["by_name"]
+    differ = {n[:80]: [names_32.get(n, 0), names_16.get(n, 0)]
+              for n in set(names_16) | set(names_32)
+              if names_16.get(n, 0) != names_32.get(n, 0)}
+    allowed = None if f32_k is None else (f32_k + BF16_SILU_EXTRA
+                                          * cfg.n_repeats)
+    line = dict(tpot_ms_p50_bf16=st["tpot_ms_p50"],
+                tpot_ms_p50_f32=f32_stats["tpot_ms_p50"],
+                decode_step_ms_bf16=st["decode_step_kernels"]["step_ms"],
+                decode_step_ms_f32=f32_stats["decode_step_kernels"][
+                    "step_ms"],
+                decode_step_kernels_bf16=bf16_k,
+                decode_step_kernels_f32=f32_k,
+                decode_step_kernels_allowed_bf16=allowed,
+                kernels_that_differ_f32_bf16=differ)
+    print("bf16_serving", json.dumps(line))
+    if allowed is not None and bf16_k is not None and bf16_k > allowed:
+        raise AssertionError(f"serve_w4_bf16: a bf16 decode step launches "
+                             f"{bf16_k} CUDA kernels, the f32 step {f32_k} "
+                             f"(allowed {allowed})")
+    del engine, done
+    return st
+
+
 def llama_paths(cfg):
     """The llama3.2-1b paths; returns their metrics by path name."""
     from repro_torch.models.transformer import init_lm
@@ -3335,6 +3551,7 @@ def llama_paths(cfg):
             cfg, init_lm(cfg, seed=SEED, device="cuda"), "serve_w4",
             LLAMA_WORK, quant_bits=4, quant_group=128)
         preds = check_against_plain(cfg, engine, done, plain_on_card=True)
+        out["serve_w4"]["decode_step_kernels"] = decode_step_kernels(engine)
         SERVE_W4_TOKENS.update({r.rid: list(r.tokens) for r in done})
         TP_REFERENCE["serve_w4"] = ({r.rid: list(r.tokens) for r in done},
                                     {r.rid: p for r, p in zip(done, preds)},
@@ -3345,6 +3562,10 @@ def llama_paths(cfg):
                                                  cfg.n_repeats})
         assert_deploy_launches(out["serve_w4"])
         del engine, done
+        release()
+    # slice 18: the same W4 serving in bf16
+    with phase("serve_w4_bf16"):
+        out["serve_w4_bf16"] = serve_bf16_phase(cfg, out["serve_w4"])
         release()
     # slice 10: prefix-shared, chunked serving, then speculative serving
     with phase("serve_prefix_w4"):
@@ -4171,6 +4392,69 @@ def internvl2_paths():
 # loads them. Times of ranks that share one card through gloo say nothing
 # of TP across cards and are printed only under that label (MD_LABEL).
 
+# ------------------------------------------------------ dry run (slice 18)
+#
+# ``launch/dryrun.py``'s cells realized on the card, each at R=1 and R=2
+# of its pattern in bf16 with seeded weights, beside the fake-tensor
+# accounting of the same step: chatglm3-6b's decode at 32k (W4, kernel 1
+# at M 128 over batch 128, ~4 GiB of bf16 KV a layer) and its 32k
+# prefill (the batch cut), Mixtral's decode at 32k (W4 experts: kernel 4
+# on the bf16 capacity buffer), llama3.2-1b's 4k training step under each
+# remat policy (the batch cut). The prefill runs one 32k-token sequence
+# and each training step two 4k ones (the dry run's own budgets would
+# take two and four: 26 and 20 s of the script)
+DRYRUN_CELLS = [("chatglm3-6b", "decode_32k", None, {}),
+                ("chatglm3-6b", "prefill_32k", None, dict(batch=1)),
+                ("mixtral-8x22b", "decode_32k", None, {}),
+                ("llama3.2-1b", "train_4k", "nothing", dict(batch=2)),
+                ("llama3.2-1b", "train_4k", "dots", dict(batch=2))]
+
+
+def dryrun_paths():
+    """Each DRYRUN_CELLS cell through ``dryrun.run_cell`` on the card, its
+    record and ``report`` row printed. Asserted: the record is ok with
+    its cost, argument bytes, peak bytes and step time; a serving cell
+    launched kernel 1 on bf16 x only, Mixtral's kernel 4 on the bf16
+    buffer too."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, report
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="dryrun")
+    for arch, shape, policy, kw in DRYRUN_CELLS:
+        label = f"dryrun_{arch}_{shape}" + (f"_remat_{policy}" if policy
+                                             else "")
+        with phase(label):
+            variant = {"cfg": {"remat_policy": policy}} if policy else None
+            ops.reset_launch_counts()
+            rec = dryrun.run_cell(
+                arch, shape, False, tmp, variant=variant,
+                variant_name=f"remat_{policy}" if policy else "", **kw)
+            launches, b16 = ops.launch_counts(), ops.bf16_launch_counts()
+            print("dryrun", json.dumps(dict(rec, launches=launches,
+                                            bf16_launches=b16)))
+            if rec["status"] != "ok":
+                raise AssertionError(f"{label}: {rec.get('error')}\n"
+                                     f"{rec.get('traceback')}")
+            print(report.table([rec]))
+            serving = dryrun.SHAPES[shape].kind != "train"
+            ok = (rec["cost"]["flops"] > 0
+                  and rec["memory"]["argument_bytes"] > 0
+                  and rec["memory"]["peak_bytes"] > 0 and rec["step_ms"] > 0
+                  and (not serving or b16["dequant_matmul"]
+                       == launches["dequant_matmul"] > 0)
+                  and (arch != "mixtral-8x22b"
+                       or b16["expert_dequant_matmul"]
+                       == launches["expert_dequant_matmul"] > 0))
+            if not ok:
+                raise AssertionError(f"{label}: record {rec}, launches "
+                                     f"{launches}, bf16 {b16}")
+            out[label] = dict(record=rec, launches=launches,
+                              bf16_launches=b16)
+            release()
+    return out
+
+
 MD_LABEL = "ranks sharing one card through gloo (not TP across cards)"
 
 
@@ -4634,7 +4918,7 @@ def _tune_paged(m_rows, quant):
                  pools["k_scale_pool"], pools["v_scale_pool"])
     plain = ref.paged_attention_ref(q, *pool_args, m_rows=m_rows)
     rows = m_rows * g
-    shape = (s, kvh, w, ps, rows, hd, hd, quant)
+    shape = (s, kvh, w, ps, rows, hd, hd, "int8" if quant else "f32")
     tuned = autotune.paged_split(*shape, m_rows=m_rows)
     fixed = pa.plan_paged(*shape)
     out = torch.empty_like(plain)
@@ -4694,7 +4978,8 @@ def _plant_decode_plans(cfg, path):
     g = cfg.n_heads // cfg.n_kv_heads
     for w in sorted({min(1 << i, max_pages)
                      for i in range(max_pages.bit_length() + 1)}):
-        shape = (8, cfg.n_kv_heads, w, 16, g, cfg.hd, cfg.hd, False)
+        # the pool type by the name the wrapper passes (f32 pools)
+        shape = (8, cfg.n_kv_heads, w, 16, g, cfg.hd, cfg.hd, "f32")
         fixed = pa.plan_paged(*shape)
         ch = template.paged_choice(fixed - 1 if fixed > 1 else 2)
         if template.valid_paged(ch, *shape) is None:
@@ -4770,7 +5055,8 @@ def autotune_paths(cfg):
                 else:
                     autotune.dense_plan(kernel, *shape, bits, groups)
             for m_rows, quant in AUTOTUNE_PAGED:
-                autotune.paged_split(8, 8, 20, 16, m_rows * 4, 64, 64, quant,
+                autotune.paged_split(8, 8, 20, 16, m_rows * 4, 64, 64,
+                                     "int8" if quant else "f32",
                                      m_rows=m_rows)
             release()
         # reload warm (mode ""): tuned against fixed at each class
@@ -4869,16 +5155,20 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     timer = Timer()
+    paged_bf16 = []
     with phase("kernel_checks"):
         checks = {"dequant_matmul": check_dequant_matmul(timer, gen),
                   "w8a8_matmul": check_w8a8_matmul(timer, gen),
-                  "paged_attention": check_paged_attention(timer, gen),
+                  "paged_attention": check_paged_attention(timer, gen,
+                                                           paged_bf16),
                   "expert_dequant_matmul": check_expert_dequant_matmul(
                       timer, gen),
                   "expert_w8a8_matmul": check_expert_w8a8_matmul(timer,
                                                                  gen),
                   "quantize_pack": check_quantize_pack(timer, gen),
                   "channel_stats": check_channel_stats(timer, gen)}
+        checks.update(check_bf16_matmuls(timer, gen))
+        checks["paged_attention_bf16"] = paged_bf16
         del timer
         release()
     print(f"kernel phase done: {time.perf_counter() - t_all:.1f} s")
@@ -4907,6 +5197,8 @@ def main() -> int:
     print(f"whisper-medium paths done: {time.perf_counter() - t_all:.1f} s")
     paths.update(internvl2_paths())
     print(f"internvl2-2b paths done: {time.perf_counter() - t_all:.1f} s")
+    dry = dryrun_paths()
+    print(f"dry-run cells done: {time.perf_counter() - t_all:.1f} s")
     tuning = autotune_paths(get_config("llama3.2-1b"))
     paths["serve_w4_tuned"] = tuning.pop("serve_w4_tuned")
     print(f"autotune paths done: {time.perf_counter() - t_all:.1f} s")
@@ -4967,6 +5259,39 @@ def main() -> int:
             cases=cases,
             autotune=[r for r in tuning["autotune"]["classes"]
                       if r["kernel"] == name]))
+    # the bf16 variants of kernels 1, 4 and 2 (slice 18): each one's
+    # launches on its main path, counted by its wrapper's bf16 count:
+    # llama's bf16 W4 serving for kernels 1 and 2, Mixtral's dry-run
+    # decode cell for kernel 4; its times at M 8 of the MLP's 2048 x 8192,
+    # Mixtral's 8 experts at capacity 8, llama's decode read on bf16 pools
+    bf16_kernels = [
+        ("dequant_matmul", "dequant_matmul.cu",
+         "src/repro/kernels/dequant_matmul.py:43",
+         paths["serve_w4_bf16"]["bf16_launches"], "serve_w4_bf16",
+         dict(shape=[8, 2048, 8192])),
+        ("expert_dequant_matmul", "expert_dequant_matmul.cu",
+         "src/repro/kernels/expert_dequant_matmul.py:33",
+         dry["dryrun_mixtral-8x22b_decode_32k"]["bf16_launches"],
+         "dryrun_mixtral-8x22b_decode_32k",
+         dict(shape=[MOE_E, 8, MOE_D, MOE_FF])),
+        ("paged_attention", "paged_attention.cu",
+         "src/repro/kernels/paged_attention.py:64",
+         paths["serve_w4_bf16"]["bf16_launches"], "serve_w4_bf16",
+         dict(hd=64, m_rows=1, window=None)),
+    ]
+    for name, source, replaces, counts, path, main_key in bf16_kernels:
+        cases = checks[name + "_bf16"]
+        main_case = next(c for c in cases
+                         if all(c[k] == v for k, v in main_key.items()))
+        entries.append(dict(
+            name=name + "_bf16", route="cuda",
+            source="src/repro_torch/kernels/csrc/" + source,
+            replaces=replaces, launches=counts[name], path=path,
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+            bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+            library_ms=main_case["library_ms"], main_case=main_case,
+            cases=cases))
     print(f"command time: {time.perf_counter() - t_all:.1f} s")
     print("phases", json.dumps({"seconds": PHASE_S}))
     print(json.dumps({"kernels": entries}))

@@ -4,6 +4,7 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 
 CONFIG = ModelConfig(
     name="chatglm3-6b",
+    family="dense",
     vocab_size=65024,
     d_model=4096,
     n_heads=32,

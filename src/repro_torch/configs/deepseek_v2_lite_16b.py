@@ -11,6 +11,7 @@ from repro_torch.models.config import LayerSpec, MLAConfig, ModelConfig, \
 
 CONFIG = ModelConfig(
     name="deepseek-v2-lite-16b",
+    family="moe",
     vocab_size=102400,
     d_model=2048,
     n_heads=16,
@@ -29,6 +30,7 @@ CONFIG = ModelConfig(
     moe=MoEConfig(n_experts=64, top_k=6, n_shared=2, d_ff_expert=1408),
     moe_impl="shard_map",
     serve_quant_bits=4,
+    fsdp=True,
 )
 
 SMOKE = CONFIG.replace(

@@ -4,6 +4,7 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 
 CONFIG = ModelConfig(
     name="granite-20b",
+    family="dense",
     vocab_size=49152,
     d_model=6144,
     n_heads=48,
@@ -21,7 +22,9 @@ CONFIG = ModelConfig(
     o_bias=True,
     mlp_bias=True,
     serve_quant_bits=4,
+    fsdp=True,
 )
 
 SMOKE = CONFIG.replace(vocab_size=512, d_model=96, n_heads=4, n_kv_heads=1,
-                       head_dim=24, d_ff=192, n_repeats=2, max_position=512)
+                       head_dim=24, d_ff=192, n_repeats=2, max_position=512,
+                       fsdp=False)

@@ -6,6 +6,7 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 
 CONFIG = ModelConfig(
     name="internvl2-2b",
+    family="vlm",
     vocab_size=92553,
     d_model=2048,
     n_heads=16,

@@ -6,8 +6,7 @@ Jamba uses Mamba-1 blocks upstream; the JAX package's SSM substrate is
 Mamba2/SSD, and so is the port's. ``moe_impl="shard_map"``, as in the
 JAX package: the explicit all-to-all expert-parallel dispatch
 (models/moe_shardmap.py), taken only under a mesh with a "model" axis;
-without one the spmd dispatch runs. (``fsdp``, a sharding knob of the JAX
-package's offline tools, has no field here.)
+without one the spmd dispatch runs.
 
 At published widths one period does not fit one 80 GB card (each MoE
 layer is 16 x 3 x 8192 x 24576 f32 weights, 38.7 GB); a card run cuts the
@@ -23,6 +22,7 @@ _A = LayerSpec(kind="attn", mlp="dense")
 
 CONFIG = ModelConfig(
     name="jamba-1.5-large-398b",
+    family="hybrid",
     vocab_size=65536,
     d_model=8192,
     n_heads=64,
@@ -40,6 +40,7 @@ CONFIG = ModelConfig(
     mamba=Mamba2Config(d_state=128, head_dim=64, expand=2, d_conv=4,
                        n_groups=1, chunk=128),
     serve_quant_bits=4,
+    fsdp=True,
 )
 
 SMOKE = CONFIG.replace(
@@ -47,4 +48,5 @@ SMOKE = CONFIG.replace(
     d_ff=128, n_repeats=1,
     moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=128),
     mamba=Mamba2Config(d_state=16, head_dim=16, expand=2, d_conv=4,
-                       n_groups=1, chunk=16))
+                       n_groups=1, chunk=16),
+    fsdp=False)

@@ -4,6 +4,7 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 
 CONFIG = ModelConfig(
     name="llama3.2-1b",
+    family="dense",
     vocab_size=128256,
     d_model=2048,
     n_heads=32,

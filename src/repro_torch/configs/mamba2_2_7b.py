@@ -5,6 +5,7 @@ from repro_torch.models.config import LayerSpec, Mamba2Config, ModelConfig
 
 CONFIG = ModelConfig(
     name="mamba2-2.7b",
+    family="ssm",
     vocab_size=50280,
     d_model=2560,
     n_heads=1,          # unused (attention-free)

@@ -4,6 +4,7 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 
 CONFIG = ModelConfig(
     name="qwen2-0.5b",
+    family="dense",
     vocab_size=151936,
     d_model=896,
     n_heads=14,

@@ -21,10 +21,10 @@ _MODULES = {
 
 # the JAX package's tiny paper-style LLaMa-family decoder (MHA, head_dim 48)
 TINY = ModelConfig(
-    name="tiny-lm", vocab_size=256, d_model=192, n_heads=4,
+    name="tiny-lm", family="dense", vocab_size=256, d_model=192, n_heads=4,
     n_kv_heads=4, head_dim=48, d_ff=576,
     pattern=(LayerSpec(kind="attn", mlp="dense"),), n_repeats=8,
-    norm="rmsnorm", act="silu", rope="full")
+    norm="rmsnorm", act="silu", rope="full", remat=False)
 
 
 def _load(name: str, attr: str) -> ModelConfig:

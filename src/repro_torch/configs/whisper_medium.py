@@ -5,6 +5,7 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 
 CONFIG = ModelConfig(
     name="whisper-medium",
+    family="audio",
     vocab_size=51865,
     d_model=1024,
     n_heads=16,

@@ -67,16 +67,18 @@ PARAM_RULES_EXTRA = {
 
 
 def rules_for_config(cfg: ModelConfig, mesh=None) -> dict:
-    """The training rules for ``cfg``: MoE experts split over "model"
-    (expert parallelism) when their count divides the axis, else their
-    hidden dim and the dispatch capacity (expert tensor parallelism). The
-    embed dim is never split: the port has no FSDP (the JAX package's
-    ``cfg.fsdp``, which only its offline tools set), so these are its
-    rules at ``fsdp=False``."""
+    """The training rules for ``cfg``: with ``cfg.fsdp`` a weight's embed
+    dim ("embed_fsdp") splits over "data", else it stays whole; MoE
+    experts split over "model" (expert parallelism) when their count
+    divides the axis, else their hidden dim and the dispatch capacity
+    (expert tensor parallelism). The dry run sizes a rank's params from
+    these; a data-parallel train step under ``fsdp`` raises
+    (``train/train_step.py``)."""
     rules = dict(DEFAULT_RULES)
     rules.update(PARAM_RULES_EXTRA)
     rules["expert_ff"] = None
-    rules["embed_fsdp"] = None
+    if not cfg.fsdp:
+        rules["embed_fsdp"] = None
     if cfg.moe is not None:
         model_size = mesh.shape.get("model", 16) if mesh is not None else 16
         if cfg.moe.n_experts % model_size != 0:

@@ -22,7 +22,7 @@ Resolution, governed by ``RTORCH_AUTOTUNE`` (``repro_torch.debug_flags``):
 Shape classes: the matmuls key as the JAX package's tuner does
 (``matmul_key``: kind, M bucket, N, K, bits, group size); the paged key
 carries everything ``plan_paged`` reads (slots, kv heads, table width,
-page size, rows, head dims, int8), since the port's cluster size depends
+page size, rows, head dims, the pool type: f32, bf16 or int8), since the port's cluster size depends
 on all of them.
 
 Entries hold choices, not plans (``template.py``): the body and K splits
@@ -88,9 +88,10 @@ def matmul_key(kind: str, m: int, k: int, n: int, bits: int,
 
 
 def paged_key(s: int, kvh: int, w: int, page_size: int, rows: int, hd: int,
-              hd_v: int, quant: bool) -> str:
+              hd_v: int, kv: str) -> str:
+    """The paged class: ``kv`` the pool type, "f32", "bf16" or "int8"."""
     return (f"paged:s{s}:kvh{kvh}:w{w}:ps{page_size}:r{rows}:hd{hd}:"
-            f"hdv{hd_v}:kv{'int8' if quant else 'f32'}")
+            f"hdv{hd_v}:kv{pa.kv_kind(kv)}")
 
 
 def _group_size(k: int, groups: int) -> int:
@@ -236,10 +237,10 @@ def expert_plan(name: str, e: int, c: int, k: int, n: int, bits: int,
 
 
 def paged_split(s: int, kvh: int, w: int, page_size: int, rows: int,
-                hd: int, hd_v: int, quant: bool, *, m_rows: int = 1) -> int:
+                hd: int, hd_v: int, kv: str, *, m_rows: int = 1) -> int:
     """The cluster size of one paged-attention launch (``m_rows`` shapes
-    only a search's case: rows = m_rows x G)."""
-    shape = (s, kvh, w, page_size, rows, hd, hd_v, quant)
+    only a search's case: rows = m_rows x G); ``kv`` the pool type."""
+    shape = (s, kvh, w, page_size, rows, hd, hd_v, pa.kv_kind(kv))
     memo = ("paged_attention",) + shape
     plan = _state["plans"].get(memo)
     if plan is not None:
@@ -443,10 +444,11 @@ def _search_expert(name: str, cls: str, e: int, c: int, k: int, n: int,
 
 
 def _search_paged(cls: str, s: int, kvh: int, w: int, page_size: int,
-                  rows: int, hd: int, hd_v: int, quant: bool, *,
+                  rows: int, hd: int, hd_v: int, kv: str, *,
                   m_rows: int) -> dict:
-    """Search a paged class on ``paged_harness``'s seeded pools, the slots'
-    fills a ramp up to the full table (slot i holds (i + 1) / S of it)."""
+    """Search a paged class on ``paged_harness``'s seeded pools of its
+    type, the slots' fills a ramp up to the full table (slot i holds
+    (i + 1) / S of it)."""
     from repro_torch.kernels import paged_harness as ph
     from repro_torch.kernels import ref
 
@@ -459,12 +461,14 @@ def _search_paged(cls: str, s: int, kvh: int, w: int, page_size: int,
     build = ph.build_paged_case if m_rows == 1 else ph.build_verify_case
     margs = () if m_rows == 1 else (m_rows,)
     q, pools, bt, kv_len = build(0, s, *margs, w, page_size, kvh, g, hd,
-                                 fills, 8 if quant else 16, device=device)
+                                 fills, 8 if kv == "int8" else 16,
+                                 pools="bf16" if kv == "bf16" else "f32",
+                                 device=device)
     q = ph.kernel_rows(q, kvh)
     plain = ref.paged_attention_ref(q, pools["k_pool"], pools["v_pool"], bt,
                                     kv_len, pools["k_scale_pool"],
                                     pools["v_scale_pool"], m_rows=m_rows)
-    shape = (s, kvh, w, page_size, rows, hd, hd_v, quant)
+    shape = (s, kvh, w, page_size, rows, hd, hd_v, kv)
     return _search("paged_attention", cls,
                    template.paged_candidates(*shape),
                    Case((q, pools, bt, kv_len, m_rows), plain, 1e-4),

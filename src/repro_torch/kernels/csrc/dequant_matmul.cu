@@ -6,7 +6,8 @@
 //
 //   out[m, n] = sum_k bf16(x[m, k]) * bf16(f32(q[k, n] - QMAX) * scale[g(k), n])
 //
-// accumulated in f32, where q comes from the K-packed offset-binary bytes
+// accumulated in f32 and written f32, or bf16 (one rounding of the f32
+// sum), where x is f32 or bf16 and q comes from the K-packed offset-binary bytes
 // of core/quant/types.py (packing.cuh) and g(k) = 0 per-channel (G == 1),
 // else k / (K / G). The scale is applied before the bf16 rounding, as the
 // plain version (kernels/ref.py::dequant_matmul_ref) and the TPU kernel
@@ -28,7 +29,8 @@
 //   - body 1, prefill: the pipelined tensor-core tile of prefill_tile.cuh:
 //     128 x 256 tiles (128 token rows x 256 weight columns), each
 //     stage's weight unpacked once into a bf16 tile that feeds all 128
-//     token rows.
+//     token rows. An f32 x is rounded to bf16 into the workspace first
+//     (one pass); a bf16 x is the tile's operand as it is.
 // Scale groups of 8-32 rows take body 0 at any M (slow, right).
 #include "prefill_tile.cuh"
 #include "stream_dequant.cuh"
@@ -61,20 +63,29 @@ inline size_t xb_bytes(int M, int K) {
   return ((size_t)M * K * 2 + 255) / 256 * 256;
 }
 
-// body 1: bf16(x) into the workspace's head, the tile, the split sum
+// body 1: an f32 x rounded to bf16 into the workspace's head (a bf16 x
+// as it is), the tile, the split sum
 int launch_prefill(const void* x, const void* qw, const void* scale,
                    void* out, void* workspace, int M, int K, int N, int G,
-                   int bits, int splits, int k_per_split, cudaStream_t st) {
+                   int bits, int splits, int k_per_split, int x_bf16,
+                   int out_bf16, cudaStream_t st) {
   if (!prefill_tile::valid(M, K, N, G, bits, splits, k_per_split,
                            workspace) ||
-      workspace == nullptr)
+      (workspace == nullptr && !x_bf16))
     return (int)cudaErrorInvalidValue;
-  const size_t n = (size_t)M * K;
-  __nv_bfloat16* xb = (__nv_bfloat16*)workspace;
-  to_bf16_kernel<<<(unsigned)((n + 8 * 256 - 1) / (8 * 256)), 256, 0, st>>>(
-      (const float*)x, xb, n, (uintptr_t)x % 16 == 0 ? 1 : 0);
-  float* partial = (float*)((uint8_t*)workspace + xb_bytes(M, K));
-  float* dst = splits > 1 ? partial : (float*)out;
+  const __nv_bfloat16* xb = (const __nv_bfloat16*)x;
+  size_t head = 0;
+  if (!x_bf16) {
+    const size_t n = (size_t)M * K;
+    __nv_bfloat16* xw = (__nv_bfloat16*)workspace;
+    to_bf16_kernel<<<(unsigned)((n + 8 * 256 - 1) / (8 * 256)), 256, 0,
+                     st>>>((const float*)x, xw, n,
+                           (uintptr_t)x % 16 == 0 ? 1 : 0);
+    xb = xw;
+    head = xb_bytes(M, K);
+  }
+  float* partial = (float*)((uint8_t*)workspace + head);
+  void* dst = splits > 1 ? (void*)partial : out;
   const int aligned =
       expert_stream::aligned16(xb, qw, scale, N, (long long)K * 2) ? 1 : 0;
   const uint8_t* xp = (const uint8_t*)xb;
@@ -83,37 +94,42 @@ int launch_prefill(const void* x, const void* qw, const void* scale,
   int code;
   using prefill_tile::launch_tile;
   switch (bits) {
-    case 2: code = launch_tile<2, false, false>(st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split, aligned); break;
-    case 3: code = launch_tile<3, false, false>(st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split, aligned); break;
-    case 4: code = launch_tile<4, false, false>(st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split, aligned); break;
-    default: code = launch_tile<8, false, false>(st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split, aligned); break;
+    case 2: code = launch_tile<2, false, false>(st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split, aligned, out_bf16); break;
+    case 3: code = launch_tile<3, false, false>(st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split, aligned, out_bf16); break;
+    case 4: code = launch_tile<4, false, false>(st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split, aligned, out_bf16); break;
+    default: code = launch_tile<8, false, false>(st, xp, qp, sp, dst, M, K, N, G, splits, k_per_split, aligned, out_bf16); break;
   }
   if (code) return code;
   if (splits > 1)
-    split_k::sum_splits(dst, (float*)out, (size_t)M * N, splits, 1, st);
+    split_k::sum_splits(partial, out, (size_t)M * N, splits, 1, out_bf16,
+                        st);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (M, K) f32, qw (packed_rows(K), N) uint8, scale (G, N) f32 -> out
-// (M, N) f32, all contiguous on the current device. body 0: nt n8 tiles
-// of token rows a block (1, 2 or 4), K in ranges of k_per_split rows (a
-// multiple of 128), and with splits > 1 a workspace of splits x M x N f32
-// partials. body 1: K in ranges of a multiple of 64 rows (nt unused), and
-// a workspace of M x K bf16 (padded to 256 bytes) followed, with splits >
-// 1, by the partials. Returns the CUDA error code of the launches (0 on
-// success).
+// x (M, K) f32 (bf16 with x_bf16), qw (packed_rows(K), N) uint8, scale
+// (G, N) f32 -> out (M, N) f32 (bf16 with out_bf16), all contiguous on the
+// current device. body 0: nt n8 tiles of token rows a block (1, 2 or 4),
+// K in ranges of k_per_split rows (a multiple of 128), and with splits > 1
+// a workspace of splits x M x N f32 partials (a bf16 x: scale groups of
+// whole 16-row K steps). body 1: K in ranges of a multiple of 64 rows (nt
+// unused), and a workspace of M x K bf16 (padded to 256 bytes; none for a
+// bf16 x) followed, with splits > 1, by the partials. Returns the CUDA
+// error code of the launches (0 on success).
 extern "C" int dequant_matmul(const void* x, const void* qw, const void* scale,
                               void* out, void* workspace, int M, int K, int N,
                               int G, int bits, int body, int nt, int splits,
-                              int k_per_split, void* stream) {
+                              int k_per_split, int x_bf16, int out_bf16,
+                              void* stream) {
   if (body == 0)
     return expert_dq::launch(x, qw, scale, out, workspace, 1, M, K, N, G,
-                             bits, nt, splits, k_per_split, stream);
+                             bits, nt, splits, k_per_split, x_bf16, out_bf16,
+                             stream);
   if (body == 1)
     return launch_prefill(x, qw, scale, out, workspace, M, K, N, G, bits,
-                          splits, k_per_split, (cudaStream_t)stream);
+                          splits, k_per_split, x_bf16, out_bf16,
+                          (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -127,7 +143,7 @@ static int blocks_per_sm(int body, int* blocks) {
   cudaError_t err;
   if (body == 0) {
     const int smem = STAGES * stage_bytes<BITS>(1, 4, 1);
-    auto kernel = expert_dq::expert_dq_kernel<BITS, 1, false>;
+    auto kernel = expert_dq::expert_dq_kernel<BITS, 1, false, false>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)

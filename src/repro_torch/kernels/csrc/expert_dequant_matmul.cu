@@ -7,7 +7,8 @@
 //
 //   out[e, c, n] = sum_k bf16(x[e, c, k]) * bf16(f32(q[e, k, n] - QMAX) * scale[e, g(k), n])
 //
-// accumulated in f32, over the (E, C, K) capacity buffer of an MoE layer;
+// accumulated in f32 and written f32, or bf16 (one rounding of the f32
+// sum), over the (E, C, K) f32 or bf16 capacity buffer of an MoE layer;
 // g(k) = 0 per-channel (G == 1), else k / (K / G). The scale is applied
 // before the bf16 rounding, as the plain version
 // (kernels/ref.py::expert_dequant_matmul_ref) and the TPU kernel do.
@@ -23,21 +24,20 @@
 // decode, as E = 1.
 #include "stream_dequant.cuh"
 
-// x (E, C, K) f32, qw (E, packed_rows(K), N) uint8, scale (E, G, N) f32 ->
-// out (E, C, N) f32, all contiguous on the current device. nt: n8 tiles
-// of capacity rows a block holds (1, 2 or 4; C takes ceil(C / 8nt)
-// chunks). With splits > 1, each expert's K is cut into ranges of
-// k_per_split rows (a multiple of 128; no range empty) and workspace holds
-// E x splits x C x N f32 partials. Returns the CUDA error code of the
-// launches (0 on success).
+// x (E, C, K) f32 (bf16 with x_bf16), qw (E, packed_rows(K), N) uint8,
+// scale (E, G, N) f32 -> out (E, C, N) f32 (bf16 with out_bf16), all
+// contiguous on the current device: expert_dq::launch in
+// stream_dequant.cuh says what the plan's nt, splits and k_per_split and
+// the workspace are. Returns the CUDA error code of the launches (0 on
+// success).
 extern "C" int expert_dequant_matmul(const void* x, const void* qw,
                                      const void* scale, void* out,
                                      void* workspace, int E, int C, int K,
                                      int N, int G, int bits, int nt,
-                                     int splits, int k_per_split,
-                                     void* stream) {
+                                     int splits, int k_per_split, int x_bf16,
+                                     int out_bf16, void* stream) {
   return expert_dq::launch(x, qw, scale, out, workspace, E, C, K, N, G, bits,
-                          nt, splits, k_per_split, stream);
+                          nt, splits, k_per_split, x_bf16, out_bf16, stream);
 }
 
 extern "C" const char* expert_dequant_matmul_error_string(int code) {

@@ -45,7 +45,7 @@
 // (W8) packed rows, unpacked in registers (load_planes: byte j of plane
 // i is K row 4t + i of column 8g + 4 * half + j) with shifts, masks and
 // byte permutes on whole 32-bit words, and its x values are one 16-byte
-// (f32) or 4-byte (int8) read. Staged rows are padded (PAD bytes a packed
+// (f32), 8-byte (bf16) or 4-byte (int8) read. Staged rows are padded (PAD bytes a packed
 // row, 64 or 16 bytes an x row) so that a warp's reads fall on distinct
 // banks at W4 and W2.
 //
@@ -102,9 +102,10 @@ struct Stage {
 };
 
 // bytes a staged x row takes: KS values of x_bytes each, padded so that
-// the rows of one read land 64 (f32) or 16 (int8) bytes apart mod 128
+// the rows of one read land 64 (f32), 32 (bf16) or 16 (int8) bytes apart
+// mod 128
 __host__ __device__ constexpr int x_stride(int x_bytes) {
-  return KS * x_bytes + (x_bytes == 4 ? 64 : 16);
+  return KS * x_bytes + (x_bytes == 4 ? 64 : x_bytes == 2 ? 32 : 16);
 }
 
 // scale rows a stage holds: 1 for per-channel scales (G == 1) or a group
@@ -208,6 +209,9 @@ __device__ __forceinline__ void fetch_stage(const Tile& tl, uint8_t* st,
   if (tl.x_bytes == 4)
     copy_rows<KS * 4>(xs, xw, tl.x + (size_t)k0 * 4, (size_t)tl.K * 4, tl.cc,
                       tl.C - tl.c0, (long long)(tl.K - k0) * 4, tl.aligned);
+  else if (tl.x_bytes == 2)
+    copy_rows<KS * 2>(xs, xw, tl.x + (size_t)k0 * 2, (size_t)tl.K * 2, tl.cc,
+                      tl.C - tl.c0, (long long)(tl.K - k0) * 2, tl.aligned);
   else
     copy_rows<KS>(xs, xw, tl.x + k0, (size_t)tl.K, tl.cc, tl.C - tl.c0,
                   (long long)(tl.K - k0), tl.aligned);
@@ -319,6 +323,22 @@ __device__ __forceinline__ void store8(float* row, int col, int N,
 #pragma unroll
     for (int i = 0; i < 8; ++i)
       if (col + i < N) row[col + i] = vals[i];
+  }
+}
+
+// store8 into a bf16 row: the 8 values rounded to nearest even, one
+// 16-byte store when vec (N a multiple of 8)
+__device__ __forceinline__ void store8_bf16(__nv_bfloat16* row, int col,
+                                            int N, const float vals[8],
+                                            bool vec) {
+  if (vec && col + 8 <= N) {
+    *reinterpret_cast<uint4*>(row + col) = make_uint4(
+        pack_bf16(vals[0], vals[1]), pack_bf16(vals[2], vals[3]),
+        pack_bf16(vals[4], vals[5]), pack_bf16(vals[6], vals[7]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (col + i < N) row[col + i] = __float2bfloat16_rn(vals[i]);
   }
 }
 

@@ -1,5 +1,8 @@
 // Paged attention over a block table with inline int8-KV dequant, for
-// Hopper (sm_90a).
+// Hopper (sm_90a). Three pool types: f32, bf16 (each element upcast to
+// f32 as it is read, as the TPU kernel upcasts its bf16 pools) and int8
+// with f32 scale pools; q f32 or bf16 (upcast into shared memory), the
+// output f32 or bf16 (one rounding of the f32 result).
 //
 // Replaces the TPU kernel `paged_attention_pallas`
 // (src/repro/kernels/paged_attention.py, body template.make_paged_kernel).
@@ -19,7 +22,8 @@
 //
 // What bounds it on this card: reading the live K/V pages. A decode read
 // does ~4 * R * hd operations per 2 * hd * 4 bytes of f32 K/V (half the
-// bytes with int8): 2-12 operations a byte for R from 4 to 24, far below
+// bytes with bf16, a quarter with int8): 2-12 operations a byte for R
+// from 4 to 24 at f32, far below
 // the ~20 f32 operations a byte the card's CUDA cores can do per byte of
 // memory rate, so the bytes of the live pages set the time, and the
 // design's job is to keep bytes in flight on every SM and the math per
@@ -40,14 +44,16 @@
 //     keeps an empty partial (m = -1e30, l = 0, acc = 0);
 //   * the share is walked in tiles of TT = 32 tokens through a ring of
 //     STAGES = 3 tiles in shared memory, filled by 16-byte cp.async copies
-//     (hd is a multiple of 4 with f32 pools, of 16 with int8, so a token's
-//     head row is whole 16-byte units): the copies of tile i + 2 start
+//     (hd is a multiple of 4 with f32 pools, of 8 with bf16, of 16 with
+//     int8, so a token's head row is whole 16-byte units): the copies of
+//     tile i + 2 start
 //     before tile i's math. Each tile's token rows (page id x page
 //     size x kv heads, or -1 for a dead token) are worked out one tile
 //     ahead into a small table, so the copy loop does no division. Dead
-//     tokens are zero-filled by the copy's source size and masked. int8
-//     K/V stay int8 in shared memory: the K scale scales the dot product
-//     and the V scale the probability, never written back;
+//     tokens are zero-filled by the copy's source size and masked. bf16
+//     and int8 K/V stay so in shared memory and are upcast in registers:
+//     an int8 K scale scales the dot product and its V scale the
+//     probability, never written back;
 //   * each of the 4 warps runs its own online softmax over 8 tokens of
 //     every tile (4 lanes a token, each a quarter of the head row; warp
 //     shuffles reduce the dot products and the rows' max and sum, all
@@ -62,6 +68,7 @@
 //     then. No global workspace, no atomics, no second launch: the result
 //     depends only on the shapes and the data, and repeats bit for bit.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,8 +90,9 @@ inline int align16(long long x) { return (int)((x + 15) / 16 * 16); }
 
 // Shared-memory layout of one launch, from its shapes
 // (kernels/paged_attention.py::geometry mirrors it):
-//   ring  STAGES tiles: TT K rows of ksb bytes, TT V rows of vsb bytes,
-//         with int8 pools TT K scales and TT V scales (f32); after the
+//   ring  STAGES tiles: TT K rows of ksb bytes, TT V rows of vsb bytes
+//         (es bytes an element: 4 f32, 2 bf16, 1 int8), with int8 pools
+//         TT K scales and TT V scales (f32); after the
 //         walk it holds the warps' partial acc, WARPS x rc x HDV f32
 //   q     the block's rc rows x HD f32
 //   pw    each warp's probabilities, WARPS x TW x rc f32 (rc padded to
@@ -98,9 +106,13 @@ struct Geo {
   int rc, chunks;
 };
 
-Geo geometry(int R, int HD, int HDV, int W, int quant) {
+// the pool types, by their kernel parameter `kind`
+constexpr int KV_F32 = 0, KV_INT8 = 1, KV_BF16 = 2;
+
+Geo geometry(int R, int HD, int HDV, int W, int kind) {
   Geo g;
-  const int es = quant ? 1 : 4;
+  const int quant = kind == KV_INT8;
+  const int es = kind == KV_INT8 ? 1 : kind == KV_BF16 ? 2 : 4;
   // K rows padded to 4 mod 8 16-byte units: the 8 lanes of a quarter warp
   // (2 tokens x 4 quarters of a row) hit 8 distinct bank groups
   const int u0 = HD * es / 16;
@@ -154,6 +166,17 @@ __device__ __forceinline__ float4 to_float4(char4 c) {
   return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
 }
 
+// f32 of bf16 pairs: w holds (lo, hi), lo in the low half
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t w) {
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xFFFF0000u));
+}
+
+__device__ __forceinline__ float4 bf16x4_to_float4(uint2 w) {
+  const float2 a = bf16x2_to_float2(w.x), b = bf16x2_to_float2(w.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
@@ -168,16 +191,19 @@ __device__ __forceinline__ void fma4(float p, float4 v, float4& a) {
   a.w = fmaf(p, v.w, a.w);
 }
 
-template <bool QUANT, int RC>
+// KIND: the pools' type (KV_F32, KV_INT8, KV_BF16). q_bf16 / out_bf16: q
+// and out are bf16, else f32
+template <int KIND, int RC>
 __global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const float* __restrict__ q, const void* k_pool,
+paged_attention_kernel(const void* q, const void* k_pool,
                        const void* v_pool, const float* __restrict__ k_scale,
                        const float* __restrict__ v_scale,
                        const int* __restrict__ block_table,
-                       const int* __restrict__ kv_len, float* __restrict__ out,
+                       const int* __restrict__ kv_len, void* out,
                        int KVH, int R, int HD, int HDV, int PS, int W,
                        int m_rows, int window, float sm_scale, int n_split,
-                       Geo g) {
+                       int q_bf16, int out_bf16, Geo g) {
+  constexpr bool QUANT = KIND == KV_INT8, BF16 = KIND == KV_BF16;
   extern __shared__ __align__(16) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -195,9 +221,18 @@ paged_attention_kernel(const float* __restrict__ q, const void* k_pool,
   int* tab = (int*)(smem + g.tab_off);
   int* bts = (int*)(smem + g.bt_off);
 
-  // q rows and the block-table row are in flight while kv_len arrives
-  const float* qsrc = q + ((size_t)sh * R + r_base) * HD;
-  for (int i = tid; i < nr * HD; i += THREADS) cp_async4(qs + i, qsrc + i, 4);
+  // q rows and the block-table row are in flight while kv_len arrives (a
+  // bf16 q is upcast as it is stored)
+  const size_t q0 = ((size_t)sh * R + r_base) * HD;
+  if (q_bf16) {
+    const __nv_bfloat16* qsrc = (const __nv_bfloat16*)q + q0;
+    for (int i = tid; i < nr * HD; i += THREADS)
+      qs[i] = __bfloat162float(qsrc[i]);
+  } else {
+    const float* qsrc = (const float*)q + q0;
+    for (int i = tid; i < nr * HD; i += THREADS)
+      cp_async4(qs + i, qsrc + i, 4);
+  }
   for (int i = tid; i < W; i += THREADS)
     cp_async4(bts + i, block_table + (size_t)s * W + i, 4);
   cp_async_commit();
@@ -236,7 +271,7 @@ paged_attention_kernel(const float* __restrict__ q, const void* k_pool,
   // this thread's copies: 16-byte part k_part of K rows k_j0, k_j0 +
   // k_step, ... (likewise V), the same in every tile; kc and vc are the
   // 16-byte units of a K and a V row
-  const int es = QUANT ? 1 : 4;
+  const int es = QUANT ? 1 : BF16 ? 2 : 4;
   const int kc = HD * es / 16, vc = HDV * es / 16;
   const int k_step = THREADS / kc, v_step = THREADS / vc;
   const int k_j0 = tid / kc, k_part = tid - k_j0 * kc;
@@ -339,6 +374,19 @@ paged_attention_kernel(const float* __restrict__ q, const void* k_pool,
             d[r] = dot4(q4[r * (HD / 4) + 4 * c + e], kv, d[r]);
         }
       }
+    } else if (BF16) {
+      // a 16-byte unit is 8 bf16 values: two float4s of the row
+      const uint4* kr = (const uint4*)(st + j * g.ksb);
+      for (int c = dq; c < kc; c += 4) {
+        const uint4 raw = kr[c];
+        const float4 k0 = bf16x4_to_float4(make_uint2(raw.x, raw.y));
+        const float4 k1 = bf16x4_to_float4(make_uint2(raw.z, raw.w));
+#pragma unroll
+        for (int r = 0; r < RC; ++r) {
+          d[r] = dot4(q4[r * (HD / 4) + 2 * c], k0, d[r]);
+          d[r] = dot4(q4[r * (HD / 4) + 2 * c + 1], k1, d[r]);
+        }
+      }
     } else {
       const float4* kr = (const float4*)(st + j * g.ksb);
       for (int c = dq; c < kc; c += 4) {
@@ -410,7 +458,8 @@ paged_attention_kernel(const float* __restrict__ q, const void* k_pool,
       for (int t2 = tg; t2 < TW; t2 += nts) {
         const uint8_t* vr = vs + (warp * TW + t2) * g.vsb;
         const float4 v4 = QUANT ? to_float4(((const char4*)vr)[cgl])
-                                : ((const float4*)vr)[cgl];
+                          : BF16 ? bf16x4_to_float4(((const uint2*)vr)[cgl])
+                                 : ((const float4*)vr)[cgl];
         const float4* pp = (const float4*)(pw + t2 * RP);
 #pragma unroll
         for (int r = 0; r < RC; r += 4) {
@@ -496,7 +545,7 @@ paged_attention_kernel(const float* __restrict__ q, const void* k_pool,
       rl[tid] = fmaxf(l_tot, 1e-30f);
     }
     __syncthreads();
-    float4* op = (float4*)(out + ((size_t)sh * R + r_base) * HDV);
+    const size_t o0 = ((size_t)sh * R + r_base) * HDV;
     for (int e = tid; e < nr * cgs; e += THREADS) {
       const int r = e / cgs;
       float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -504,20 +553,29 @@ paged_attention_kernel(const float* __restrict__ q, const void* k_pool,
         fma4(rw[k * RC + r],
              *cluster.map_shared_rank((const float4*)wacc + e, k), t);
       const float lr = rl[r];
-      op[e] = make_float4(t.x / lr, t.y / lr, t.z / lr, t.w / lr);
+      const float4 o = make_float4(t.x / lr, t.y / lr, t.z / lr, t.w / lr);
+      if (out_bf16) {
+        __nv_bfloat162 lo = __floats2bfloat162_rn(o.x, o.y);
+        __nv_bfloat162 hi = __floats2bfloat162_rn(o.z, o.w);
+        ((uint2*)((__nv_bfloat16*)out + o0))[e] = make_uint2(
+            *reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+      } else {
+        ((float4*)((float*)out + o0))[e] = o;
+      }
     }
   }
   cluster.sync();  // the peers' shared memory stays until rank 0 has read
 }
 
-template <bool QUANT, int RC>
+template <int KIND, int RC>
 cudaError_t launch(const Geo& g, int n_split, int S, int KVH,
-                   cudaStream_t stream, const float* q, const void* k_pool,
+                   cudaStream_t stream, const void* q, const void* k_pool,
                    const void* v_pool, const float* k_scale,
                    const float* v_scale, const int* block_table,
-                   const int* kv_len, float* out, int R, int HD, int HDV,
-                   int PS, int W, int m_rows, int window, float sm_scale) {
-  auto kernel = paged_attention_kernel<QUANT, RC>;
+                   const int* kv_len, void* out, int R, int HD, int HDV,
+                   int PS, int W, int m_rows, int window, float sm_scale,
+                   int q_bf16, int out_bf16) {
+  auto kernel = paged_attention_kernel<KIND, RC>;
   if (g.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
@@ -538,57 +596,61 @@ cudaError_t launch(const Geo& g, int n_split, int S, int KVH,
   return cudaLaunchKernelEx(&cfg, kernel, q, k_pool, v_pool, k_scale,
                             v_scale, block_table, kv_len, out, KVH, R, HD,
                             HDV, PS, W, m_rows, window, sm_scale, n_split,
-                            g);
+                            q_bf16, out_bf16, g);
 }
 
 }  // namespace
 
-// q (S, KVH, R, HD) f32; pools (P, PS, KVH, HD[V]) f32, or int8 with
-// (P, PS, KVH) f32 scale pools when quant != 0; block_table (S, W) int32;
-// kv_len (S,) int32 -> out (S, KVH, R, HDV) f32. window < 0 means none.
-// Each (slot, kv head, row chunk) is one cluster of n_split blocks (1..8).
-// HD and HDV are multiples of 4 (f32) or 16 (int8), HDV at most 128; the
-// pools and out start on 16 bytes. Returns the CUDA error code of the
-// launch (0 on success).
+// q (S, KVH, R, HD) f32 (bf16 with q_bf16); pools (P, PS, KVH, HD[V]) of
+// the type `kind` names: f32 (KV_F32), bf16 (KV_BF16), or int8 (KV_INT8)
+// with (P, PS, KVH) f32 scale pools; block_table (S, W) int32; kv_len (S,)
+// int32 -> out (S, KVH, R, HDV) f32 (bf16 with out_bf16). window < 0
+// means none. Each (slot, kv head, row chunk) is one cluster of n_split
+// blocks (1..8). HD and HDV are multiples of 4 (f32), 8 (bf16) or 16
+// (int8), HDV at most 128; the pools and out start on 16 bytes. Returns
+// the CUDA error code of the launch (0 on success).
 extern "C" int paged_attention(const void* q, const void* k_pool,
                                const void* v_pool, const void* k_scale,
                                const void* v_scale, const void* block_table,
                                const void* kv_len, void* out, int S, int KVH,
                                int R, int HD, int HDV, int PS, int W,
                                int m_rows, int window, float sm_scale,
-                               int quant, int n_split, void* stream) {
-  const int mult = quant ? 16 : 4;
+                               int kind, int n_split, int q_bf16,
+                               int out_bf16, void* stream) {
+  const int mult = kind == KV_INT8 ? 16 : kind == KV_BF16 ? 8 : 4;
   if (S <= 0 || KVH <= 0 || R <= 0 || HD <= 0 || HDV <= 0 || PS <= 0 ||
       W <= 0 || m_rows <= 0 || R % m_rows != 0 || HD % mult != 0 ||
       HDV % mult != 0 || HDV > MAX_HDV || n_split < 1 ||
       n_split > MAX_SPLIT || (long long)S * KVH > 65535 ||
+      (kind != KV_F32 && kind != KV_INT8 && kind != KV_BF16) ||
       ((uintptr_t)k_pool | (uintptr_t)v_pool | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const Geo g = geometry(R, HD, HDV, W, quant);
+  const Geo g = geometry(R, HD, HDV, W, kind);
   if (g.smem > MAX_SMEM || g.chunks > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const auto* qf = (const float*)q;
   const auto* ks = (const float*)k_scale;
   const auto* vs = (const float*)v_scale;
   const auto* bt = (const int*)block_table;
   const auto* kl = (const int*)kv_len;
-  auto* o = (float*)out;
   cudaError_t e;
-#define PAGED_LAUNCH(QU, RC)                                                 \
-  e = launch<QU, RC>(g, n_split, S, KVH, st, qf, k_pool, v_pool, ks, vs, bt, \
-                     kl, o, R, HD, HDV, PS, W, m_rows, window, sm_scale)
-  if (quant) {
-    if (g.rc == 2) PAGED_LAUNCH(true, 2);
-    else if (g.rc == 4) PAGED_LAUNCH(true, 4);
-    else if (g.rc == 6) PAGED_LAUNCH(true, 6);
-    else PAGED_LAUNCH(true, 8);
+#define PAGED_LAUNCH(KI, RC)                                                  \
+  e = launch<KI, RC>(g, n_split, S, KVH, st, q, k_pool, v_pool, ks, vs, bt,  \
+                     kl, out, R, HD, HDV, PS, W, m_rows, window, sm_scale,   \
+                     q_bf16, out_bf16)
+#define PAGED_ROWS(KI)                      \
+  if (g.rc == 2) PAGED_LAUNCH(KI, 2);       \
+  else if (g.rc == 4) PAGED_LAUNCH(KI, 4);  \
+  else if (g.rc == 6) PAGED_LAUNCH(KI, 6);  \
+  else PAGED_LAUNCH(KI, 8)
+  if (kind == KV_INT8) {
+    PAGED_ROWS(KV_INT8);
+  } else if (kind == KV_BF16) {
+    PAGED_ROWS(KV_BF16);
   } else {
-    if (g.rc == 2) PAGED_LAUNCH(false, 2);
-    else if (g.rc == 4) PAGED_LAUNCH(false, 4);
-    else if (g.rc == 6) PAGED_LAUNCH(false, 6);
-    else PAGED_LAUNCH(false, 8);
+    PAGED_ROWS(KV_F32);
   }
+#undef PAGED_ROWS
 #undef PAGED_LAUNCH
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

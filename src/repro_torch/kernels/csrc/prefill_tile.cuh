@@ -341,11 +341,12 @@ __device__ __forceinline__ void load_frags(const uint8_t* xa, int xp,
 
 // Write the warp's f32 values v[mi][ni][4] (the mma accumulator layout:
 // rows g and g + 8 of m16 tile mi, columns 2t and 2t + 1 of n8 tile ni) to
-// the (M, N) f32 matrix dst, masking rows and columns past the edge
+// the (M, N) matrix dst, f32 or with bf16 each value rounded to nearest
+// even, masking rows and columns past the edge
 template <int NI>
-__device__ __forceinline__ void store_tile(float* dst, float v[4][NI][4],
+__device__ __forceinline__ void store_tile(void* dst, float v[4][NI][4],
                                            int M, int N, int r0, int c0,
-                                           int lane) {
+                                           int lane, bool bf16) {
   const int g = lane / 4, t = lane % 4;
   const bool vec = N % 2 == 0;
 #pragma unroll
@@ -354,12 +355,21 @@ __device__ __forceinline__ void store_tile(float* dst, float v[4][NI][4],
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + mi * 16 + g + 8 * h;
       if (r >= M) continue;
-      float* row = dst + (size_t)r * N;
+      float* row = (float*)dst + (size_t)r * N;
+      __nv_bfloat16* rowb = (__nv_bfloat16*)dst + (size_t)r * N;
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
         const int c = c0 + ni * 8 + 2 * t;
         const float a = v[mi][ni][2 * h], b = v[mi][ni][2 * h + 1];
-        if (vec && c + 1 < N) {
+        if (bf16) {
+          if (vec && c + 1 < N) {
+            *reinterpret_cast<__nv_bfloat162*>(rowb + c) =
+                __floats2bfloat162_rn(a, b);
+          } else {
+            if (c < N) rowb[c] = __float2bfloat16_rn(a);
+            if (c + 1 < N) rowb[c + 1] = __float2bfloat16_rn(b);
+          }
+        } else if (vec && c + 1 < N) {
           *reinterpret_cast<float2*>(row + c) = make_float2(a, b);
         } else {
           if (c < N) row[c] = a;
@@ -375,7 +385,7 @@ template <> struct Acc<true> { using T = int; };
 // ------------------------------------------------------------ the tile
 
 // Kernel 1 (INT8 false): xb (M, K) bf16 . packed (K, N) -> out (M, N)
-// f32. Kernel 3 (INT8): xq (M, K) int8 . packed (K, N) -> out (M, N) f32
+// f32, or bf16 with out_bf16 and no K split. Kernel 3 (INT8): xq (M, K) int8 . packed (K, N) -> out (M, N) f32
 // before the per-token rescale; GROUPED: G > 1, each group's exact sums
 // rescaled where it ends. A split's partial goes to out + split * M * N
 // (kernel 3 per-channel with splits > 1: the bits of its exact int32
@@ -383,9 +393,9 @@ template <> struct Acc<true> { using T = int; };
 template <int BITS, bool INT8, bool GROUPED>
 __global__ void __launch_bounds__(THREADS, 1)
 tile_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ qw,
-            const float* __restrict__ scale, float* __restrict__ out, int M,
+            const float* __restrict__ scale, void* __restrict__ out, int M,
             int K, int N, int G_, int tiles_n, int splits, int k_per_split,
-            int aligned) {
+            int aligned, int out_bf16) {
   using G = Geo<BITS, INT8, GROUPED>;
   using L = packing::Layout<BITS>;
   constexpr int NI = G::NI;
@@ -547,8 +557,9 @@ tile_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ qw,
           v[mi][ni][e] = __int_as_float((int)acc[mi][ni][e]);
       }
   }
-  store_tile<NI>(out + (size_t)split * M * N, v, M, N, m0 + wm * WM, c0,
-                 lane);
+  const bool bf = !INT8 && out_bf16 && splits == 1;
+  store_tile<NI>(bf ? out : (void*)((float*)out + (size_t)split * M * N), v,
+                 M, N, m0 + wm * WM, c0, lane, bf);
 }
 
 // ----------------------------------------------------------- launching
@@ -580,8 +591,9 @@ inline bool valid(int M, int K, int N, int G, int bits, int splits,
 // memory)
 template <int BITS, bool INT8, bool GROUPED>
 inline int launch_tile(cudaStream_t st, const uint8_t* x, const uint8_t* qw,
-                       const float* scale, float* dst, int M, int K, int N,
-                       int G, int splits, int k_per_split, int aligned) {
+                       const float* scale, void* dst, int M, int K, int N,
+                       int G, int splits, int k_per_split, int aligned,
+                       int out_bf16 = 0) {
   using Gm = Geo<BITS, INT8, GROUPED>;
   dim3 grid;
   int tiles_n;
@@ -593,7 +605,7 @@ inline int launch_tile(cudaStream_t st, const uint8_t* x, const uint8_t* qw,
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, THREADS, Gm::SMEM, st>>>(x, qw, scale, dst, M, K, N, G,
                                           tiles_n, splits, k_per_split,
-                                          aligned);
+                                          aligned, out_bf16);
   return 0;
 }
 

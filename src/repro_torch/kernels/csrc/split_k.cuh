@@ -5,6 +5,7 @@
 // the result does not depend on block timing.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -12,23 +13,28 @@ namespace split_k {
 
 // out[e, i] = sum over splits, in split order, of partial[e, z, i], for
 // the (E, splits, mn) partials of E experts (E = 1: a dense linear);
-// total = E * mn
+// total = E * mn. out is f32, or bf16 with out_bf16 (the f32 sum rounded
+// once, to nearest even)
 __global__ void sum_splits_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ out, size_t mn,
-                                  int splits, size_t total) {
+                                  void* __restrict__ out, size_t mn,
+                                  int splits, size_t total, int out_bf16) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const float* p = partial + (i / mn) * splits * mn + i % mn;
   float s = 0.0f;
   for (int z = 0; z < splits; ++z) s += p[(size_t)z * mn];
-  out[i] = s;
+  if (out_bf16)
+    ((__nv_bfloat16*)out)[i] = __float2bfloat16_rn(s);
+  else
+    ((float*)out)[i] = s;
 }
 
-inline void sum_splits(const float* partial, float* out, size_t mn,
-                       int splits, int experts, cudaStream_t st) {
+inline void sum_splits(const float* partial, void* out, size_t mn,
+                       int splits, int experts, int out_bf16,
+                       cudaStream_t st) {
   const size_t total = (size_t)experts * mn;
   sum_splits_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      partial, out, mn, splits, total);
+      partial, out, mn, splits, total, out_bf16);
 }
 
 // The second pass of a per-channel int8 launch split over K: out[e, c, n]

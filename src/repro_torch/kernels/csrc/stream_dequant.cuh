@@ -10,8 +10,11 @@
 // planes into bf16 pairs in registers: the exponent trick makes a float
 // of each code (2^23 + q, one byte permute), one subtraction gives q -
 // QMAX exactly, one multiply by the f32 scale, and one paired
-// cvt.rn.bf16x2.f32 rounds two values. x goes through the ring as f32 and
-// is rounded to bf16 as a lane reads its B fragment.
+// cvt.rn.bf16x2.f32 rounds two values. An f32 x goes through the ring as
+// f32 and is rounded to bf16 as a lane reads its B fragment; a bf16 x
+// (XBF) goes through as it is, half the bytes, and a lane reads its B
+// fragment as two bf16 pairs. The output is f32, or bf16 (out_bf16,
+// without K splits: split partials are f32 and the split sum rounds).
 #pragma once
 
 #include "expert_stream.cuh"
@@ -22,17 +25,18 @@ using namespace expert_stream;
 
 // ELEM: the scale group is not a whole number of 16-row K steps (a group
 // of 8, say), so each value reads its own scale from global memory (slow,
-// right; no model path quantizes so)
-template <int BITS, int NT, bool ELEM>
+// right; no model path quantizes so). XBF: x is bf16, else f32.
+template <int BITS, int NT, bool ELEM, bool XBF>
 __global__ void __launch_bounds__(THREADS, min_blocks(NT))
-expert_dq_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qw,
-                 const float* __restrict__ scale, float* __restrict__ out,
+expert_dq_kernel(const void* __restrict__ x, const uint8_t* __restrict__ qw,
+                 const float* __restrict__ scale, void* __restrict__ out,
                  int C, int K, int N, int G, int chunks, int splits,
-                 int k_per_split, int srows, int aligned) {
+                 int k_per_split, int srows, int aligned, int out_bf16) {
   using L = packing::Layout<BITS>;
   using S = Stage<BITS>;
   constexpr int CC = 8 * NT;
-  constexpr int XS = x_stride(4) / 4;  // floats a staged x row
+  constexpr int XB = XBF ? 2 : 4;      // bytes an x value
+  constexpr int XS = x_stride(XB) / XB;  // values a staged x row
   constexpr float BIAS = 8388608.0f + (float)L::QMAX;
   extern __shared__ __align__(16) uint8_t smem[];
 
@@ -46,17 +50,18 @@ expert_dq_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qw,
   const int n_stages = (ke - kb + KS - 1) / KS;
   const int group = K / G;
   const int packed_rows = (K + L::VALUES - 1) / L::VALUES * L::BYTES;
-  const int stage = stage_bytes<BITS>(NT, 4, srows);
+  const int stage = stage_bytes<BITS>(NT, XB, srows);
   // n8 tiles of this chunk that hold capacity rows
   const int live = min(NT, (C - c0 + 7) / 8);
 
   Tile tl;
   tl.qw = qw + (size_t)expert * packed_rows * N + n0;
-  tl.x = reinterpret_cast<const uint8_t*>(x + ((size_t)expert * C + c0) * K);
+  tl.x = reinterpret_cast<const uint8_t*>(x) +
+         ((size_t)expert * C + c0) * K * XB;
   tl.scale = reinterpret_cast<const uint8_t*>(scale + (size_t)expert * G * N
                                               + n0);
   tl.K = K; tl.N = N; tl.G = G; tl.C = C; tl.c0 = c0; tl.n0 = n0;
-  tl.kb = kb; tl.x_bytes = 4; tl.cc = CC; tl.srows = srows;
+  tl.kb = kb; tl.x_bytes = XB; tl.cc = CC; tl.srows = srows;
   tl.packed_rows = packed_rows; tl.aligned = aligned != 0;
 
 #pragma unroll
@@ -94,9 +99,9 @@ expert_dq_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qw,
     cp_async_commit();
 
     const uint8_t* st = smem + (it % STAGES) * stage;
-    const float* xs = reinterpret_cast<const float*>(st + S::BYTES);
+    const uint8_t* xs = st + S::BYTES;
     const float* ss = reinterpret_cast<const float*>(st + S::BYTES +
-                                                     CC * XS * 4);
+                                                     CC * XS * XB);
     const int k0 = kb + it * KS;
     // each step's scale row: the stage's rows start at group k0 / group, a
     // new group every `gsteps` steps; steps past K keep the last row
@@ -137,10 +142,16 @@ expert_dq_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qw,
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         if (NT <= 2 || nt < live) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              xs + (nt * 8 + g) * XS + 16 * s + 4 * t);
-          b[nt][0] = pack_bf16(v.x, v.y);
-          b[nt][1] = pack_bf16(v.z, v.w);
+          const int at = ((nt * 8 + g) * XS + 16 * s + 4 * t) * XB;
+          if (XBF) {
+            const uint2 v = *reinterpret_cast<const uint2*>(xs + at);
+            b[nt][0] = v.x;
+            b[nt][1] = v.y;
+          } else {
+            const float4 v = *reinterpret_cast<const float4*>(xs + at);
+            b[nt][0] = pack_bf16(v.x, v.y);
+            b[nt][1] = pack_bf16(v.z, v.w);
+          }
         }
       }
       float sc[8];  // the scales of the lane's columns at this step
@@ -187,10 +198,12 @@ expert_dq_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qw,
 
   // lane (g, t) holds capacity rows 2t and 2t + 1 of each n8 tile, for
   // columns col + j (fragment row g of tile j) and col + 4 + j (row g + 8)
-  float* dst = splits > 1
-                   ? out + ((size_t)expert * splits + split) * C * N
-                   : out + (size_t)expert * C * N;
-  const bool vec = N % 4 == 0;
+  const bool bf = out_bf16 && splits == 1;
+  const size_t base = splits > 1 ? ((size_t)expert * splits + split) * C * N
+                                  : (size_t)expert * C * N;
+  float* dst = (float*)out + base;
+  __nv_bfloat16* dstb = (__nv_bfloat16*)out + base;
+  const bool vec = N % (bf ? 8 : 4) == 0;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -201,54 +214,65 @@ expert_dq_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qw,
                                acc[3][nt][h], acc[0][nt][2 + h],
                                acc[1][nt][2 + h], acc[2][nt][2 + h],
                                acc[3][nt][2 + h]};
-        store8(dst + (size_t)c * N, col, N, vals, vec);
+        if (bf)
+          store8_bf16(dstb + (size_t)c * N, col, N, vals, vec);
+        else
+          store8(dst + (size_t)c * N, col, N, vals, vec);
       }
     }
 }
 
+// the kernel of (NT, elem, x_bf16): a bf16 x takes no per-value scales
+// (scale groups of whole 16-row K steps), so its ELEM form is not built
 template <int BITS, int NT>
-int launch_nt(bool elem, dim3 grid, int smem, cudaStream_t st,
-              const float* x, const uint8_t* qw, const float* scale,
-              float* dst, int C, int K, int N, int G, int chunks, int splits,
-              int k_per_split, int srows, int aligned) {
-  auto kernel = elem ? expert_dq_kernel<BITS, NT, true>
-                     : expert_dq_kernel<BITS, NT, false>;
+int launch_nt(bool elem, bool x_bf16, dim3 grid, int smem, cudaStream_t st,
+              const void* x, const uint8_t* qw, const float* scale,
+              void* dst, int C, int K, int N, int G, int chunks, int splits,
+              int k_per_split, int srows, int aligned, int out_bf16) {
+  if (elem && x_bf16) return (int)cudaErrorInvalidValue;
+  auto kernel = x_bf16 ? expert_dq_kernel<BITS, NT, false, true>
+                : elem ? expert_dq_kernel<BITS, NT, true, false>
+                       : expert_dq_kernel<BITS, NT, false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, THREADS, smem, st>>>(x, qw, scale, dst, C, K, N, G, chunks,
-                                      splits, k_per_split, srows, aligned);
+                                      splits, k_per_split, srows, aligned,
+                                      out_bf16);
   return 0;
 }
 
 template <int BITS>
-int launch_bits(int nt, bool elem, dim3 grid, int smem, cudaStream_t st,
-                const float* x, const uint8_t* qw, const float* scale,
-                float* dst, int C, int K, int N, int G, int chunks,
-                int splits, int k_per_split, int srows, int aligned) {
+int launch_bits(int nt, bool elem, bool x_bf16, dim3 grid, int smem,
+                cudaStream_t st, const void* x, const uint8_t* qw,
+                const float* scale, void* dst, int C, int K, int N, int G,
+                int chunks, int splits, int k_per_split, int srows,
+                int aligned, int out_bf16) {
   switch (nt) {
     case 1:
-      return launch_nt<BITS, 1>(elem, grid, smem, st, x, qw, scale, dst, C, K, N, G, chunks, splits, k_per_split, srows, aligned);
+      return launch_nt<BITS, 1>(elem, x_bf16, grid, smem, st, x, qw, scale, dst, C, K, N, G, chunks, splits, k_per_split, srows, aligned, out_bf16);
     case 2:
-      return launch_nt<BITS, 2>(elem, grid, smem, st, x, qw, scale, dst, C, K, N, G, chunks, splits, k_per_split, srows, aligned);
+      return launch_nt<BITS, 2>(elem, x_bf16, grid, smem, st, x, qw, scale, dst, C, K, N, G, chunks, splits, k_per_split, srows, aligned, out_bf16);
     case 4:
-      return launch_nt<BITS, 4>(elem, grid, smem, st, x, qw, scale, dst, C, K, N, G, chunks, splits, k_per_split, srows, aligned);
+      return launch_nt<BITS, 4>(elem, x_bf16, grid, smem, st, x, qw, scale, dst, C, K, N, G, chunks, splits, k_per_split, srows, aligned, out_bf16);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// x (E, C, K) f32, qw (E, packed_rows(K), N) uint8, scale (E, G, N) f32 ->
-// out (E, C, N) f32, all contiguous on the current device. nt: n8 tiles
-// of capacity rows a block holds (1, 2 or 4; C takes ceil(C / 8nt)
-// chunks). With splits > 1, each expert's K is cut into ranges of
-// k_per_split rows (a multiple of 128; no range empty) and workspace holds
-// E x splits x C x N f32 partials. Returns the CUDA error code of the
+// x (E, C, K) f32 (bf16 with x_bf16), qw (E, packed_rows(K), N) uint8,
+// scale (E, G, N) f32 -> out (E, C, N) f32 (bf16 with out_bf16), all
+// contiguous on the current device. nt: n8 tiles of capacity rows a block
+// holds (1, 2 or 4; C takes ceil(C / 8nt) chunks). With splits > 1, each
+// expert's K is cut into ranges of k_per_split rows (a multiple of 128; no
+// range empty) and workspace holds E x splits x C x N f32 partials, summed
+// in split order and rounded once to out's type. A bf16 x takes scale
+// groups of whole 16-row K steps only. Returns the CUDA error code of the
 // launches (0 on success).
 inline int launch(const void* x, const void* qw, const void* scale, void* out,
                   void* workspace, int E, int C, int K, int N, int G,
-                  int bits, int nt, int splits, int k_per_split,
-                  void* stream) {
+                  int bits, int nt, int splits, int k_per_split, int x_bf16,
+                  int out_bf16, void* stream) {
   using namespace expert_stream;
   if (E <= 0 || C <= 0 || K <= 0 || N <= 0 || G <= 0 || K % G != 0 ||
       splits <= 0 || k_per_split <= 0 || k_per_split % KS != 0 ||
@@ -259,39 +283,40 @@ inline int launch(const void* x, const void* qw, const void* scale, void* out,
       (bits != 2 && bits != 3 && bits != 4 && bits != 8) ||
       (nt != 1 && nt != 2 && nt != 4))
     return (int)cudaErrorInvalidValue;
+  const int xb = x_bf16 ? 2 : 4;
   const int srows = scale_rows(K, G);
-  const int smem = STAGES * stage_bytes_for(bits, nt, 4, srows);
+  const int smem = STAGES * stage_bytes_for(bits, nt, xb, srows);
   const int chunks = (C + 8 * nt - 1) / (8 * nt);
   const long long blocks_x = (long long)(N + BN - 1) / BN * chunks;
   if (smem > MAX_SMEM || blocks_x > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks_x, 1, E * splits);
   const cudaStream_t st = (cudaStream_t)stream;
-  float* dst = splits > 1 ? (float*)workspace : (float*)out;
+  void* dst = splits > 1 ? workspace : out;
   const int aligned =
-      aligned16(x, qw, scale, N, (long long)K * 4) ? 1 : 0;
+      aligned16(x, qw, scale, N, (long long)K * xb) ? 1 : 0;
   const bool elem = srows == 0;
-  const float* xp = (const float*)x;
   const uint8_t* qp = (const uint8_t*)qw;
   const float* sp = (const float*)scale;
   int code;
   switch (bits) {
     case 2:
-      code = expert_dq::launch_bits<2>(nt, elem, grid, smem, st, xp, qp, sp, dst, C, K, N, G, chunks, splits, k_per_split, srows, aligned);
+      code = expert_dq::launch_bits<2>(nt, elem, x_bf16, grid, smem, st, x, qp, sp, dst, C, K, N, G, chunks, splits, k_per_split, srows, aligned, out_bf16);
       break;
     case 3:
-      code = expert_dq::launch_bits<3>(nt, elem, grid, smem, st, xp, qp, sp, dst, C, K, N, G, chunks, splits, k_per_split, srows, aligned);
+      code = expert_dq::launch_bits<3>(nt, elem, x_bf16, grid, smem, st, x, qp, sp, dst, C, K, N, G, chunks, splits, k_per_split, srows, aligned, out_bf16);
       break;
     case 4:
-      code = expert_dq::launch_bits<4>(nt, elem, grid, smem, st, xp, qp, sp, dst, C, K, N, G, chunks, splits, k_per_split, srows, aligned);
+      code = expert_dq::launch_bits<4>(nt, elem, x_bf16, grid, smem, st, x, qp, sp, dst, C, K, N, G, chunks, splits, k_per_split, srows, aligned, out_bf16);
       break;
     default:
-      code = expert_dq::launch_bits<8>(nt, elem, grid, smem, st, xp, qp, sp, dst, C, K, N, G, chunks, splits, k_per_split, srows, aligned);
+      code = expert_dq::launch_bits<8>(nt, elem, x_bf16, grid, smem, st, x, qp, sp, dst, C, K, N, G, chunks, splits, k_per_split, srows, aligned, out_bf16);
       break;
   }
   if (code) return code;
   if (splits > 1)
-    split_k::sum_splits(dst, (float*)out, (size_t)C * N, splits, E, st);
+    split_k::sum_splits((const float*)dst, out, (size_t)C * N, splits, E,
+                        out_bf16, st);
   return (int)cudaGetLastError();
 }
 

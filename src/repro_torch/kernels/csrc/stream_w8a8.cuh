@@ -319,7 +319,7 @@ inline int launch(const void* xq, const void* qw, const void* scale,
   if (splits > 1 && G == 1) {
     split_k::sum_int_splits(dst, sp, (float*)out, C, N, splits, E, st);
   } else if (splits > 1) {
-    split_k::sum_splits(dst, (float*)out, (size_t)C * N, splits, E, st);
+    split_k::sum_splits(dst, out, (size_t)C * N, splits, E, 0, st);
   }
   return (int)cudaGetLastError();
 }

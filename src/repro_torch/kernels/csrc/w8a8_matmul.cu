@@ -79,7 +79,7 @@ int launch_prefill(const void* xq, const void* qw, const void* scale,
   if (splits > 1 && !grouped)
     split_k::sum_int_splits(dst, sp, (float*)out, M, N, splits, 1, st);
   else if (splits > 1)
-    split_k::sum_splits(dst, (float*)out, (size_t)M * N, splits, 1, st);
+    split_k::sum_splits(dst, out, (size_t)M * N, splits, 1, 0, st);
   return (int)cudaGetLastError();
 }
 

@@ -30,11 +30,15 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import expert_dequant_matmul as edq
-from repro_torch.kernels.packed_operands import (MAX_GRID_Z, MAX_SMEM, SMS,
+from repro_torch.kernels.packed_operands import (FLOATS, MAX_GRID_Z,
+                                                 MAX_SMEM, SMS,
+                                                 check_bf16_groups,
                                                  check_operands,
                                                  int32_sum_fits)
 
 launches = 0
+# launches on a bf16 x (also counted in ``launches``)
+launches_bf16 = 0
 
 # the bodies, as the C entry points take them
 STREAM, TILE = 0, 1
@@ -184,76 +188,90 @@ def plan(m: int, k: int, n: int, bits: int, groups: int, *,
 
 
 def workspace_bytes(p: DensePlan, m: int, k: int, n: int, *,
-                    int8: bool) -> int:
-    """Scratch a launch needs: kernel 1's tile takes bf16(x) first (M x K,
-    padded to 256 bytes: ``xb_bytes`` of the header), then with K split
-    either body takes splits x M x N 4-byte partials."""
-    xb = -(-m * k * 2 // 256) * 256 if p.body == TILE and not int8 else 0
+                    int8: bool, x_bf16: bool = False) -> int:
+    """Scratch a launch needs: kernel 1's tile takes bf16(x) of an f32 x
+    first (M x K, padded to 256 bytes: ``xb_bytes`` of the header; a bf16
+    x is read as it is), then with K split either body takes splits x M x
+    N 4-byte partials."""
+    xb = (-(-m * k * 2 // 256) * 256
+          if p.body == TILE and not int8 and not x_bf16 else 0)
     return xb + (p.splits * m * n * 4 if p.splits > 1 else 0)
 
 
 def _lib(name: str):
     fn = getattr(build.load(name), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+        ints = 9 if name == "w8a8_matmul" else 11
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * ints + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def run(name: str, x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
-        *, bits: int, group_size: int, k: int) -> torch.Tensor:
+        *, bits: int, group_size: int, k: int,
+        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Check, plan and launch dense kernel ``name``: the dequant matmul on
-    f32 x, or the W8A8 matmul on int8 x (its scale groups whole 16-row K
-    steps), x (M, K). Returns the (M, N) f32 output; the caller counts
-    the launch."""
+    f32 or bf16 x writing ``out_dtype`` (f32 or bf16), or the W8A8 matmul
+    on int8 x (its scale groups whole 16-row K steps) writing f32, x (M,
+    K). Returns the (M, N) output; the caller counts the launch."""
     int8 = name == "w8a8_matmul"
-    check_operands(name, x, torch.int8 if int8 else torch.float32, qw,
+    check_operands(name, x, torch.int8 if int8 else FLOATS, qw,
                    scale, bits=bits, group_size=group_size, k=k,
                    experts=False)
     if int8 and group_size != -1 and group_size % 16:
         raise ValueError(f"{name}: a scale group of {group_size} rows is "
                          f"not a multiple of 16")
+    if out_dtype not in (FLOATS[:1] if int8 else FLOATS):
+        raise ValueError(f"{name}: no {out_dtype} output")
+    check_bf16_groups(name, x, k, scale.shape[-2])
     m, n = x.shape[-2], qw.shape[-1]
     if m == 0:
-        return torch.empty((0, n), dtype=torch.float32, device=x.device)
+        return torch.empty((0, n), dtype=out_dtype, device=x.device)
     # imported here: the tuner imports this module for its fixed planner
     from repro_torch.kernels import autotune
     p = autotune.dense_plan(name, m, k, n, bits, scale.shape[-2])
-    return launch(name, x, qw, scale, p, bits=bits, k=k)
+    return launch(name, x, qw, scale, p, bits=bits, k=k,
+                  out_dtype=out_dtype)
 
 
 def launch(name: str, x: torch.Tensor, qw: torch.Tensor,
-           scale: torch.Tensor, p: DensePlan, *, bits: int,
-           k: int) -> torch.Tensor:
+           scale: torch.Tensor, p: DensePlan, *, bits: int, k: int,
+           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Launch dense kernel ``name`` on checked operands as plan ``p``
     cuts it (``run``'s; the card's sweep of bodies and splits passes its
-    own). Returns the (M, N) f32 output."""
+    own). A plan is x's dtype's too: a bf16 x only shrinks the ring.
+    Returns the (M, N) output in ``out_dtype``."""
     int8 = name == "w8a8_matmul"
+    x_bf16 = x.dtype == torch.bfloat16
     m, n = x.shape[-2], qw.shape[-1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    nbytes = workspace_bytes(p, m, k, n, int8=int8)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    nbytes = workspace_bytes(p, m, k, n, int8=int8, x_bf16=x_bf16)
     work = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
             if nbytes else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    dtypes = () if int8 else (int(x_bf16),
+                              int(out_dtype == torch.bfloat16))
     code = _lib(name)(x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
                       out.data_ptr(),
                       None if work is None else work.data_ptr(),
                       m, k, n, scale.shape[-2], bits, p.body, p.nt,
-                      p.splits, p.k_per_split, stream)
+                      p.splits, p.k_per_split, *dtypes, stream)
     build.check(name, code)
     return out
 
 
 def dequant_matmul_cuda(x: torch.Tensor, qw: torch.Tensor,
                         scale: torch.Tensor, *, bits: int, group_size: int,
-                        k: int) -> torch.Tensor:
-    """x (M, K) f32 @ packed qw (packed_rows(K), N) uint8 with scale (G, N)
-    f32 -> (M, N) f32, on the card. Raises on anything the kernel does not
-    take."""
-    global launches
+                        k: int, out_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
+    """x (M, K) f32 or bf16 @ packed qw (packed_rows(K), N) uint8 with
+    scale (G, N) f32 -> (M, N) ``out_dtype`` (f32 or bf16), on the card.
+    Raises on anything the kernel does not take."""
+    global launches, launches_bf16
     out = run("dequant_matmul", x, qw, scale, bits=bits,
-              group_size=group_size, k=k)
+              group_size=group_size, k=k, out_dtype=out_dtype)
     if out.numel():                      # an empty x launches nothing
         launches += 1
+        launches_bf16 += x.dtype == torch.bfloat16
     return out

@@ -26,11 +26,15 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.packed_operands import (MAX_GRID_Z, MAX_SMEM, SMS,
+from repro_torch.kernels.packed_operands import (FLOATS, MAX_GRID_Z,
+                                                 MAX_SMEM, SMS,
+                                                 check_bf16_groups,
                                                  check_operands,
                                                  int32_sum_fits)
 
 launches = 0
+# launches on a bf16 x (also counted in ``launches``)
+launches_bf16 = 0
 
 # the kernels' geometry (csrc/expert_stream.cuh): a block's strip of
 # output columns, the K rows of a ring stage, the ring's stages and the
@@ -153,18 +157,23 @@ def plan_with(e: int, c: int, k: int, n: int, bits: int, groups: int, *,
 
 
 def launch(name: str, x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
-           *, bits: int, group_size: int, k: int) -> torch.Tensor:
+           *, bits: int, group_size: int, k: int,
+           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Check, plan and launch expert kernel ``name``: the dequant matmul
-    on f32 x, or the W8A8 matmul on int8 x (its scale groups whole 16-row
-    K steps, and no exact int32 group sum able to overflow), on the
-    (E, C, K) capacity buffer x and the (E, ...) packed stack. The plan is
-    the tuner's (``kernels/autotune.py``: ``plan``'s unless a tuned entry
-    is in force). Returns the (E, C, N) f32 output; the caller counts the
+    on f32 or bf16 x writing ``out_dtype`` (f32 or bf16), or the W8A8
+    matmul on int8 x writing f32 (its scale groups whole 16-row K steps,
+    and no exact int32 group sum able to overflow), on the (E, C, K)
+    capacity buffer x and the (E, ...) packed stack. The plan is the
+    tuner's (``kernels/autotune.py``: ``plan``'s unless a tuned entry is
+    in force). Returns the (E, C, N) output; the caller counts the
     launch."""
     int8 = name == "expert_w8a8_matmul"
-    check_operands(name, x, torch.int8 if int8 else torch.float32, qw,
+    check_operands(name, x, torch.int8 if int8 else FLOATS, qw,
                    scale, bits=bits, group_size=group_size, k=k,
                    experts=True)
+    if out_dtype not in (FLOATS[:1] if int8 else FLOATS):
+        raise ValueError(f"{name}: no {out_dtype} output")
+    check_bf16_groups(name, x, k, scale.shape[-2])
     group_rows = k if group_size == -1 else group_size
     if int8 and group_size != -1 and group_rows % 16:
         raise ValueError(f"{name}: a scale group of {group_rows} rows is not "
@@ -174,7 +183,7 @@ def launch(name: str, x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     e, c = x.shape[:2]
     n = qw.shape[-1]
     if c == 0 or e == 0:
-        return torch.empty((e, c, n), dtype=torch.float32, device=x.device)
+        return torch.empty((e, c, n), dtype=out_dtype, device=x.device)
     # imported here: the tuner imports this module for its fixed planner
     from repro_torch.kernels import autotune
     p = autotune.expert_plan(name, e, c, k, n, bits, scale.shape[-2])
@@ -182,43 +191,52 @@ def launch(name: str, x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     rows = min(group_rows, p.k_per_split)
     if int8 and not int32_sum_fits(bits, rows):
         raise ValueError(f"{name}: {rows} rows per int32 sum could overflow")
-    return launch_plan(name, x, qw, scale, p, bits=bits, k=k)
+    return launch_plan(name, x, qw, scale, p, bits=bits, k=k,
+                       out_dtype=out_dtype)
 
 
 def launch_plan(name: str, x: torch.Tensor, qw: torch.Tensor,
-                scale: torch.Tensor, p: ExpertPlan, *, bits: int,
-                k: int) -> torch.Tensor:
+                scale: torch.Tensor, p: ExpertPlan, *, bits: int, k: int,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Launch expert kernel ``name`` on checked operands as plan ``p``
-    cuts it (``launch``'s; the tuner's search passes its candidates).
-    Returns the (E, C, N) f32 output."""
+    cuts it (``launch``'s; the tuner's search passes its candidates). A
+    plan is x's dtype's too: a bf16 x only shrinks the ring. Returns the
+    (E, C, N) output in ``out_dtype``."""
+    int8 = name == "expert_w8a8_matmul"
     e, c = x.shape[:2]
     n = qw.shape[-1]
     groups = scale.shape[-2]
-    out = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((e, c, n), dtype=out_dtype, device=x.device)
     work = (torch.empty((e, p.splits, c, n), dtype=torch.float32,
                         device=x.device) if p.splits > 1 else None)
     fn = getattr(build.load(name), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * (
+            9 if int8 else 11) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    dtypes = () if int8 else (int(x.dtype == torch.bfloat16),
+                              int(out_dtype == torch.bfloat16))
     code = fn(x.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(),
               None if work is None else work.data_ptr(), e, c, k, n, groups,
-              bits, p.nt, p.splits, p.k_per_split, stream)
+              bits, p.nt, p.splits, p.k_per_split, *dtypes, stream)
     build.check(name, code)
     return out
 
 
 def expert_dequant_matmul_cuda(x: torch.Tensor, qw: torch.Tensor,
                                scale: torch.Tensor, *, bits: int,
-                               group_size: int, k: int) -> torch.Tensor:
-    """x (E, C, K) f32 @ packed qw (E, packed_rows(K), N) uint8 with scale
-    (E, G, N) f32 -> (E, C, N) f32, on the card, in one launch. Raises on
-    anything the kernel does not take."""
-    global launches
+                               group_size: int, k: int,
+                               out_dtype: torch.dtype = torch.float32
+                               ) -> torch.Tensor:
+    """x (E, C, K) f32 or bf16 @ packed qw (E, packed_rows(K), N) uint8
+    with scale (E, G, N) f32 -> (E, C, N) ``out_dtype`` (f32 or bf16), on
+    the card, in one launch. Raises on anything the kernel does not
+    take."""
+    global launches, launches_bf16
     out = launch("expert_dequant_matmul", x, qw, scale, bits=bits,
-                 group_size=group_size, k=k)
+                 group_size=group_size, k=k, out_dtype=out_dtype)
     if out.numel():
         launches += 1
+        launches_bf16 += x.dtype == torch.bfloat16
     return out

@@ -1,5 +1,5 @@
-"""CUDA kernel: paged attention with inline int8-KV dequant
-(``csrc/paged_attention.cu``).
+"""CUDA kernel: paged attention over f32, bf16 or int8 pools, the int8
+ones dequantized inline (``csrc/paged_attention.cu``).
 
 Replaces the TPU kernel ``paged_attention_pallas``
 (src/repro/kernels/paged_attention.py). A launch is one thread-block
@@ -27,9 +27,34 @@ from repro_torch.kernels import build
 from repro_torch.kernels.packed_operands import MAX_SMEM, SMS
 
 launches = 0
+# launches on bf16 pools (also counted in ``launches``)
+launches_bf16 = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float]
-             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+# the pool types: each one's element bytes and its ``kind`` in the source
+# (KV_F32, KV_INT8, KV_BF16); a pool type is named by its string
+POOLS = {"f32": (4, 0), "int8": (1, 1), "bf16": (2, 2)}
+POOL_DTYPES = {"f32": torch.float32, "int8": torch.int8,
+               "bf16": torch.bfloat16}
+# a head dim is whole 16-byte units of a row: a multiple of this
+HD_MULTIPLE = {"f32": 4, "bf16": 8, "int8": 16}
+
+
+def kv_kind(kv: str) -> str:
+    """The pool type ``kv``, checked: "f32", "bf16" or "int8"."""
+    if kv not in POOLS:
+        raise ValueError(f"paged_attention: no pool type {kv!r}")
+    return kv
+
+
+def pool_kind(k_pool: torch.Tensor, quant: bool) -> str:
+    """The pool type of a K pool (int8 when it has scale pools)."""
+    if quant:
+        return "int8"
+    return {torch.float32: "f32", torch.bfloat16: "bf16"}.get(k_pool.dtype,
+                                                              "f32")
 
 # the source's geometry (csrc/paged_attention.cu): threads a block (4
 # warps, each taking 8 tokens of a tile), tokens a tile, tiles in the
@@ -58,12 +83,14 @@ def _align16(x: int) -> int:
     return -(-x // 16) * 16
 
 
-def geometry(rows: int, hd: int, hd_v: int, w: int,
-             quant: bool) -> Geometry:
+def geometry(rows: int, hd: int, hd_v: int, w: int, kv: str) -> Geometry:
     """The source's ``geometry``: shared memory and row chunks of a launch
     (ring of STAGES tiles, q, the warps' probabilities, the merges'
-    scratch, the token tables, the block-table row)."""
-    es = 1 if quant else 4
+    scratch, the token tables, the block-table row); ``kv`` the pool
+    type (``kv_kind``)."""
+    kind = kv_kind(kv)
+    quant = kind == "int8"
+    es = POOLS[kind][0]
     u0 = hd * es // 16
     ksb = 16 * (u0 + (12 - u0 % 8) % 8)
     vsb = hd_v * es
@@ -79,13 +106,14 @@ def geometry(rows: int, hd: int, hd_v: int, w: int,
 
 
 def plan_paged(s: int, kvh: int, w: int, page_size: int, rows: int,
-               hd: int, hd_v: int, quant: bool) -> int:
+               hd: int, hd_v: int, kv: str) -> int:
     """Blocks a (slot, kv head, row chunk)'s walk is split over (the
     cluster size): about TARGET_BLOCKS over the launch, at least
     MIN_SPLIT_TOKENS of table a split (a short table stays at 1-2), at
     most MAX_SPLIT. Reads no fill count: only shapes the host knows.
-    Raises ValueError on a shape the kernel does not take."""
-    geo = geometry(rows, hd, hd_v, w, quant)
+    Raises ValueError on a shape the kernel does not take. ``kv``: the
+    pool type (``kv_kind``), whose element size sets the ring's bytes."""
+    geo = geometry(rows, hd, hd_v, w, kv)
     if geo.smem > MAX_SMEM or hd_v > MAX_HDV:
         raise ValueError(
             f"paged_attention: hd {hd}/{hd_v} with a {w}-page table needs "
@@ -109,26 +137,32 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                          kv_len: torch.Tensor,
                          k_scale_pool: Optional[torch.Tensor] = None,
                          v_scale_pool: Optional[torch.Tensor] = None, *,
-                         window: Optional[int] = None,
-                         m_rows: int = 1) -> torch.Tensor:
-    """q (S, KVH, m_rows*G, hd) f32 m-major; pools (P, page, KVH, hd[_v])
-    f32, or int8 with (P, page, KVH) f32 scale pools; block_table (S, W)
-    int32; kv_len (S,) int32 -> (S, KVH, m_rows*G, hd_v) f32, on the card.
+                         window: Optional[int] = None, m_rows: int = 1,
+                         out_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
+    """q (S, KVH, m_rows*G, hd) f32 or bf16, m-major; pools (P, page, KVH,
+    hd[_v]) f32 or bf16 (read as they are), or int8 with (P, page, KVH)
+    f32 scale pools; block_table (S, W) int32; kv_len (S,) int32 -> (S,
+    KVH, m_rows*G, hd_v) in ``out_dtype`` (q's by default), on the card.
     One launch: a cluster of n_split blocks per (slot, kv head, row chunk),
     ``plan_paged``'s unless a tuned entry is in force. Raises on anything
     the kernel does not take."""
-    global launches
+    global launches, launches_bf16
     quant = k_scale_pool is not None
     if not q.is_cuda:
         raise ValueError("paged_attention: q must be a CUDA tensor")
-    if not (q.dtype == torch.float32 and q.ndim == 4):
-        raise ValueError(f"paged_attention: q must be (S, KVH, R, hd) f32, "
-                         f"got {tuple(q.shape)} {q.dtype}")
+    halves = (torch.float32, torch.bfloat16)
+    out_dtype = out_dtype or q.dtype
+    if not (q.dtype in halves and q.ndim == 4 and out_dtype in halves):
+        raise ValueError(f"paged_attention: q must be (S, KVH, R, hd) f32 "
+                         f"or bf16 and the output f32 or bf16, got "
+                         f"{tuple(q.shape)} {q.dtype} -> {out_dtype}")
     s, kvh, rows, hd = q.shape
     if m_rows < 1 or rows % m_rows:
         raise ValueError(f"paged_attention: rows {rows} not a multiple of "
                          f"m_rows {m_rows}")
-    pool_dtype = torch.int8 if quant else torch.float32
+    kind = pool_kind(k_pool, quant)
+    pool_dtype = POOL_DTYPES[kind]
     n_pages, page_size = k_pool.shape[0], k_pool.shape[1]
     hd_v = v_pool.shape[-1]
     if not (k_pool.dtype == pool_dtype and v_pool.dtype == pool_dtype
@@ -136,10 +170,10 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
             and v_pool.ndim == 4
             and tuple(v_pool.shape[:3]) == (n_pages, page_size, kvh)):
         raise ValueError(
-            f"paged_attention: pools must be (P, page, {kvh}, hd) "
-            f"{pool_dtype} for q {tuple(q.shape)}; got "
-            f"{tuple(k_pool.shape)} {k_pool.dtype}, {tuple(v_pool.shape)} "
-            f"{v_pool.dtype}")
+            f"paged_attention: pools must be (P, page, {kvh}, hd) f32, bf16 "
+            f"or int8 (with scale pools), both alike, for q "
+            f"{tuple(q.shape)}; got {tuple(k_pool.shape)} {k_pool.dtype}, "
+            f"{tuple(v_pool.shape)} {v_pool.dtype}")
     tensors = [q, k_pool, v_pool, block_table, kv_len]
     if quant:
         if v_scale_pool is None:
@@ -165,23 +199,24 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                          "device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention: operands must be contiguous")
-    mult = 16 if quant else 4
+    mult = HD_MULTIPLE[kind]
     if hd % mult or hd_v % mult:
         raise ValueError(f"paged_attention: hd {hd} and hd_v {hd_v} must "
                          f"be multiples of {mult} with {pool_dtype} pools")
     if (k_pool.data_ptr() | v_pool.data_ptr()) % 16:
         raise ValueError("paged_attention: pools must start on 16 bytes")
-    out = torch.empty((s, kvh, rows, hd_v), dtype=torch.float32,
+    out = torch.empty((s, kvh, rows, hd_v), dtype=out_dtype,
                       device=q.device)
     if s == 0:
         return out
     # imported here: the tuner imports this module for its fixed planner
     from repro_torch.kernels import autotune
     n_split = autotune.paged_split(s, kvh, block_table.shape[1], page_size,
-                                   rows, hd, hd_v, quant, m_rows=m_rows)
+                                   rows, hd, hd_v, kind, m_rows=m_rows)
     _launch(q, k_pool, v_pool, block_table, kv_len, k_scale_pool,
             v_scale_pool, out, window, m_rows, n_split)
     launches += 1
+    launches_bf16 += kind == "bf16"
     return out
 
 
@@ -191,6 +226,7 @@ def _launch(q, k_pool, v_pool, block_table, kv_len, k_scale_pool,
     (``tools/paged_sweep.py`` times splits other than the plan's)."""
     s, kvh, rows, hd = q.shape
     quant = k_scale_pool is not None
+    kind = POOLS[pool_kind(k_pool, quant)][1]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = _lib()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                   k_scale_pool.data_ptr() if quant else None,
@@ -199,5 +235,7 @@ def _launch(q, k_pool, v_pool, block_table, kv_len, k_scale_pool,
                   s, kvh, rows, hd, v_pool.shape[-1], k_pool.shape[1],
                   block_table.shape[1], m_rows,
                   -1 if window is None else int(window),
-                  1.0 / math.sqrt(hd), int(quant), n_split, stream)
+                  1.0 / math.sqrt(hd), kind, n_split,
+                  int(q.dtype == torch.bfloat16),
+                  int(out.dtype == torch.bfloat16), stream)
     build.check("paged_attention", code)

@@ -3,9 +3,10 @@ place (port of ``repro.kernels.paged_harness``).
 
 The builders draw with ``np.random.default_rng(seed)`` in the JAX
 package's order, so equal seeds give equal arrays in both packages. The
-JAX package's float pools are the draws rounded to bf16; the port's are
-the draws themselves in f32, the port's pool type, so a kernel that
-rounded K or V on load would miss its check here. The oracles are written in
+JAX package's float pools are the draws rounded to bf16, and so are the
+port's bf16 pools (``pools="bf16"``); the port's f32 pools are the draws
+themselves, so a kernel that rounded f32 K or V on load would miss its
+check here. The oracles are written in
 PyTorch: gather each slot's pages contiguous, dequantize, and run
 ``models/attention.py::attention_core`` single-shot with per-row causal
 positions. The tuner's paged search (``kernels/autotune.py``),
@@ -38,11 +39,13 @@ def _pool_draws(seed: int, n_pages: int, ps: int, kvh: int, hd: int):
 
 
 def build_paged_case(seed: int, s: int, w: int, ps: int, kvh: int, g: int,
-                     hd: int, fills, kv_bits: int, *, device="cuda"):
+                     hd: int, fills, kv_bits: int, *, pools: str = "f32",
+                     device="cuda"):
     """Random pools and block tables with per-slot fills 0..w*ps. Empty
     slots hold no pages (block-table row all -1), like an idle slot.
-    ``kv_bits`` 8 gives int8 pools with f32 scale pools, else f32 pools of
-    the f32 draws (the JAX package's bf16 pools are these rounded).
+    ``kv_bits`` 8 gives int8 pools with f32 scale pools, else with
+    ``pools`` "f32" f32 pools of the f32 draws, with "bf16" the draws
+    rounded to bf16 (the JAX package's pools, bit for bit).
     Returns (q (S, KVH*G, hd) f32, pools dict, block_table (S, W) int32,
     kv_len (S,) int32) on ``device``."""
     dev = resolve_device(device)
@@ -61,7 +64,10 @@ def build_paged_case(seed: int, s: int, w: int, ps: int, kvh: int, g: int,
         vq, vs = _quant_kv(vf)
         pools = dict(k_pool=kq, v_pool=vq, k_scale_pool=ks, v_scale_pool=vs)
     else:
-        pools = dict(k_pool=kf, v_pool=vf, k_scale_pool=None,
+        if pools not in ("f32", "bf16"):
+            raise ValueError(f"no float pool type {pools!r}")
+        dt = torch.bfloat16 if pools == "bf16" else torch.float32
+        pools = dict(k_pool=kf.to(dt), v_pool=vf.to(dt), k_scale_pool=None,
                      v_scale_pool=None)
     # a copy: callers own their pools, the draws stay cached
     pools = {k: None if v is None else v.to(dev, copy=True)
@@ -73,14 +79,15 @@ def build_paged_case(seed: int, s: int, w: int, ps: int, kvh: int, g: int,
 
 def build_verify_case(seed: int, s: int, m: int, w: int, ps: int, kvh: int,
                       g: int, hd: int, fills, kv_bits: int, *,
-                      device="cuda"):
+                      pools: str = "f32", device="cuda"):
     """The verify-shaped variant: q gets M query rows a slot (row r of slot
     si sits at fill position fills[si] - m + r). Fills must be 0 (an idle
     slot) or >= m. Returns (q (S, M, H, hd), pools, block_table,
     kv_len)."""
     assert all(f == 0 or f >= m for f in fills), fills
     _, pools, bt, kv_len = build_paged_case(seed, s, w, ps, kvh, g, hd,
-                                            fills, kv_bits, device=device)
+                                            fills, kv_bits, pools=pools,
+                                            device=device)
     rng = np.random.default_rng(seed + 1)
     q = torch.from_numpy(rng.normal(size=(s, m, kvh * g, hd))).float()
     return q.to(bt.device), pools, bt, kv_len
@@ -88,14 +95,15 @@ def build_verify_case(seed: int, s: int, m: int, w: int, ps: int, kvh: int,
 
 def build_prefill_case(seed: int, s: int, m: int, w: int, ps: int, kvh: int,
                        g: int, hd: int, fills, kv_bits: int, *,
-                       device="cuda"):
+                       pools: str = "f32", device="cuda"):
     """The chunked-prefill variant: q is a left-padded chunk bucket of M
     rows a slot (row j at fill position fills[si] - m + j, as a verify
     row); fills may be smaller than M, and rows at fill limit <= 0 are the
     kernel's exact zeros. Returns (q (S, M, H, hd), pools, block_table,
     kv_len)."""
     _, pools, bt, kv_len = build_paged_case(seed, s, w, ps, kvh, g, hd,
-                                            fills, kv_bits, device=device)
+                                            fills, kv_bits, pools=pools,
+                                            device=device)
     rng = np.random.default_rng(seed + 2)
     q = torch.from_numpy(rng.normal(size=(s, m, kvh * g, hd))).float()
     return q.to(bt.device), pools, bt, kv_len

@@ -20,30 +20,35 @@ NEG = -1e30
 
 def dequant_matmul_ref(x: torch.Tensor, qw: torch.Tensor,
                        scale: torch.Tensor, *, bits: int, group_size: int,
-                       k: int) -> torch.Tensor:
-    """(M, K) f32 @ packed (K, N) -> (M, N) f32.
+                       k: int,
+                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(M, K) f32 or bf16 @ packed (K, N) -> (M, N) ``out_dtype``.
 
     x and the f32-dequantized weight are each rounded to bf16 *before* the
-    product (what the TPU kernel feeds its bf16 matrix unit); products of
-    two bf16 values are exact in f32, so the f32 matmul of the rounded
-    operands is the kernel's function up to summation order."""
+    product (what the TPU kernel feeds its bf16 matrix unit; a bf16 x is
+    already so); products of two bf16 values are exact in f32, so the f32
+    matmul of the rounded operands is the kernel's function up to
+    summation order. The f32 sum is rounded once to ``out_dtype``."""
     qt = QuantizedTensor(qw, scale, bits, group_size, (k, qw.shape[1]))
     w = dequantize(qt).to(torch.bfloat16).to(torch.float32)
     xb = x.to(torch.bfloat16).to(torch.float32)
-    return torch.matmul(xb, w)
+    return torch.matmul(xb, w).to(out_dtype)
 
 
 def expert_dequant_matmul_ref(x: torch.Tensor, qw: torch.Tensor,
                               scale: torch.Tensor, *, bits: int,
-                              group_size: int, k: int) -> torch.Tensor:
-    """Expert-batched ``dequant_matmul_ref``: x (E, C, K) f32 @ packed
-    (E, packed_rows(K), N) with scale (E, G, N) -> (E, C, N) f32, both
-    operands rounded to bf16 and the products summed in f32."""
+                              group_size: int, k: int,
+                              out_dtype: torch.dtype = torch.float32
+                              ) -> torch.Tensor:
+    """Expert-batched ``dequant_matmul_ref``: x (E, C, K) f32 or bf16 @
+    packed (E, packed_rows(K), N) with scale (E, G, N) -> (E, C, N)
+    ``out_dtype``, both operands rounded to bf16 and the products summed
+    in f32."""
     e = x.shape[0]
     qt = QuantizedTensor(qw, scale, bits, group_size, (e, k, qw.shape[-1]))
     w = dequantize(qt).to(torch.bfloat16).to(torch.float32)
     xb = x.to(torch.bfloat16).to(torch.float32)
-    return torch.matmul(xb, w)
+    return torch.matmul(xb, w).to(out_dtype)
 
 
 def w8a8_matmul_ref(xq: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
@@ -89,17 +94,21 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                         k_scale_pool: Optional[torch.Tensor] = None,
                         v_scale_pool: Optional[torch.Tensor] = None, *,
                         window: Optional[int] = None,
-                        m_rows: int = 1) -> torch.Tensor:
+                        m_rows: int = 1,
+                        out_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
     """Page walk with per-page online-softmax updates, batched over slots
     and kv heads (the kernel's page order and f32 accumulation).
 
     q: (S, KVH, m_rows*G, hd) m-major rows (row r belongs to the token at
     fill position kv_len - m_rows + r//G); pools: (P, page, KVH, hd[_v]),
-    int8 with (P, page, KVH) f32 scale pools or f32 without; block_table:
+    int8 with (P, page, KVH) f32 scale pools, or f32 or bf16 without (each
+    element upcast to f32 as it is read); block_table:
     (S, W) page ids, -1 = unheld; kv_len: (S,). Dead pages (beyond the
     fill, unheld, wholly behind the window) leave the accumulators
     untouched; an empty slot comes out as exact zeros.
-    Returns (S, KVH, m_rows*G, hd_v) f32."""
+    Returns (S, KVH, m_rows*G, hd_v) ``out_dtype``, one rounding of the f32
+    result."""
     s, kvh, rows, hd = q.shape
     if rows % m_rows:
         raise ValueError(f"rows {rows} not a multiple of m_rows {m_rows}")
@@ -144,7 +153,7 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
         m = torch.where(keep, m_new, m)
         l = torch.where(keep, l_new, l)
         acc = torch.where(keep, acc_new, acc)
-    return acc / l.clamp_min(1e-30)
+    return (acc / l.clamp_min(1e-30)).to(out_dtype)
 
 
 def quantize_pack_ref(w: torch.Tensor, scale: torch.Tensor, *,

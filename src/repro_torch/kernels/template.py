@@ -203,11 +203,11 @@ def paged_choice(n_split: int) -> dict:
 
 
 def paged_split_from(choice: dict, s: int, kvh: int, w: int, page_size: int,
-                     rows: int, hd: int, hd_v: int, quant: bool) -> int:
+                     rows: int, hd: int, hd_v: int, kv: str) -> int:
     """The cluster size of ``choice``: 1 to MAX_SPLIT blocks, on a shape
     whose shared memory fits (``plan_paged``'s check, which raises)."""
     n = _int(choice, "n_split")
-    pa.plan_paged(s, kvh, w, page_size, rows, hd, hd_v, quant)
+    pa.plan_paged(s, kvh, w, page_size, rows, hd, hd_v, kv)
     if not 1 <= n <= pa.MAX_SPLIT:
         raise ValueError(f"n_split {n} not in 1..{pa.MAX_SPLIT}")
     return n
@@ -215,18 +215,18 @@ def paged_split_from(choice: dict, s: int, kvh: int, w: int, page_size: int,
 
 def valid_paged(choice, s: int, kvh: int, w: int, page_size: int,
                 rows: int, hd: int, hd_v: int,
-                quant: bool) -> Optional[int]:
+                kv: str) -> Optional[int]:
     try:
         return paged_split_from(choice, s, kvh, w, page_size, rows, hd,
-                                hd_v, quant)
+                                hd_v, kv)
     except (KeyError, TypeError, ValueError):
         return None
 
 
 def paged_candidates(s: int, kvh: int, w: int, page_size: int, rows: int,
-                     hd: int, hd_v: int, quant: bool) -> list[dict]:
+                     hd: int, hd_v: int, kv: str) -> list[dict]:
     """Every cluster size, the fixed plan's first."""
-    fixed = pa.plan_paged(s, kvh, w, page_size, rows, hd, hd_v, quant)
+    fixed = pa.plan_paged(s, kvh, w, page_size, rows, hd, hd_v, kv)
     return [paged_choice(fixed)] + [paged_choice(n)
                                     for n in range(1, pa.MAX_SPLIT + 1)
                                     if n != fixed]

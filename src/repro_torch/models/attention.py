@@ -26,7 +26,8 @@ Five calls reach ``apply_attention``:
 no RoPE, non-causal, its own cross cache ("k", "v", "pos") filled at
 prefill and read as it is at decode.
 
-Page pools are f32 ``(P, page, KVH, hd)`` tensors, or int8 with
+Page pools are ``(P, page, KVH, hd)`` tensors in ``cfg.adtype`` (f32 or
+bf16; the paged-attention kernel reads either as it is), or int8 with
 ``(P, page, KVH)`` f32 scale pools when ``cfg.kv_cache_bits == 8``. The
 scatters write the pools (and the contiguous and cross caches) IN PLACE
 (``index_put_``, ``copy_``) — the JAX package returns new arrays instead;
@@ -44,8 +45,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import TP_AXIS
 from repro_torch.kernels import ops
-from repro_torch.models.config import ModelConfig
-from repro_torch.models.linear import dense, init_dense
+from repro_torch.models.config import DTYPES, ModelConfig
+from repro_torch.models.linear import (dense, init_dense, matmul_f32,
+                                       reads_as_is)
 from repro_torch.models.rope import apply_rope
 from repro_torch.serve.kvcache import PageSpec, prefill_page_index
 
@@ -65,38 +67,77 @@ def _mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
     return m.expand(q_pos.shape[0], q_pos.shape[1], kv_pos.shape[1])
 
 
+def _head_groups(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The two products' operands, a group of h kv heads at a time: (h, q
+    (B*h, G*Sq, hd), K^T (B*h, hd, T), V (B*h, T, hd_v)); qg (B, Sq, KVH,
+    G, hd). A one-row query whose bf16 operands ``matmul_f32`` reads as
+    they are (a decode on the card) takes one head a group, K and V
+    strided views of the cache: no copy of it, whose bytes would be most
+    of the products' traffic (a batched product reads either layout).
+    Otherwise all heads go in one group, one product each, and the
+    reshape copies K and V into the group layout (in their own dtype):
+    beside a multi-row query's products, or the f32 copies the CPU and
+    autograd read anyway, one copy is small, where a product a head would
+    multiply the launches."""
+    b, sq, kvh, g, hd = qg.shape
+    qh = qg.permute(0, 2, 3, 1, 4)                       # (B, KVH, G, Sq, hd)
+    kt = k.permute(0, 2, 3, 1)                           # (B, KVH, hd, T)
+    vh = v.permute(0, 2, 1, 3)                           # (B, KVH, T, hd_v)
+    h = 1 if sq == 1 and reads_as_is(qg, k, v) else kvh
+    for j in range(0, kvh, h):
+        yield (h, qh[:, j:j + h].reshape(b * h, g * sq, hd),
+               kt[:, j:j + h].reshape(b * h, hd, -1),
+               vh[:, j:j + h].reshape(b * h, -1, v.shape[-1]))
+
+
 def _single_shot(qg, k, v, *, q_pos, kv_pos, causal, window, scale):
-    """Masked softmax over all of K at once. qg: (B, Sq, KVH, G, hd)."""
-    s = torch.einsum("bqkgh,btkh->bkgqt", qg, k) * scale
-    m = _mask(q_pos, kv_pos, causal=causal, window=window)
-    s = torch.where(m[:, None, None], s, NEG)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgqt,btkh->bqkgh", p, v)
+    """Masked softmax over all of K at once, a group of kv heads at a time
+    (``_head_groups``). qg: (B, Sq, KVH, G, hd). The scores are f32 sums
+    of the operands' products (``matmul_f32``), the probabilities are
+    rounded to V's dtype before the f32 sum over V. Returns (B, Sq, KVH,
+    G, hd_v) f32."""
+    b, sq, kvh, g, _ = qg.shape
+    m = _mask(q_pos, kv_pos, causal=causal, window=window)[:, None, None]
+    outs = []
+    for h, qj, ktj, vj in _head_groups(qg, k, v):
+        s = matmul_f32(qj, ktj).view(b, h, g, sq, -1) * scale
+        p = torch.softmax(torch.where(m, s, NEG), dim=-1).to(v.dtype)
+        outs.append(matmul_f32(p.view(b * h, g * sq, -1), vj).view(
+            b, h, g, sq, -1))
+    return torch.cat(outs, dim=1).permute(0, 3, 1, 2, 4)
 
 
-def _kv_block(qg, kb, vb, pb, m_run, l_run, acc, *, q_pos, causal, window,
-              scale):
-    """One KV block of the online softmax: the carries (m, l, acc) after
-    block (kb, vb, pb), all f32. A masked score is the finite NEG, so a
-    row with no live key yet takes exp(0) = 1 from each of them; the
-    first live block's correction exp(NEG - m) wipes those out."""
-    s = torch.einsum("bqkgh,btkh->bkgqt", qg, kb) * scale
-    msk = _mask(q_pos, pb, causal=causal, window=window)
-    s = torch.where(msk[:, None, None], s, NEG)
+def _kv_block(qj, ktb, vb, pb, m_run, l_run, acc, *, q_pos, causal, window,
+              scale, scores_dtype):
+    """One KV block of a head group's online softmax: the carries (m, l,
+    acc), (B, h, G, Sq[, hd_v]), after block (ktb, vb, pb), all f32. The scores are f32 sums
+    (``matmul_f32``) rounded once to ``scores_dtype``, the JAX package's
+    ``preferred_element_type=scores_dtype``, and the probabilities meet V
+    in it; the max, the sum and the accumulator stay f32. A masked score
+    is the finite NEG, so a row with no live key yet takes exp(0) = 1 from
+    each of them; the first live block's correction exp(NEG - m) wipes
+    those out."""
+    b, h, g, sq = m_run.shape
+    msk = _mask(q_pos, pb, causal=causal, window=window)[:, None, None]
+    s = matmul_f32(qj, ktb, scores_dtype).view(b, h, g, sq, -1)
+    s = torch.where(msk, s.to(torch.float32) * scale, NEG)
     m_new = torch.maximum(m_run, s.amax(dim=-1))
     corr = torch.exp(m_run - m_new)
     p = torch.exp(s - m_new[..., None])
     l_new = l_run * corr + p.sum(dim=-1)
-    pv = torch.einsum("bkgqt,btkh->bkgqh", p, vb)
-    return m_new, l_new, acc * corr[..., None] + pv
+    pv = matmul_f32(p.to(scores_dtype).view(b * h, g * sq, -1), vb)
+    return m_new, l_new, acc * corr[..., None] + pv.view(b, h, g, sq, -1)
 
 
-def _chunked(qg, k, v, *, q_pos, kv_pos, causal, window, scale, block_kv):
+def _chunked(qg, k, v, *, q_pos, kv_pos, causal, window, scale, block_kv,
+             scores_dtype):
     """Online softmax over KV blocks of ``block_kv`` (K padded with dead
-    slots, position -1, to whole blocks). Under autograd each block runs
-    checkpointed: the backward pass recomputes its scores from the saved
-    carries, so only O(Sq * hd) carries per block are kept, never the
-    (B, KVH, G, Sq, block_kv) scores."""
+    slots, position -1, to whole blocks), a group of kv heads at a time
+    (``_head_groups``). Under autograd each block runs checkpointed: the
+    backward pass recomputes its scores from the saved carries, so only
+    O(Sq * hd) carries per block are kept, never the (B, h, G, Sq,
+    block_kv) scores (the JAX package's ``jax.checkpoint(body,
+    nothing_saveable)``). Returns (B, Sq, KVH, G, hd_v) f32."""
     b, sq, kvh, g, _ = qg.shape
     skv = k.shape[1]
     pad = (-skv) % block_kv
@@ -105,60 +146,108 @@ def _chunked(qg, k, v, *, q_pos, kv_pos, causal, window, scale, block_kv):
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-1)
     dev = qg.device
-    m = torch.full((b, kvh, g, sq), NEG, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, kvh, g, sq, v.shape[-1]), dtype=torch.float32,
-                      device=dev)
-    kw = dict(q_pos=q_pos, causal=causal, window=window, scale=scale)
-    for t0 in range(0, skv + pad, block_kv):
-        blk = (qg, k[:, t0:t0 + block_kv], v[:, t0:t0 + block_kv],
-               kv_pos[:, t0:t0 + block_kv], m, l, acc)
-        if torch.is_grad_enabled():
-            m, l, acc = checkpoint(_kv_block, *blk, use_reentrant=False,
-                                   **kw)
-        else:
-            m, l, acc = _kv_block(*blk, **kw)
-    o = acc / l.clamp_min(1e-30)[..., None]
-    return o.permute(0, 3, 1, 2, 4)                       # (B, Sq, KVH, G, hd)
+    kw = dict(q_pos=q_pos, causal=causal, window=window, scale=scale,
+              scores_dtype=scores_dtype)
+    outs = []
+    for h, qj, ktj, vj in _head_groups(qg, k, v):
+        m = torch.full((b, h, g, sq), NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, h, g, sq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, h, g, sq, v.shape[-1]), dtype=torch.float32,
+                          device=dev)
+        for t0 in range(0, skv + pad, block_kv):
+            blk = (qj, ktj[:, :, t0:t0 + block_kv], vj[:, t0:t0 + block_kv],
+                   kv_pos[:, t0:t0 + block_kv], m, l, acc)
+            if torch.is_grad_enabled():
+                m, l, acc = checkpoint(_kv_block, *blk, use_reentrant=False,
+                                       **kw)
+            else:
+                m, l, acc = _kv_block(*blk, **kw)
+        outs.append(acc / l.clamp_min(1e-30)[..., None])
+    return torch.cat(outs, dim=1).permute(0, 3, 1, 2, 4)
+
+
+def banded_attention(q, k, v, *, q_pos, kv_pos, window: int,
+                     block_q: int = 1024) -> torch.Tensor:
+    """Sliding-window self-attention over the live band only: q in blocks
+    of ``block_q``, each attending a (window + block_q)-wide key slice, so
+    O(S * window) work instead of O(S^2). Needs Sq == Skv (aligned self
+    positions). Keys get ``window`` dead slots (position -1) in front so
+    every slice is in bounds; q is padded to whole blocks."""
+    b, s, h, hd = q.shape
+    bq = min(block_q, s)
+    pad_q = (-s) % bq
+    w = window
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos = torch.nn.functional.pad(q_pos, (0, pad_q), value=-1)
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, w, 0))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, w, 0))
+    pp = torch.nn.functional.pad(kv_pos, (w, 0), value=-1)
+    outs = []
+    for i in range(0, s + pad_q, bq):
+        outs.append(attention_core(
+            q[:, i:i + bq], kp[:, i:i + w + bq], vp[:, i:i + w + bq],
+            q_pos=q_pos[:, i:i + bq], kv_pos=pp[:, i:i + w + bq],
+            causal=True, window=w, block_kv=w + bq))
+    return torch.cat(outs, dim=1)[:, :s]
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    q_pos: torch.Tensor, kv_pos: torch.Tensor,
                    causal: bool = True, window: Optional[int] = None,
-                   block_kv: int = 512) -> torch.Tensor:
-    """GQA attention in f32, causal unless ``causal`` is False (whisper's
-    encoder and cross-attention), as the JAX package's ``attention_core``
-    with its default options: single-shot where K fits one block
-    (Skv <= block_kv) or for a decode query (Sq 1), else the chunked
-    online softmax.
-    q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd). Returns (B, Sq, H, hd)."""
+                   block_kv: int = 512, banded: bool = False,
+                   chunked_decode: bool = False,
+                   scores_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """GQA attention, causal unless ``causal`` is False (whisper's encoder
+    and cross-attention), as the JAX package's ``attention_core``:
+    ``banded`` (a causal windowed self-attention longer than twice the
+    window) takes ``banded_attention``; else single-shot where K fits one
+    block (Skv <= block_kv) or for a decode query (Sq 1, unless
+    ``chunked_decode``), else the chunked online softmax with scores in
+    ``scores_dtype``. Sums and the softmax are f32; the output is q's
+    dtype. q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd). Returns (B, Sq, H,
+    hd_v)."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
+    if (banded and causal and window is not None and sq == skv
+            and sq > 2 * window):
+        return banded_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                                window=window,
+                                block_q=max(256, min(1024, window)))
     qg = q.reshape(b, sq, kvh, h // kvh, hd)
     kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window,
               scale=1.0 / math.sqrt(hd))
-    if skv <= block_kv or sq == 1:
+    if skv <= block_kv or (sq == 1 and not chunked_decode):
         o = _single_shot(qg, k, v, **kw)
     else:
-        o = _chunked(qg, k, v, block_kv=block_kv, **kw)
-    return o.reshape(b, sq, h, v.shape[-1])
+        o = _chunked(qg, k, v, block_kv=block_kv, scores_dtype=scores_dtype,
+                     **kw)
+    return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
-def _core(cfg: ModelConfig, q, k, v, q_pos, kv_pos, *,
-          causal=True) -> torch.Tensor:
-    """``attention_core`` with the config's window and KV block."""
+def _core(cfg: ModelConfig, q, k, v, q_pos, kv_pos, *, causal=True,
+          cross: bool = False) -> torch.Tensor:
+    """``attention_core`` with the config's window (none for
+    cross-attention), its KV block and its three core options
+    (``banded_window_attn``, ``chunked_decode``, ``attn_scores_dtype``),
+    as the JAX package's ``apply_attention`` passes them."""
     return attention_core(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
-                          causal=causal, window=cfg.attn_window,
-                          block_kv=cfg.attn_block_kv)
+                          causal=causal,
+                          window=None if cross else cfg.attn_window,
+                          block_kv=cfg.attn_block_kv,
+                          banded=cfg.banded_window_attn,
+                          chunked_decode=cfg.chunked_decode,
+                          scores_dtype=DTYPES[cfg.attn_scores_dtype])
 
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    qkv = dict(bias=cfg.qkv_bias)
+    qkv = dict(bias=cfg.qkv_bias, dtype=cfg.pdtype)
     return {"wq": init_dense(gen, d, h * hd, device, **qkv),
             "wk": init_dense(gen, d, kvh * hd, device, **qkv),
             "wv": init_dense(gen, d, kvh * hd, device, **qkv),
-            "wo": init_dense(gen, h * hd, d, device, bias=cfg.o_bias)}
+            "wo": init_dense(gen, h * hd, d, device, bias=cfg.o_bias,
+                             dtype=cfg.pdtype)}
 
 
 def init_paged_kv_cache(cfg: ModelConfig, spec: PageSpec, device,
@@ -175,8 +264,8 @@ def init_paged_kv_cache(cfg: ModelConfig, spec: PageSpec, device,
             "v_scale_pool": torch.zeros(shape[:-1], dtype=torch.float32,
                                         device=device),
         }
-    return {"k_pool": torch.zeros(shape, dtype=torch.float32, device=device),
-            "v_pool": torch.zeros(shape, dtype=torch.float32, device=device)}
+    return {"k_pool": torch.zeros(shape, dtype=cfg.adtype, device=device),
+            "v_pool": torch.zeros(shape, dtype=cfg.adtype, device=device)}
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,
@@ -199,20 +288,19 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,
                 shape[:-1], dtype=torch.float32, device=device)
     else:
         for name in ("k", "v"):
-            cache[name] = torch.zeros(shape, dtype=torch.float32,
-                                      device=device)
+            cache[name] = torch.zeros(shape, dtype=cfg.adtype, device=device)
     return cache
 
 
 def init_cross_cache(cfg: ModelConfig, batch: int, enc_len: int, device, *,
                      n_layers: int) -> dict:
     """Cross-attention caches for ``n_layers`` stacked decoder blocks of an
-    enc-dec model: "k"/"v" (L, B, enc_len, KVH, hd) f32 and "pos" (L, B,
+    enc-dec model: "k"/"v" (L, B, enc_len, KVH, hd) in ``cfg.adtype`` and "pos" (L, B,
     enc_len) (-1 = empty), filled once from the encoder output at prefill
     (``apply_cross_attention``)."""
     shape = (n_layers, batch, enc_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=torch.float32, device=device),
-            "v": torch.zeros(shape, dtype=torch.float32, device=device),
+    return {"k": torch.zeros(shape, dtype=cfg.adtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.adtype, device=device),
             "pos": torch.full(shape[:3], -1, dtype=torch.int32,
                               device=device)}
 
@@ -250,8 +338,8 @@ def _write_pools(cache: dict, idx: tuple, k: torch.Tensor,
         cache["k_scale_pool"].index_put_(idx, ks)
         cache["v_scale_pool"].index_put_(idx, vs)
     else:
-        cache["k_pool"].index_put_(idx, k.to(torch.float32))
-        cache["v_pool"].index_put_(idx, v.to(torch.float32))
+        cache["k_pool"].index_put_(idx, k.to(cache["k_pool"].dtype))
+        cache["v_pool"].index_put_(idx, v.to(cache["v_pool"].dtype))
 
 
 def _cache_write(cache: dict, k, v, positions) -> None:
@@ -273,17 +361,19 @@ def _cache_write(cache: dict, k, v, positions) -> None:
         cache["k_scale"].index_put_((bidx, slots), ks)
         cache["v_scale"].index_put_((bidx, slots), vs)
     else:
-        cache["k"].index_put_((bidx, slots), k.to(torch.float32))
-        cache["v"].index_put_((bidx, slots), v.to(torch.float32))
+        cache["k"].index_put_((bidx, slots), k.to(cache["k"].dtype))
+        cache["v"].index_put_((bidx, slots), v.to(cache["v"].dtype))
     cache["pos"].index_put_((bidx, slots), positions.to(torch.int32))
     cache["len"] += s
 
 
-def _cached_kv(cache: dict):
-    """The whole contiguous cache as f32 (K, V), dequantized if int8."""
+def _cached_kv(cache: dict, dtype: torch.dtype):
+    """The whole contiguous cache as (K, V), an int8 one dequantized in f32
+    and rounded to ``dtype``."""
     if "k_scale" in cache:
-        return (cache["k"].to(torch.float32) * cache["k_scale"][..., None],
-                cache["v"].to(torch.float32) * cache["v_scale"][..., None])
+        return tuple((cache[n].to(torch.float32)
+                      * cache[n + "_scale"][..., None]).to(dtype)
+                     for n in ("k", "v"))
     return cache["k"], cache["v"]
 
 
@@ -328,7 +418,7 @@ def apply_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         _cache_write(cache, k, v, positions)
         if s == 1:
             # decode: attend over the whole (ring) cache
-            kc, vc = _cached_kv(cache)
+            kc, vc = _cached_kv(cache, x.dtype)
             o = _core(cfg, q, kc, vc, positions, cache["pos"])
         else:
             # prefill: attend over the sequence itself (a ring may already
@@ -399,8 +489,7 @@ def apply_cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                                   device=src.device)[None].expand(sb, s_kv)
         if cache is not None:
             _cross_fill(cache, k, v, kv_pos)
-    o = attention_core(q, k, v, q_pos=positions, kv_pos=kv_pos, causal=False,
-                       block_kv=cfg.attn_block_kv)
+    o = _core(cfg, q, k, v, positions, kv_pos, causal=False, cross=True)
     return _out(cfg, p, o.reshape(b, s, h * hd), taps, tap_prefix)
 
 

@@ -17,6 +17,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
@@ -65,6 +69,7 @@ class Mamba2Config:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "tiny"
+    family: str = "dense"       # dense | moe | ssm | hybrid | audio | vlm
     vocab_size: int = 256
     d_model: int = 128
     n_heads: int = 4
@@ -86,6 +91,7 @@ class ModelConfig:
     qkv_bias: bool = False
     o_bias: bool = False
     mlp_bias: bool = False
+    logit_softcap: float = 0.0  # > 0: logits = c * tanh(logits / c)
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     mamba: Optional[Mamba2Config] = None
@@ -96,15 +102,28 @@ class ModelConfig:
                                 # passes frame or patch embeddings)
     frontend_len: int = 0       # patches prepended (vision) or enc len (audio)
     tie_embeddings: bool = False
-    dtype: str = "float32"
-    param_dtype: str = "float32"
+    dtype: str = "float32"          # activation/compute dtype: float32 |
+                                    # bfloat16 (matmuls accumulate in f32,
+                                    # norms and softmax compute in f32)
+    param_dtype: str = "float32"    # float32 | bfloat16
     serve_quant_bits: int = 0
     serve_quant_group: int = 128
+    remat_policy: str = "nothing"   # nothing | dots (keep matmul outputs)
+    banded_window_attn: bool = False  # SWA prefill over the live band only
+    chunked_decode: bool = False    # decode reads K in attn_block_kv blocks
+    attn_scores_dtype: str = "float32"  # the chunked core's scores dtype
     moe_impl: str = "spmd"      # spmd | shard_map (expert-parallel
                                 # all-to-all dispatch under a mesh with a
                                 # "model" axis, models/moe_shardmap.py)
     kv_cache_bits: int = 0      # 8: int8 KV pools with f32 scale pools
+    remat: bool = True          # recompute each repeat in a "train" pass
+                                # backward (models/transformer.py)
     attn_block_kv: int = 512    # KV block of the chunked attention core
+    fsdp: bool = False          # params' embed dims also split over "data"
+                                # (distributed/partitioning.py)
+    scan_layers: bool = True    # the JAX package scans the repeats; the
+                                # port's stack is always a Python loop over
+                                # them, so the field changes no value here
     tp: int = 1                 # the tensor-parallel width the model code
                                 # runs under: a rank's config in TP serving
                                 # (partitioning.py, tp_local_cfg) has tp > 1,
@@ -118,6 +137,14 @@ class ModelConfig:
     @property
     def n_layers(self) -> int:
         return len(self.prefix_pattern) + len(self.pattern) * self.n_repeats
+
+    @property
+    def adtype(self) -> torch.dtype:
+        return DTYPES[self.dtype]
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return DTYPES[self.param_dtype]
 
     def all_layer_specs(self) -> list[LayerSpec]:
         return list(self.prefix_pattern) + list(self.pattern) * self.n_repeats
@@ -159,8 +186,11 @@ class ModelConfig:
             unsupported.append(f"rope={self.rope}")
         if self.pos_emb not in ("none", "learned"):
             unsupported.append(f"pos_emb={self.pos_emb}")
-        if self.dtype != "float32" or self.param_dtype != "float32":
-            unsupported.append("non-f32 compute")
+        for field in ("dtype", "param_dtype", "attn_scores_dtype"):
+            if getattr(self, field) not in DTYPES:
+                unsupported.append(f"{field}={getattr(self, field)}")
+        if self.remat_policy not in ("nothing", "dots"):
+            unsupported.append(f"remat_policy={self.remat_policy}")
         if self.kv_cache_bits not in (0, 8):
             unsupported.append(f"kv_cache_bits={self.kv_cache_bits}")
         if unsupported:

@@ -53,12 +53,14 @@ def init_encdec(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     return {"enc": enc, "dec": init_lm(dec_config(cfg), seed + 1, dev)}
 
 
-def encoder_input(frames: torch.Tensor) -> torch.Tensor:
+def encoder_input(frames: torch.Tensor,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The encoder's first block's input: the frame embeddings (B, S_enc,
-    d) plus the fixed sinusoidal table, f32."""
+    d) plus the fixed sinusoidal table, both cast to ``dtype`` (the
+    config's ``adtype``) first."""
     _, s, d = frames.shape
-    return frames.to(torch.float32) + sinusoidal_positions(
-        s, d, frames.device)[None]
+    return frames.to(dtype) + sinusoidal_positions(
+        s, d, frames.device)[None].to(dtype)
 
 
 def encode(cfg: ModelConfig, params: dict,
@@ -67,7 +69,7 @@ def encode(cfg: ModelConfig, params: dict,
     the encoder output (B, S_enc, d)."""
     ecfg = enc_config(cfg)
     b, s, _ = frames.shape
-    x = encoder_input(frames)
+    x = encoder_input(frames, ecfg.adtype)
     positions = torch.arange(s, dtype=torch.int32,
                              device=frames.device)[None].expand(b, s)
     x, _ = _run_stack(ecfg, params["enc"], x, positions=positions,
@@ -90,7 +92,7 @@ def encdec_forward(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     aux)."""
     enc_out = encode(cfg, params, frames)
     x, aux = _decoder(cfg, params, tokens, _arange_positions(tokens, None),
-                      enc_out=enc_out)
+                      enc_out=enc_out, train=True)
     return (_head(dec_config(cfg), params["dec"], x),
             torch.as_tensor(aux, dtype=torch.float32, device=x.device))
 

@@ -46,16 +46,19 @@ def init_mamba(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     m, di, h, conv_dim = _dims(cfg)
     d_in_proj = 2 * di + 2 * m.n_groups * m.d_state + h
     f32 = dict(dtype=torch.float32, device=device)
+    pd = dict(dtype=cfg.pdtype, device=device)
     return {
-        "in_proj": init_dense(gen, cfg.d_model, d_in_proj, device),
-        "conv_w": torch.randn((m.d_conv, conv_dim), generator=gen,
-                              device=device) * 0.1,
-        "conv_b": torch.zeros((conv_dim,), **f32),
+        "in_proj": init_dense(gen, cfg.d_model, d_in_proj, device,
+                              dtype=cfg.pdtype),
+        "conv_w": (torch.randn((m.d_conv, conv_dim), generator=gen,
+                               device=device) * 0.1).to(cfg.pdtype),
+        "conv_b": torch.zeros((conv_dim,), **pd),
         "A_log": torch.log(torch.linspace(1.0, 16.0, h, **f32)),
         "D": torch.ones((h,), **f32),
         "dt_bias": torch.zeros((h,), **f32),
-        "gnorm": {"scale": torch.ones((di,), **f32)},
-        "out_proj": init_dense(gen, di, cfg.d_model, device),
+        "gnorm": {"scale": torch.ones((di,), **pd)},
+        "out_proj": init_dense(gen, di, cfg.d_model, device,
+                               dtype=cfg.pdtype),
     }
 
 
@@ -63,14 +66,14 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, device, *,
                      n_layers: int) -> dict:
     """Recurrent caches for ``n_layers`` stacked mamba blocks of ``batch``
     rows (the serving engine's slots): "state" (L, B, H, P, N) f32,
-    "conv" (L, B, d_conv - 1, conv_dim), "len" (L, B)."""
+    "conv" (L, B, d_conv - 1, conv_dim) in ``cfg.adtype``, "len" (L, B)."""
     m, di, h, conv_dim = _dims(cfg)
     lead = (n_layers, batch)
     return {
         "state": torch.zeros(lead + (h, m.head_dim, m.d_state),
                              dtype=torch.float32, device=device),
         "conv": torch.zeros(lead + (m.d_conv - 1, conv_dim),
-                            dtype=torch.float32, device=device),
+                            dtype=cfg.adtype, device=device),
         "len": torch.zeros(lead, dtype=torch.int32, device=device),
     }
 
@@ -199,8 +202,10 @@ def apply_mamba(cfg: ModelConfig, p: dict, u: torch.Tensor, *,
         # the conv's window: the d_conv - 1 cached raw rows, then this one
         window = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)],
                            dim=1)                                # (B,K,C)
-        xbc_f = F.silu((window.to(torch.float32) * p["conv_w"]).sum(dim=1)
-                       + p["conv_b"])
+        # the conv in f32, its silu rounded to xBC's dtype (``_causal_conv``)
+        xbc_f = F.silu((window.to(torch.float32)
+                        * p["conv_w"].to(torch.float32)).sum(dim=1)
+                       + p["conv_b"].to(torch.float32)).to(xbc.dtype)
         x, bm, cm = torch.split(xbc_f, [di, g * n, g * n], dim=-1)
         # heads by group, (B, G, H/G, ...): a group's B and C broadcast
         # over its heads

@@ -38,14 +38,16 @@ def init_mla(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     m = cfg.mla
     d, h = cfg.d_model, cfg.n_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    pd = dict(dtype=cfg.pdtype)
     return {
-        "wq": init_dense(gen, d, h * qk, device),
+        "wq": init_dense(gen, d, h * qk, device, **pd),
         "wdkv": init_dense(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
-                           device),
+                           device, **pd),
         "kvnorm": init_norm(cfg, m.kv_lora_rank, device),
         "wukv": init_dense(gen, m.kv_lora_rank,
-                           h * (m.qk_nope_head_dim + m.v_head_dim), device),
-        "wo": init_dense(gen, h * m.v_head_dim, d, device),
+                           h * (m.qk_nope_head_dim + m.v_head_dim), device,
+                           **pd),
+        "wo": init_dense(gen, h * m.v_head_dim, d, device, **pd),
     }
 
 
@@ -56,8 +58,9 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device, *,
     ``init_kv_cache``'s."""
     m = cfg.mla
     lead = (n_layers, batch, max_len)
-    return {"k": torch.zeros(lead + (1, m.kv_lora_rank), device=device),
-            "v": torch.zeros(lead + (1, m.qk_rope_head_dim), device=device),
+    dt = dict(dtype=cfg.adtype, device=device)
+    return {"k": torch.zeros(lead + (1, m.kv_lora_rank), **dt),
+            "v": torch.zeros(lead + (1, m.qk_rope_head_dim), **dt),
             "pos": torch.full(lead, -1, dtype=torch.int32, device=device),
             "len": torch.zeros(lead[:2], dtype=torch.int32, device=device)}
 
@@ -68,9 +71,9 @@ def init_paged_mla_cache(cfg: ModelConfig, spec: PageSpec, device,
     (L, P, page, 1, r), k_pe under "v_pool" (L, P, page, 1, rope)."""
     m = cfg.mla
     lead = (n_layers, spec.n_pages, spec.page_size, 1)
-    return {"k_pool": torch.zeros(lead + (m.kv_lora_rank,), device=device),
-            "v_pool": torch.zeros(lead + (m.qk_rope_head_dim,),
-                                  device=device)}
+    dt = dict(dtype=cfg.adtype, device=device)
+    return {"k_pool": torch.zeros(lead + (m.kv_lora_rank,), **dt),
+            "v_pool": torch.zeros(lead + (m.qk_rope_head_dim,), **dt)}
 
 
 def _project_latent(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -108,7 +111,8 @@ def _gather_pages(pool: torch.Tensor, block_table: torch.Tensor):
 def _absorbed(cfg: ModelConfig, p: dict, q_nope, q_pe, ckv, kpe, kv_pos,
               positions) -> torch.Tensor:
     """Decode against the latent cache in f32: ckv (B, T, r), kpe (B, T,
-    rope), kv_pos (B, T) (-1 = empty). Returns (B, S, H * v)."""
+    rope), kv_pos (B, T) (-1 = empty). Returns (B, S, H * v) in q's
+    dtype."""
     m = cfg.mla
     b, s, h, _ = q_nope.shape
     wukv = materialize(p["wukv"]["w"]).reshape(
@@ -126,7 +130,7 @@ def _absorbed(cfg: ModelConfig, p: dict, q_nope, q_pe, ckv, kpe, kv_pos,
     probs = torch.softmax(sc, dim=-1)
     ctx = torch.einsum("bhst,btr->bshr", probs, ckv)
     o = torch.einsum("bshr,rhv->bshv", ctx, wuv)
-    return o.reshape(b, s, h * m.v_head_dim)
+    return o.to(q_nope.dtype).reshape(b, s, h * m.v_head_dim)
 
 
 def apply_mla(cfg: ModelConfig, p: dict, x: torch.Tensor, *,

@@ -15,6 +15,7 @@ and the experts.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -27,9 +28,39 @@ from repro_torch.models.linear import (dense, dense_experts, init_dense,
                                        init_dense_experts)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``. A bf16 x takes the JAX package's rounding points:
+    x * logistic(x), which XLA expands to 1 / (1 + exp(-x)), each op's
+    result rounded to bf16 (four roundings where a fused SiLU takes one;
+    that moves a layer's output by about a bf16 step). An f32 x takes the
+    fused SiLU: there the two differ by an f32 step, as the two packages'
+    exp do."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+
+def _in_dtype(c: float, x: torch.Tensor) -> float:
+    """The constant ``c`` rounded to x's dtype (a weak-typed constant meets
+    a bf16 array as bf16 in JAX)."""
+    return float(torch.tensor(c, dtype=torch.float64).to(x.dtype))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)``. A bf16 x takes the JAX package's
+    ops one by one, each rounded to bf16, its constants rounded to bf16
+    first: x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3))). An f32
+    x takes the fused tanh GELU (as ``silu``)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    inner = _in_dtype(math.sqrt(2 / math.pi), x) * (
+        x + _in_dtype(0.044715, x) * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
 def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: int,
              device) -> dict:
-    d, kw = cfg.d_model, dict(bias=cfg.mlp_bias)
+    d, kw = cfg.d_model, dict(bias=cfg.mlp_bias, dtype=cfg.pdtype)
     p = {"wi": init_dense(gen, d, d_ff, device, **kw),
          "wo": init_dense(gen, d_ff, d, device, **kw)}
     if cfg.act == "silu":
@@ -48,9 +79,9 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor,
         if "wg" in p:
             taps[tap_prefix + "wg"] = x
     if cfg.act == "silu":
-        h = F.silu(dense(p["wg"], x)) * dense(p["wi"], x)
+        h = silu(dense(p["wg"], x)) * dense(p["wi"], x)
     else:
-        h = F.gelu(dense(p["wi"], x), approximate="tanh")
+        h = gelu_tanh(dense(p["wi"], x))
     if taps is not None:
         taps[tap_prefix + "wo"] = h
     # serving TP: wi/wg are column-parallel (a rank's d_ff slice), the down
@@ -63,11 +94,13 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def init_moe(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     m = cfg.moe
     d, ff = cfg.d_model, m.d_ff_expert
+    pd = dict(dtype=cfg.pdtype)
+    # the router stays f32 in any pdtype, as in the JAX package
     p = {"router": init_dense(gen, d, m.n_experts, device),
          "experts": {
-             "wi": init_dense_experts(gen, m.n_experts, d, ff, device),
-             "wg": init_dense_experts(gen, m.n_experts, d, ff, device),
-             "wo": init_dense_experts(gen, m.n_experts, ff, d, device)}}
+             "wi": init_dense_experts(gen, m.n_experts, d, ff, device, **pd),
+             "wg": init_dense_experts(gen, m.n_experts, d, ff, device, **pd),
+             "wo": init_dense_experts(gen, m.n_experts, ff, d, device, **pd)}}
     if m.n_shared:
         p["shared"] = init_mlp(cfg, gen, m.n_shared * ff, device)
     return p
@@ -137,7 +170,9 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e; the overflow
     # bin is not counted
     me = probs.mean(dim=0)
-    ce = torch.bincount(flat_idx, minlength=e + 1)[:e].to(torch.float32) / t
+    # the counts by index_add (a fixed-size output, as under fake tensors)
+    ce = torch.zeros(e + 1, dtype=torch.float32, device=x.device).index_add_(
+        0, flat_idx, torch.ones_like(flat_idx, dtype=torch.float32))[:e] / t
     aux = m.router_aux_weight * e * torch.sum(me * ce)
 
     keep = pos < cap
@@ -152,7 +187,7 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor,
     if taps is not None:
         taps[tap_prefix + "experts"] = buf
 
-    h = (F.silu(dense_experts(p["experts"]["wg"], buf))
+    h = (silu(dense_experts(p["experts"]["wg"], buf))
          * dense_experts(p["experts"]["wi"], buf))
     if taps is not None:
         taps[tap_prefix + "experts_out"] = h
@@ -161,7 +196,7 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # combine
     gathered = out[safe_e.clamp_max(e - 1), safe_pos]          # (T*k, d)
     live = (keep & (safe_e < e)).to(x.dtype)
-    gathered = gathered * live[:, None] * gate.reshape(t * k, 1)
+    gathered = gathered * live[:, None] * gate.reshape(t * k, 1).to(x.dtype)
     y = gathered.reshape(t, k, d).sum(dim=1).reshape(b, s, d)
 
     if "shared" in p:

@@ -21,7 +21,6 @@ divisible by M), which is the JAX package's rule as it stands.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.distributed import collectives as coll
 from repro_torch.models.config import ModelConfig
@@ -83,7 +82,7 @@ def moe_ep_shardmap(cfg: ModelConfig, p: dict, x: torch.Tensor,
     gate, idx = torch.topk(probs, k, dim=-1)
     gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
 
-    from repro_torch.models.mlp_moe import apply_mlp, moe_capacity
+    from repro_torch.models.mlp_moe import apply_mlp, moe_capacity, silu
     cap = moe_capacity(cfg, t_r)
     flat_idx = idx.reshape(t_r * k)
     pos = _positions_in_expert(flat_idx, e)
@@ -102,7 +101,7 @@ def moe_ep_shardmap(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     wi, wg, wo = (_local_experts(p["experts"][n]["w"], e, e_loc, rank)
                   for n in ("wi", "wg", "wo"))
-    h = (F.silu(torch.matmul(recv, wg.to(torch.float32)))
+    h = (silu(torch.matmul(recv, wg.to(torch.float32)))
          * torch.matmul(recv, wi.to(torch.float32)))
     out = torch.matmul(h, wo.to(torch.float32))      # (E/M, M * cap, d)
 

@@ -25,10 +25,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     ang = positions.to(torch.float32)[..., None] * freqs      # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]                       # (B, S, 1, half)
     sin = torch.sin(ang)[:, :, None, :]
-    x1 = x[..., :half].to(torch.float32)
-    x2 = x[..., half:rot].to(torch.float32)
-    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return torch.cat([rotated.to(x.dtype), x[..., rot:]], dim=-1)
+    # the f32 rotation of the bf16 or f32 halves (promoted inside each
+    # product), rounded once to x's dtype; the unrotated channels after it
+    x1, x2 = x[..., :half], x[..., half:rot]
+    if torch.is_grad_enabled() and x.requires_grad:
+        parts = [x1 * cos - x2 * sin, x2 * cos + x1 * sin]
+        if rot < hd:
+            parts.append(x[..., rot:])
+        return torch.cat(parts, dim=-1).to(x.dtype)
+    # outside autograd each half's last op writes x's dtype into its slice
+    # of the output itself: no concatenation and no cast pass
+    out = torch.empty_like(x)
+    torch.sub(x1 * cos, x2 * sin, out=out[..., :half])
+    torch.add(x2 * cos, x1 * sin, out=out[..., half:rot])
+    if rot < hd:
+        out[..., rot:] = x[..., rot:]
+    return out
 
 
 def sinusoidal_positions(seq_len: int, d_model: int,

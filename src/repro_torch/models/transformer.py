@@ -20,40 +20,45 @@ output for its cross-attention.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.quant.types import QuantizedTensor
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import apply_block, init_block, \
     init_block_cache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.linear import dense
+from repro_torch.models.linear import dense, matmul_f32
 from repro_torch.models.norms import apply_norm, init_norm
 from repro_torch.serve.kvcache import PageSpec
 from repro_torch.utils.tree import tree_index, tree_map
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    """Seeded float params, drawn from a ``torch.Generator`` on ``device``:
-    N(0, 0.02^2) embeddings (and learned position table), N(0, 1/K) linear
-    weights, zero biases, unit norm scales and zero norm biases."""
+    """Seeded float params, drawn from a ``torch.Generator`` on ``device``
+    in f32 and cast to ``cfg.pdtype``: N(0, 0.02^2) embeddings (and learned
+    position table), N(0, 1/K) linear weights, zero biases, unit norm
+    scales and zero norm biases (a MoE router and mamba's A_log, D and
+    dt_bias stay f32, as in the JAX package)."""
     cfg.validate()
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    params: dict = {
-        "embed": {"w": torch.randn((cfg.vocab_size, cfg.d_model),
-                                   generator=gen, device=dev) * 0.02},
-        "final_norm": init_norm(cfg, cfg.d_model, dev),
-    }
+
+    def table(rows, cols):
+        return {"w": (torch.randn((rows, cols), generator=gen, device=dev)
+                      * 0.02).to(cfg.pdtype)}
+
+    params: dict = {"embed": table(cfg.vocab_size, cfg.d_model),
+                    "final_norm": init_norm(cfg, cfg.d_model, dev)}
     if cfg.pos_emb == "learned":
-        params["pos"] = {"w": torch.randn(
-            (cfg.max_position, cfg.d_model), generator=gen, device=dev) * 0.02}
+        params["pos"] = table(cfg.max_position, cfg.d_model)
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": torch.randn(
-            (cfg.d_model, cfg.vocab_size), generator=gen, device=dev) * 0.02}
+        params["lm_head"] = table(cfg.d_model, cfg.vocab_size)
     if cfg.prefix_pattern:
         params["prefix"] = {str(i): init_block(cfg, spec, gen, dev)
                             for i, spec in enumerate(cfg.prefix_pattern)}
@@ -142,26 +147,54 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     """Token embeddings, after ``ext_embeds`` (B, P, d) where given (a VLM's
     patch embeddings, prepended), plus the learned position table's rows
     at ``positions`` (over the whole sequence) clipped to the table (a
-    left pad's -1 reads row 0, as in the JAX package)."""
-    x = params["embed"]["w"][tokens.to(torch.int64)].to(torch.float32)
+    left pad's -1 reads row 0, as in the JAX package), in ``cfg.adtype``."""
+    dt = cfg.adtype
+    x = params["embed"]["w"][tokens.to(torch.int64)].to(dt)
     if ext_embeds is not None:
-        x = torch.cat([ext_embeds.to(torch.float32), x], dim=1)
+        x = torch.cat([ext_embeds.to(dt), x], dim=1)
     if cfg.pos_emb == "learned":
         idx = positions.to(torch.int64).clamp(0, cfg.max_position - 1)
-        x = x + params["pos"]["w"][idx].to(torch.float32)
+        x = x + params["pos"]["w"][idx].to(dt)
     return x
+
+
+# the ops whose outputs "dots" keeps for the backward pass: the JAX
+# package's dots_with_no_batch_dims_saveable, the matmuls without a batch
+# dim (every linear of a repeat; not the attention core's batched score
+# and value products, nor the expert stacks')
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` (one repeat of the pattern) under ``torch.utils.checkpoint``
+    with the config's policy: "nothing" saves nothing of the repeat, so
+    its backward pass recomputes it; "dots" keeps the matmul outputs and
+    recomputes the rest (selective activation checkpointing)."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                positions: torch.Tensor, cache: Optional[dict] = None,
                paged: Optional[dict] = None, decode: bool = False,
                causal: bool = True,
-               enc_out: Optional[torch.Tensor] = None):
+               enc_out: Optional[torch.Tensor] = None, train: bool = False):
     """The prefix blocks, then the pattern repeats in order, layer by
     layer. ``cache`` is updated in place through each layer's view of its
     pools. ``causal`` False runs an encoder; ``enc_out`` is the encoder
-    output a decoder's cross-attention reads. Returns (x, the sum of the
-    blocks' aux losses: a tensor, or 0.0 when no block is an MoE)."""
+    output a decoder's cross-attention reads. ``train`` (the JAX package's
+    mode "train": ``lm_forward``, a decoder's teacher-forced pass) runs each
+    repeat under the config's remat while autograd records. Returns (x,
+    the sum of the blocks' aux losses: a tensor, or 0.0 when no block is
+    an MoE)."""
     kw = dict(positions=positions, paged=paged, decode=decode, causal=causal,
               enc_out=enc_out)
     aux_total = 0.0
@@ -171,22 +204,41 @@ def _run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
         x, aux = apply_block(cfg, params["prefix"][str(i)], x, cache=c, **kw)
         aux_total = aux_total + aux
     pat = cfg.pattern
-    for r in range(cfg.n_repeats):
+
+    def one_repeat(x, r):
+        aux_sum = 0.0
         for j in range(len(pat)):
             p = tree_index(params["stack"][f"p{j}"], r)
             c = (tree_index(cache["stack"][f"p{j}"], r)
                  if cache is not None else None)
             x, aux = apply_block(cfg, p, x, cache=c, **kw)
-            aux_total = aux_total + aux
+            aux_sum = aux_sum + aux
+        return x, aux_sum
+
+    if train and cfg.remat and torch.is_grad_enabled():
+        one_repeat = _remat(cfg, one_repeat)
+    for r in range(cfg.n_repeats):
+        x, aux = one_repeat(x, r)
+        aux_total = aux_total + aux
     return x, aux_total
 
 
 def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits: a tied head sums x's products with the embedding (cast
+    to x's dtype) in f32, an untied one is a ``dense`` in x's dtype, then
+    upcast (the JAX package's rules); ``logit_softcap`` > 0 caps them
+    smoothly at +-c."""
     x = apply_norm(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
         # a plain product outside any kernel, as in the JAX package
-        return torch.matmul(x, params["embed"]["w"].to(torch.float32).t())
-    return dense(params["lm_head"], x)
+        w = params["embed"]["w"].to(x.dtype)
+        logits = matmul_f32(x.reshape(-1, x.shape[-1]), w.t()).reshape(
+            *x.shape[:-1], w.shape[0])
+    else:
+        logits = dense(params["lm_head"], x).to(torch.float32)
+    if cfg.logit_softcap > 0:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
 
 
 def _arange_positions(tokens: torch.Tensor,
@@ -204,7 +256,7 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     f32, the MoE aux loss), P the rows of ``ext_embeds`` (0 without)."""
     positions = _arange_positions(tokens, ext_embeds)
     x = _embed(cfg, params, tokens, positions, ext_embeds)
-    x, aux = _run_stack(cfg, params, x, positions=positions)
+    x, aux = _run_stack(cfg, params, x, positions=positions, train=True)
     return _head(cfg, params, x), torch.as_tensor(aux, dtype=torch.float32,
                                                   device=x.device)
 

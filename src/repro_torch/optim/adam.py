@@ -59,7 +59,8 @@ def global_norm(tree) -> torch.Tensor:
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float):
     """Returns (grads scaled to a global norm of at most ``max_norm``, the
-    norm before scaling)."""
+    norm before scaling). The f32 scale promotes a bf16 grad to f32, as
+    the JAX package's ``g * scale`` does."""
     gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads), gn
+    return tree_map(lambda g: g.to(torch.float32) * scale, grads), gn

@@ -16,6 +16,12 @@ the global batch under GSPMD and gets the same mean. So every rank then
 compresses the same tensor with the same generator, and the params stay
 identical across ranks. The loss is the ranks' mean too.
 
+Dtypes follow the JAX package's: params and activations in the config's
+``pdtype`` / ``adtype`` (bf16 too), grads in the params' dtype, clipping
+promoting them to f32, Adam's moments and update in f32, each param
+rounded back to its dtype. ``cfg.remat`` recomputes each repeat in the
+backward pass (``models/transformer.py::_run_stack``).
+
 ``grad_compress_bits`` (8 or 4; any width, as in the JAX package)
 compresses the gradients with stochastic
 rounding and error feedback (optim/compression.py), whose residual rides
@@ -103,6 +109,12 @@ def make_train_step(cfg: ModelConfig, *,
 
     def step(params, opt_state, batch, step_idx: int, rng=None, noise=None):
         axes = _data_axes()
+        if axes and cfg.fsdp:
+            raise NotImplementedError(
+                "fsdp: a data-parallel step over params split on the data "
+                "axis needs their all-gathers around every layer, which "
+                "the JAX package gets from XLA's SPMD partitioner; the "
+                "port replicates params over the data ranks (fsdp=False)")
         if axes:
             batch = _local_rows(batch, axes)
         if accum_steps > 1:

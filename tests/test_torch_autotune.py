@@ -23,6 +23,17 @@ ENV = ("RTORCH_AUTOTUNE", "RTORCH_AUTOTUNE_CACHE", "RTORCH_DEBUG",
        "RTORCH_SANITIZE")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: several test processes share the cores, and
+    their thread pools would contend for them (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _fresh_state(monkeypatch):
     """Each test starts and ends with no flag set and a cold tuner."""
@@ -48,13 +59,17 @@ def _fixed(kind, m, k, n, bits, gs, experts=1):
 SHAPES = [(1, 128, 256, 4, 32), (64, 256, 512, 2, -1), (9, 128, 128, 8, 64),
           (200, 1024, 512, 4, 128)]
 KINDS = ("dequant", "expert_dequant", "w8a8", "expert_w8a8")
-# (S, KVH, W, page, rows, hd, hd_v, int8) of paged reads: llama's decode
+# (S, KVH, W, page, rows, hd, hd_v, pool type) of paged reads: llama's decode
 # (8 slots, GQA 32/8, hd 64, 20 pages of 16), its verify at m_rows 5,
 # Mixtral's window read, granite's MQA 48/1
-PAGED = [(8, 8, 20, 16, 4, 64, 64, False), (8, 8, 20, 16, 4, 64, 64, True),
-         (8, 8, 20, 16, 20, 64, 64, False),
-         (8, 8, 288, 16, 6, 128, 128, False),
-         (8, 1, 20, 16, 48, 128, 128, True)]
+PAGED = [(8, 8, 20, 16, 4, 64, 64, "f32"), (8, 8, 20, 16, 4, 64, 64, "int8"),
+         (8, 8, 20, 16, 20, 64, 64, "f32"),
+         (8, 8, 288, 16, 6, 128, 128, "f32"),
+         (8, 1, 20, 16, 48, 128, 128, "int8"),
+         # bf16 pools (the dry run's and a bf16 model's): llama's decode
+         # read and Mixtral's window
+         (8, 8, 20, 16, 4, 64, 64, "bf16"),
+         (8, 8, 288, 16, 6, 128, 128, "bf16")]
 
 
 # ------------------------------------------------------- the fixed plans
@@ -79,6 +94,25 @@ def test_cold_cache_resolution_is_the_fixed_planners():
                 assert _resolved(kind, m, k, n, bits, gs, e) == got
     for shape in PAGED:
         assert autotune.paged_split(*shape) == pa.plan_paged(*shape)
+
+
+def test_paged_key_has_a_class_per_pool_type():
+    """The paged key's pool class is "f32", "int8" or "bf16" (the JAX
+    package's bf16 and int8 classes, and the port's f32), named by its
+    string only; a bf16 ring holds half an f32 one's bytes."""
+    keys = {kv: autotune.paged_key(8, 8, 20, 16, 4, 64, 64, kv)
+            for kv in ("f32", "int8", "bf16")}
+    assert [keys[kv].rsplit(":", 1)[1] for kv in ("f32", "int8", "bf16")] \
+        == ["kvf32", "kvint8", "kvbf16"]
+    from repro.kernels import ops as jops
+    assert "kv" + jops._kv_dtype(None) == keys["bf16"].rsplit(":", 1)[1]
+    assert "kv" + jops._kv_dtype(object()) == keys["int8"].rsplit(":", 1)[1]
+    f32 = pa.geometry(4, 128, 128, 288, "f32")
+    b16 = pa.geometry(4, 128, 128, 288, "bf16")
+    assert b16.smem < f32.smem and b16.rc == f32.rc
+    for kv in ("f16", False, True):
+        with pytest.raises(ValueError):
+            pa.kv_kind(kv)
 
 
 # the shapes of PERF.md §6's kernel table, as (kernel, shape, bits, group):
@@ -276,8 +310,7 @@ def test_shape_class_keys():
     keys = {autotune.paged_key(*base)}
     for i in range(len(base)):
         other = list(base)
-        other[i] = (not other[i]) if isinstance(other[i], bool) else \
-            other[i] * 2
+        other[i] = "int8" if isinstance(other[i], str) else other[i] * 2
         keys.add(autotune.paged_key(*other))
     assert len(keys) == len(base) + 1
 
@@ -500,7 +533,7 @@ def test_measured_paged_split(tmp_path, monkeypatch):
     monkeypatch.setenv("RTORCH_AUTOTUNE", "1")
     monkeypatch.setenv("RTORCH_AUTOTUNE_CACHE", path)
     card = FakeCard(lambda n: abs(n - 3))
-    shape = (2, 2, 4, 16, 8, 16, 16, True)          # m_rows 2 x G 4
+    shape = (2, 2, 4, 16, 8, 16, 16, "int8")        # m_rows 2 x G 4
     with autotune.measured_by(card.launch, card.time):
         assert autotune.paged_split(*shape, m_rows=2) == 3
     assert sorted(set(card.launched)) == list(range(1, 9))

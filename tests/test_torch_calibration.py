@@ -31,6 +31,17 @@ ARCHS = {"tiny": (tc.TINY.replace(n_repeats=2), jc.TINY.replace(n_repeats=2)),
              jc.get_smoke_config("llama3.2-1b").replace(attn_window=8))}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: several test processes share the cores, and
+    their thread pools would contend for them (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_greedy_generation_matches_jax(arch):
     tcfg, jcfg = ARCHS[arch]

@@ -17,6 +17,17 @@ from repro_torch.core.normtweak import losses as tl
 from repro_torch.kernels import ops, ref
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: several test processes share the cores, and
+    their thread pools would contend for them (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _x(t, c, seed, dtype=np.float32):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(t, c)) * 3 + 1).astype(dtype)

@@ -30,6 +30,17 @@ JCFG = jc.TINY.replace(n_repeats=2)
 TCFG = tc.TINY.replace(n_repeats=2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: several test processes share the cores, and
+    their thread pools would contend for them (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pipeline_stacked(params, bits, group, act_bits):
     """Per-layer packed linears stacked as the JAX pipeline's ``_restack``
     does: each leaf's static shape stays the layer's (K, N)."""

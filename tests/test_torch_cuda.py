@@ -1348,3 +1348,190 @@ def test_jamba_engine_on_the_card_matches_the_cpu(gen):
         "jamba-1.5-large-398b", prefill_bucket=1, prefill_batch=1)
     assert counts["paged_attention"] > 0
     assert out["cuda"] == out["cpu"]
+
+
+# ------------------------------------------------- bf16 operands (slice 18)
+#
+# Kernels 1 and 4 read a bf16 x as it is and write f32 or bf16; kernel 2
+# reads bf16 pools as they are, its q f32 or bf16, its output either. A
+# bf16 output is the f32 sum rounded once: against the plain version (the
+# same f32 sum in another order, rounded once too) an element may sit one
+# bf16 step apart (2^(e-7) for a value in [2^e, 2^(e+1)): at most 2^-7 of
+# its size) when the two sums straddle a rounding boundary, besides the
+# f32 order bound of the f32 tests above.
+
+BF16_STEP = 2.0 ** -7
+
+
+def _close(got, want, f32_bound):
+    got, want = got.float(), want.float()
+    tol = f32_bound + BF16_STEP * want.abs()
+    return bool(torch.all((got - want).abs() <= tol))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bits,group", [(4, 128), (4, -1), (3, 32), (8, -1),
+                                        (2, 64)])
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 1024), (1, 256, 200),
+                                   (40, 576, 192), (512, 1024, 512),
+                                   (130, 256, 200)])
+def test_dequant_matmul_bf16_x_matches_plain(gen, m, k, n, bits, group,
+                                             out_dtype):
+    """Both bodies (the streaming one up to 96 rows, the tile above) on a
+    bf16 x, K split or not, writing bf16 or f32."""
+    if group != -1 and k % group:
+        pytest.skip("the group does not divide K")
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    qt = quantize(w, bits, group)
+    kw = dict(bits=bits, group_size=group, k=k, out_dtype=out_dtype)
+    before = ops.launch_counts()["dequant_matmul"]
+    got = dequant_matmul_cuda(x, qt.qw, qt.scale, **kw)
+    assert ops.launch_counts()["dequant_matmul"] == before + 1
+    assert got.dtype == out_dtype
+    want = ref.dequant_matmul_ref(x, qt.qw, qt.scale, **kw)
+    bound = (x.float().abs()
+             @ dequantize(qt).to(torch.bfloat16).float().abs()).max()
+    assert _close(got, want, 4e-5 * float(bound))
+
+
+def test_dequant_matmul_bf16_refuses_per_value_scales(gen):
+    x = torch.randn((8, 256), generator=gen, device="cuda").to(torch.bfloat16)
+    qt = quantize(torch.randn((256, 64), generator=gen, device="cuda"), 4, 8)
+    with pytest.raises(ValueError, match="bf16 x"):
+        dequant_matmul_cuda(x, qt.qw, qt.scale, bits=4, group_size=8, k=256)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("e,c,k,n,bits,group", [
+    (8, 8, 1024, 2048, 4, 128), (4, 8, 2048, 1024, 4, -1),
+    (16, 8, 256, 352, 4, 128), (2, 40, 640, 512, 3, 32),
+    (3, 136, 256, 256, 8, -1)])
+def test_expert_dequant_matmul_bf16_buffer_matches_plain(gen, e, c, k, n,
+                                                         bits, group,
+                                                         out_dtype):
+    from repro_torch.kernels.expert_dequant_matmul import (
+        expert_dequant_matmul_cuda)
+
+    x, qt = _expert_case(gen, e, c, k, n, bits, group)
+    x = x.to(torch.bfloat16)
+    kw = dict(bits=bits, group_size=group, k=k, out_dtype=out_dtype)
+    got = expert_dequant_matmul_cuda(x, qt.qw, qt.scale, **kw)
+    assert got.dtype == out_dtype
+    want = ref.expert_dequant_matmul_ref(x, qt.qw, qt.scale, **kw)
+    bound = torch.matmul(x.float().abs(),
+                         dequantize(qt).to(torch.bfloat16).float().abs())
+    assert _close(got, want, 4e-5 * float(bound.max()))
+    assert torch.all(got[:, -1] == 0)
+
+
+@pytest.mark.parametrize("q_dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("m_rows,window,hd,g", [
+    (1, None, 64, 4), (5, None, 64, 4), (1, 12, 16, 2), (3, 12, 16, 2),
+    (1, None, 128, 6), (16, None, 64, 4)])
+def test_paged_attention_bf16_pools_match_plain(gen, m_rows, window, hd, g,
+                                                q_dtype, out_dtype):
+    """bf16 pools read as they are (no f32 copy before the launch): the
+    decode read, the verify rows, a window, a chunk."""
+    s, kvh, ps, w = 5, 2, 8, 10
+    fills = [0, m_rows, 8, 29, 77]
+    n_pages = 1 + s * w
+    perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+            + 1).cpu()
+    bt = torch.full((s, w), -1, dtype=torch.int32)
+    nxt = 0
+    for si, f in enumerate(fills):
+        need = -(-f // ps)
+        bt[si, :need] = perm[nxt:nxt + need].to(torch.int32)
+        nxt += need
+    kb = torch.randn((n_pages, ps, kvh, hd), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    vb = torch.randn((n_pages, ps, kvh, hd), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    q = torch.randn((s, kvh, m_rows * g, hd), generator=gen,
+                    device="cuda").to(q_dtype)
+    args = (q, kb, vb, bt.cuda(), torch.tensor(fills, dtype=torch.int32,
+                                              device="cuda"))
+    before = ops.launch_counts()["paged_attention"]
+    got = paged_attention_cuda(*args, window=window, m_rows=m_rows,
+                               out_dtype=out_dtype)
+    assert ops.launch_counts()["paged_attention"] == before + 1
+    assert got.dtype == out_dtype
+    want = ref.paged_attention_ref(*args, window=window, m_rows=m_rows,
+                                   out_dtype=out_dtype)
+    # f32 on both sides over the same upcast values, another order
+    assert _close(got, want, 1e-4)
+    assert torch.all(got[0] == 0)
+
+
+def test_bf16_tied_head_matches_the_f32_product(gen):
+    """A bf16 tied head on the card (bf16 operands, f32 sums and f32
+    logits in one product) against x.float() @ w.float().t() on the same
+    normed x: the same exact products, summed in another order, so within
+    1e-5 of the largest sum of |terms|."""
+    from repro_torch.models.norms import apply_norm
+    from repro_torch.models.transformer import _head
+
+    cfg = get_smoke_config("llama3.2-1b").replace(
+        dtype="bfloat16", param_dtype="bfloat16", d_model=2048,
+        vocab_size=4096)
+    assert cfg.tie_embeddings and cfg.logit_softcap == 0
+    d, v = cfg.d_model, cfg.vocab_size
+    x = torch.randn((3, 5, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    scale = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda"))
+    w = 0.05 * torch.randn((v, d), generator=gen, device="cuda")
+    params = {"final_norm": {"scale": scale.to(torch.bfloat16)},
+              "embed": {"w": w.to(torch.bfloat16)}}
+    with torch.no_grad():
+        got = _head(cfg, params, x)
+        xn = apply_norm(cfg, params["final_norm"], x)
+    assert got.dtype == torch.float32 and got.shape == (3, 5, v)
+    wf = params["embed"]["w"].float()
+    want = xn.float() @ wf.t()
+    bound = (xn.float().abs() @ wf.abs().t()).max()
+    assert float((got - want).abs().max()) <= 1e-5 * float(bound)
+
+
+@pytest.mark.parametrize("sq,block_kv,chunked,scores", [
+    (1, 512, False, torch.float32), (1, 1024, True, torch.float32),
+    (1, 1024, True, torch.bfloat16), (64, 1024, False, torch.bfloat16)])
+def test_bf16_attention_core_reads_the_cache_as_it_is(gen, sq, block_kv,
+                                                      chunked, scores):
+    """The attention core on bf16 operands on the card (bf16 products
+    writing f32 or ``scores_dtype`` sums) against the same function on the
+    CPU, which reads the operands as f32: the same exact products summed
+    in another order, so the bf16 outputs are within 2 bf16 steps of
+    max|v|. A decode query copies nothing of the cache (its peak over the
+    call below half of K's own bytes); a multi-row query's stays below
+    one f32 copy of K and V (its heads' one bf16 copy of each)."""
+    from repro_torch.models.attention import attention_core
+
+    b, skv, h, kvh, hd = 4, 8192, 8, 2, 128
+    bf = torch.bfloat16
+    q = torch.randn((b, sq, h, hd), generator=gen, device="cuda").to(bf)
+    k = torch.randn((b, skv, kvh, hd), generator=gen, device="cuda").to(bf)
+    v = torch.randn((b, skv, kvh, hd), generator=gen, device="cuda").to(bf)
+    kv_pos = torch.arange(skv, dtype=torch.int32, device="cuda")
+    kv_pos = kv_pos[None].expand(b, skv).clone()
+    kv_pos[1, 5000:] = -1
+    q_pos = (skv - sq + torch.arange(sq, dtype=torch.int32,
+                                     device="cuda"))[None].expand(b, sq)
+    kw = dict(causal=True, block_kv=block_kv, chunked_decode=chunked,
+              scores_dtype=scores)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        got = attention_core(q, k, v, q_pos=q_pos, kv_pos=kv_pos, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    limit = k.numel() if sq == 1 else 8 * k.numel()
+    assert peak < limit, (peak, limit)
+    want = attention_core(q.cpu(), k.cpu(), v.cpu(), q_pos=q_pos.cpu(),
+                          kv_pos=kv_pos.cpu(), **kw)
+    assert got.dtype == bf and got.shape == (b, sq, h, hd)
+    err = float((got.cpu().float() - want.float()).abs().max())
+    assert err <= 2 * 2.0 ** -7 * float(v.abs().max()), err

@@ -5,12 +5,24 @@ and through the prefetch thread) and the byte tokenizer. Equal bytes, not
 tolerances: both run the same numpy code."""
 import numpy as np
 import pytest
+import torch
 
 from repro.data import pipeline as jpipeline
 from repro.data import synthetic as jsynthetic
 from repro.data.tokenizer import ByteTokenizer as JaxByteTokenizer
 from repro_torch.data import pipeline, synthetic
 from repro_torch.data.tokenizer import ByteTokenizer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: several test processes share the cores, and
+    their thread pools would contend for them (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

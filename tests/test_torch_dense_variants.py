@@ -9,6 +9,8 @@ The JAX package inits every bias and LayerNorm bias at zero and every norm
 scale at one, so a port that dropped them would agree all the same: the
 shared params (``jax_params``) set them from a numpy seed, biases to
 N(0, 0.02^2) and scales to 1 + N(0, 0.02^2)."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +22,7 @@ from repro.core.quant.deploy import quantize_params_for_serving as jquant
 from repro.models.norms import apply_norm as japply_norm
 from repro.models.rope import apply_rope as japply_rope
 from repro.models.transformer import init_lm as jinit
-from repro.models.transformer import lm_forward as jforward
+from repro.models.transformer import lm_forward as _jforward
 import repro_torch.configs as tc
 from repro_torch.checkpoint.convert import params_from_numpy, params_to_numpy
 from repro_torch.core.quant.types import QuantizedTensor
@@ -57,6 +59,20 @@ def perturbed_numpy(jcfg, seed: int = 0) -> dict:
         return x
 
     return jax.tree_util.tree_map_with_path(draw, tree)
+
+
+def jitted(fn):
+    """``fn(cfg, *args, **kw)`` of the JAX package jitted, the config
+    static and the trace keyed on REPRO_DEQUANT_IMPL too (read while it
+    traces): an eager call retraces and compiles its layer scan each
+    time."""
+    j = jax.jit(lambda impl, cfg, *a, **kw: fn(cfg, *a, **kw),
+                static_argnums=(0, 1))
+    return lambda cfg, *a, **kw: j(os.environ.get("REPRO_DEQUANT_IMPL", ""),
+                                   cfg, *a, **kw)
+
+
+jforward = jitted(_jforward)
 
 
 def to_jax(tree):

@@ -25,6 +25,17 @@ TCFG = tc.TINY.replace(**SHRINK)
 WORKLOAD = [(8, 6), (16, 4), (32, 8), (64, 5)] * 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the engine's decode loop issues many small ops,
+    which several test processes' thread pools would contend for (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _serve_both(variant, reqs, engine_kw, quant=None, monkeypatch=None,
                 base=(JCFG, TCFG)):
     jcfg = base[0].replace(**variant)

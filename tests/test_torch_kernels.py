@@ -35,6 +35,17 @@ MATMUL_SHAPES = [(8, 192, 192), (40, 192, 576), (8, 576, 192),
                  (8, 64, 64), (40, 64, 32), (8, 64, 160), (40, 160, 64)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: several test processes share the cores, and
+    their thread pools would contend for them (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _dequant_inputs(m, k, n, bits, group, seed):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(m, k)).astype(np.float32)

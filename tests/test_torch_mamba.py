@@ -23,9 +23,9 @@ from repro.models import mamba2 as jm
 from repro.models.norms import apply_gated_rmsnorm as jgated
 from repro.models.transformer import init_cache as jinit_cache
 from repro.models.transformer import init_lm as jinit
-from repro.models.transformer import lm_decode as jdecode
-from repro.models.transformer import lm_forward as jforward
-from repro.models.transformer import lm_prefill as jprefill
+from repro.models.transformer import lm_decode as _jdecode
+from repro.models.transformer import lm_forward as _jforward
+from repro.models.transformer import lm_prefill as _jprefill
 from repro_torch.checkpoint.convert import params_from_numpy, params_to_numpy
 from repro_torch.core.quant.blockquant import iter_linears
 from repro_torch.core.quant.deploy import quantize_params_for_serving
@@ -38,7 +38,11 @@ from repro_torch.models.transformer import (get_block, init_cache,
                                             lm_prefill, num_blocks)
 from repro_torch.serve.kvcache import PageSpec
 from repro_torch.utils.tree import tree_index
-from test_torch_dense_variants import perturbed_numpy, smoke_pair, to_jax
+from test_torch_dense_variants import (jitted, perturbed_numpy, smoke_pair,
+                                      to_jax)
+
+jprefill, jdecode = jitted(_jprefill), jitted(_jdecode)
+jforward = jitted(_jforward)
 
 ARCHS = ["mamba2-2.7b", "jamba-1.5-large-398b"]
 MCFG, JMCFG = smoke_pair("mamba2-2.7b")

@@ -19,9 +19,9 @@ from repro.models import mla as jmla
 from repro.models.linear import materialize as jmaterialize
 from repro.models.transformer import init_cache as jinit_cache
 from repro.models.transformer import init_lm as jinit
-from repro.models.transformer import lm_decode as jdecode
-from repro.models.transformer import lm_forward as jforward
-from repro.models.transformer import lm_prefill as jprefill
+from repro.models.transformer import lm_decode as _jdecode
+from repro.models.transformer import lm_forward as _jforward
+from repro.models.transformer import lm_prefill as _jprefill
 from repro.serve.kvcache import PageSpec as JPageSpec
 from repro_torch.checkpoint.convert import params_from_numpy, params_to_numpy
 from repro_torch.core.quant.types import QuantizedTensor, dequantize
@@ -34,7 +34,11 @@ from repro_torch.models.transformer import (get_block, init_cache,
                                             lm_prefill, num_blocks)
 from repro_torch.serve.kvcache import PageSpec
 from repro_torch.utils.tree import tree_index
-from test_torch_dense_variants import perturbed_numpy, smoke_pair, to_jax
+from test_torch_dense_variants import (jitted, perturbed_numpy, smoke_pair,
+                                      to_jax)
+
+jprefill, jdecode = jitted(_jprefill), jitted(_jdecode)
+jforward = jitted(_jforward)
 
 ARCH = "deepseek-v2-lite-16b"
 TCFG, JCFG = smoke_pair(ARCH)
@@ -42,6 +46,17 @@ TCFG, JCFG = smoke_pair(ARCH)
 # variants.py's bounds): the attention block's output, and logits
 ATOL_BLOCK = 2e-5
 ATOL_LOGITS = 2e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the engine's decode loop issues many small ops,
+    which several test processes' thread pools would contend for (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

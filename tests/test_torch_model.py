@@ -28,6 +28,17 @@ ARCHS = {"tiny": (tc.TINY, jc.TINY),
 QUANTS = [(0, 0), (4, 128), (4, 32), (3, 32), (2, 32)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: several test processes share the cores, and
+    their thread pools would contend for them (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_params():
     return {name: jinit(jcfg, jax.random.PRNGKey(0))

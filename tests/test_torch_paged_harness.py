@@ -22,6 +22,17 @@ CASES = [(0, 4, 3, 16, 2, 2, 16, [0, 5, 16, 48], 3),
          (7, 3, 4, 8, 1, 8, 32, [32, 9, 0], 4)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: several test processes share the cores, and
+    their thread pools would contend for them (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return None if x is None else np.asarray(jnp.asarray(x, jnp.float32)
                                              if x.dtype == jnp.bfloat16
@@ -32,7 +43,8 @@ def _t(x):
     return None if x is None else x.cpu().numpy()
 
 
-def _same_case(port, jax_case):
+def _same_case(port, jax_case, bf16=False):
+    """``bf16``: the port's bf16 pools, the JAX package's bit for bit."""
     q, pools, bt, kv_len = port
     jq, jpools, jbt, jkv = jax_case
     np.testing.assert_array_equal(_t(q), _np(jq))
@@ -42,9 +54,14 @@ def _same_case(port, jax_case):
         if jpools[k] is None:
             assert pools[k] is None
             continue
-        assert pools[k].dtype == (torch.int8 if jpools[k].dtype == jnp.int8
-                                  else torch.float32)
-        if jpools[k].dtype == jnp.bfloat16:
+        assert pools[k].dtype == (
+            torch.int8 if jpools[k].dtype == jnp.int8
+            else torch.bfloat16 if bf16 and k in ("k_pool", "v_pool")
+            else torch.float32)
+        if bf16 and jpools[k].dtype == jnp.bfloat16:
+            np.testing.assert_array_equal(_t(pools[k].float()),
+                                          _np(jpools[k]))
+        elif jpools[k].dtype == jnp.bfloat16:
             # full f32 draws: a kernel that read them as bf16 would differ
             rounded = pools[k].to(torch.bfloat16).float()
             assert not torch.equal(rounded, pools[k])
@@ -74,6 +91,28 @@ def test_builders_equal_the_references(case, kv_bits):
                                      kv_bits, device="cpu"),
                jph.build_prefill_case(seed, s, m, w, ps, kvh, g, hd, fills,
                                       kv_bits))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_bf16_pools_equal_the_references(case):
+    """``pools="bf16"``: the draws rounded to bf16, equal bit for bit to
+    the JAX package's bf16 pools for equal seeds (decode, verify and
+    prefill builders)."""
+    seed, s, w, ps, kvh, g, hd, fills, m = case
+    kw = dict(pools="bf16", device="cpu")
+    _same_case(ph.build_paged_case(seed, s, w, ps, kvh, g, hd, fills, 16,
+                                   **kw),
+               jph.build_paged_case(seed, s, w, ps, kvh, g, hd, fills, 16),
+               bf16=True)
+    vf = _m_fills(fills, m)
+    _same_case(ph.build_verify_case(seed, s, m, w, ps, kvh, g, hd, vf, 16,
+                                    **kw),
+               jph.build_verify_case(seed, s, m, w, ps, kvh, g, hd, vf, 16),
+               bf16=True)
+    _same_case(ph.build_prefill_case(seed, s, m, w, ps, kvh, g, hd, fills,
+                                     16, **kw),
+               jph.build_prefill_case(seed, s, m, w, ps, kvh, g, hd, fills,
+                                      16), bf16=True)
 
 
 def _f32(case):

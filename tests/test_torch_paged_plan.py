@@ -34,6 +34,17 @@ NEG = -1e30
 SM_SMEM, BLOCK_RESERVED = 233472, 1024
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: several test processes share the cores, and
+    their thread pools would contend for them (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _const(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", SOURCE).group(1))
 
@@ -47,6 +58,14 @@ def test_planner_constants_are_the_kernels():
     assert pa.MAX_HDV == _const("MAX_HDV")
     assert MAX_SMEM == _const("MAX_SMEM")
     assert "constexpr int RED = 3 * WARPS + 3 + MAX_SPLIT;" in SOURCE
+    # the pool types' kinds and element bytes, as the wrapper passes them
+    assert "constexpr int KV_F32 = 0, KV_INT8 = 1, KV_BF16 = 2;" in SOURCE
+    assert ("const int es = kind == KV_INT8 ? 1 : kind == KV_BF16 ? 2 : 4;"
+            in SOURCE)
+    assert pa.POOLS == {"f32": (4, 0), "int8": (1, 1), "bf16": (2, 2)}
+    assert ("const int mult = kind == KV_INT8 ? 16 : kind == KV_BF16 ? 8 : 4;"
+            in SOURCE)
+    assert pa.HD_MULTIPLE == {"f32": 4, "bf16": 8, "int8": 16}
     # the layout rules `geometry` mirrors, as the source writes them
     for line in (
             "g.ksb = 16 * (u0 + (12 - u0 % 8) % 8);",
@@ -63,14 +82,19 @@ def test_planner_constants_are_the_kernels():
         assert line in SOURCE, line
 
 
+# a case's pool type by its "quant" parameter (False f32, True int8), the
+# ids the cases have always had
+POOL = {False: "f32", True: "int8", "bf16": "bf16"}
+
+
 @pytest.mark.parametrize("hd", [16, 48, 64, 128])
-@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("quant", [False, True, "bf16"])
 def test_k_rows_avoid_bank_conflicts(hd, quant):
     """A quarter warp reads 2 tokens x 4 consecutive 16-byte units of K:
     a row pitch of 4 mod 8 units puts them in 8 distinct bank groups."""
-    if quant and hd % 16:
+    if hd % pa.HD_MULTIPLE[POOL[quant]]:
         pytest.skip("int8 pools take hd in multiples of 16")
-    es = 1 if quant else 4
+    es = pa.POOLS[POOL[quant]][0]
     u0 = hd * es // 16
     pitch = u0 + (12 - u0 % 8) % 8
     assert pitch % 8 == 4 and pitch >= u0
@@ -92,12 +116,12 @@ PLAN_SHAPES = [(8, 8, 20, 16, 4, 64, 64), (8, 8, 20, 16, 16, 64, 64),
                (7, 3, 11, 32, 5, 48, 48), (2, 1, 3, 16, 1, 16, 16)]
 
 
-@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("quant", [False, True, "bf16"])
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_plan_rules(shape, quant):
     s, kvh, w, ps, rows, hd, hd_v = shape
-    n = pa.plan_paged(s, kvh, w, ps, rows, hd, hd_v, quant)
-    geo = pa.geometry(rows, hd, hd_v, w, quant)
+    n = pa.plan_paged(s, kvh, w, ps, rows, hd, hd_v, POOL[quant])
+    geo = pa.geometry(rows, hd, hd_v, w, POOL[quant])
     clusters = s * kvh * geo.chunks
     assert 1 <= n <= pa.MAX_SPLIT
     if w * ps < 2 * pa.MIN_SPLIT_TOKENS:
@@ -118,12 +142,12 @@ def test_plan_main_cases():
     """llama3.2-1b's decode read gets 5 splits of 4 pages (320 blocks);
     Mixtral's window 7 (448 blocks), 32 llama slots 2, and each keeps at
     least 2 blocks an SM resident (bytes in flight on every SM)."""
-    assert pa.plan_paged(8, 8, 20, 16, 4, 64, 64, False) == 5
-    assert pa.plan_paged(8, 8, 288, 16, 6, 128, 128, False) == 7
-    assert pa.plan_paged(32, 8, 20, 16, 4, 64, 64, False) == 2
-    for rows, hd, w, quant in ((4, 64, 20, False), (4, 64, 20, True),
-                               (6, 128, 288, False), (6, 128, 288, True)):
-        smem = pa.geometry(rows, hd, hd, w, quant).smem
+    assert pa.plan_paged(8, 8, 20, 16, 4, 64, 64, "f32") == 5
+    assert pa.plan_paged(8, 8, 288, 16, 6, 128, 128, "f32") == 7
+    assert pa.plan_paged(32, 8, 20, 16, 4, 64, 64, "f32") == 2
+    for rows, hd, w, kv in ((4, 64, 20, "f32"), (4, 64, 20, "int8"),
+                            (6, 128, 288, "f32"), (6, 128, 288, "int8")):
+        smem = pa.geometry(rows, hd, hd, w, kv).smem
         assert 2 * (smem + BLOCK_RESERVED) <= SM_SMEM
 
 
@@ -142,15 +166,15 @@ CARD_CASES = [(8, 8, 20, 16, 4, 64, 1), (8, 8, 20, 16, 4, 64, 4),
 def test_card_cases_fit(case, quant):
     s, kvh, w, ps, g, hd, m_rows = case
     rows = g * m_rows
-    pa.plan_paged(s, kvh, w, ps, rows, hd, hd, quant)   # raises if not
-    assert pa.geometry(rows, hd, hd, w, quant).smem <= MAX_SMEM
+    pa.plan_paged(s, kvh, w, ps, rows, hd, hd, POOL[quant])  # raises if not
+    assert pa.geometry(rows, hd, hd, w, POOL[quant]).smem <= MAX_SMEM
 
 
 def test_plan_refuses_what_does_not_fit():
     with pytest.raises(ValueError, match="shared memory"):
-        pa.plan_paged(8, 8, 20, 16, 4, 64, 256, False)
+        pa.plan_paged(8, 8, 20, 16, 4, 64, 256, "f32")
     with pytest.raises(ValueError, match="shared memory"):
-        pa.plan_paged(8, 8, 60000, 16, 4, 128, 128, False)
+        pa.plan_paged(8, 8, 60000, 16, 4, 128, 128, "f32")
 
 
 # ------------------------------------------------ the split walk, emulated

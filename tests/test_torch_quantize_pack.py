@@ -19,6 +19,17 @@ PALLAS_CASES = [(2, -1), (2, 32), (4, -1), (4, 64), (8, -1), (3, -1),
                 (3, 32)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: several test processes share the cores, and
+    their thread pools would contend for them (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _w(shape, seed):
     return (np.random.default_rng(seed).normal(size=shape) * 0.2).astype(
         np.float32)

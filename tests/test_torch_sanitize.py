@@ -5,6 +5,7 @@ events), each compile-like site counting once per key, the CLI on the
 CPU, and the engine's debug default from the flags."""
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.analysis import sanitize
 from repro_torch.configs import TINY
@@ -14,6 +15,17 @@ from repro_torch.serve.engine import ContinuousEngine
 from repro_torch.serve.traffic import make_trace, replay
 
 CFG = TINY.replace(**sanitize.CLI_MODEL)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the engine's decode loop issues many small ops,
+    which several test processes' thread pools would contend for (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -103,7 +115,7 @@ def test_planner_misses_and_kernel_loads_count_once(monkeypatch):
     autotune.reset()
     for _ in range(3):
         autotune.dense_plan("dequant_matmul", 8, 2048, 2048, 4, 16)
-        autotune.paged_split(8, 8, 20, 16, 4, 64, 64, False)
+        autotune.paged_split(8, 8, 20, 16, 4, 64, 64, "f32")
     counts = sanitize.trace_counts()
     assert sorted(counts.values()) == [1, 1]
     assert {dict(k)["kernel"] for _, k in counts} == {"dequant_matmul",

@@ -45,15 +45,13 @@ ARCHS = ["tiny"] + jc.list_archs()
 
 
 def _cfgs(name, smoke=False):
-    """(port cfg, JAX cfg) of an arch; the JAX one at ``fsdp=False``: the
-    port has no FSDP (only the JAX package's offline tools set it; it
-    comes with them), so its rules are the JAX package's without it."""
+    """(port cfg, JAX cfg) of an arch, each with its own ``fsdp`` (the
+    configs of deepseek, granite, jamba and mixtral set it)."""
     if name == "tiny":
         return tc.TINY, jc.TINY
     if smoke:
-        return (tc.get_smoke_config(name),
-                jc.get_smoke_config(name).replace(fsdp=False))
-    return tc.get_config(name), jc.get_config(name).replace(fsdp=False)
+        return tc.get_smoke_config(name), jc.get_smoke_config(name)
+    return tc.get_config(name), jc.get_config(name)
 
 
 # ------------------------------------------- tests/test_sharding.py's cases
@@ -152,6 +150,21 @@ def test_coordinator_matches_jax():
         b.shape, b.accum_steps, b.dropped_hosts)
     assert [(e.step, e.kind, e.detail) for e in jco.events] == \
         [(e.step, e.kind, e.detail) for e in tco.events]
+
+
+@pytest.mark.parametrize("fsdp", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fsdp_rules_match_jax(arch, fsdp):
+    """``rules_for_config`` with ``fsdp`` set either way equals the JAX
+    package's on the production meshes and a small one: with it the embed
+    dims ("embed_fsdp") split over "data"."""
+    tcfg, jcfg = _cfgs(arch)
+    tcfg, jcfg = tcfg.replace(fsdp=fsdp), jcfg.replace(fsdp=fsdp)
+    for mesh in (MESH, FakeMesh({"data": 16, "model": 16}),
+                 FakeMesh({"data": 2, "model": 4})):
+        rules = P.rules_for_config(tcfg, mesh)
+        assert rules == JP.rules_for_config(jcfg, mesh)
+        assert rules["embed_fsdp"] == ("data" if fsdp else None)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

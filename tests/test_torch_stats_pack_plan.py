@@ -46,6 +46,17 @@ SM_SMEM, BLOCK_RESERVED = 233472, 1024
 F32 = torch.float32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: several test processes share the cores, and
+    their thread pools would contend for them (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _const(src, name):
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 

@@ -16,10 +16,10 @@ import torch
 from repro.core.normtweak import pipeline as jpipe
 from repro.models.transformer import get_block as jget
 from repro.models.transformer import init_cache as jinit_cache
-from repro.models.transformer import lm_decode as jdecode
-from repro.models.transformer import lm_forward as jforward
+from repro.models.transformer import lm_decode as _jdecode
+from repro.models.transformer import lm_forward as _jforward
 from repro.models.transformer import lm_loss as jloss
-from repro.models.transformer import lm_prefill as jprefill
+from repro.models.transformer import lm_prefill as _jprefill
 from repro.serve.engine import ContinuousEngine as JaxEngine
 import repro_torch.core.quant.types as tt
 from repro_torch.checkpoint.convert import params_from_numpy, params_to_numpy
@@ -30,8 +30,12 @@ from repro_torch.models.transformer import (get_block, init_contiguous_cache,
                                             lm_decode, lm_forward, lm_loss,
                                             lm_prefill)
 from repro_torch.utils.tree import tree_get
-from test_torch_dense_variants import perturbed_numpy, smoke_pair, to_jax
+from test_torch_dense_variants import (jitted, perturbed_numpy, smoke_pair,
+                                      to_jax)
 from test_torch_dense_variants_pipeline import _code_diff
+
+jprefill, jdecode = jitted(_jprefill), jitted(_jdecode)
+jforward = jitted(_jforward)
 
 TCFG, JCFG = smoke_pair("internvl2-2b")
 P = JCFG.frontend_len

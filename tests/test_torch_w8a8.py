@@ -21,6 +21,17 @@ GROUPS = [-1, 16, 32, 128]
 MS = [1, 5, 8, 40]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: several test processes share the cores, and
+    their thread pools would contend for them (see
+    tests/test_torch_normtweak.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(m, k, n, bits, group, seed):
     """x (M, K) with a few outlier channels, and W packed (the two packages
     pack the same bytes, tests/test_torch_quant_types.py), as numpy."""

@@ -50,7 +50,8 @@ def sweep_case(label, kvh, g, hd, w, window, fills, quant, timer,
     ks, vs = pools["k_scale_pool"], pools["v_scale_pool"]
     want = ref.paged_attention_ref(q, kp, vp, bt, kl, ks, vs, window=window)
     out = torch.empty_like(want)
-    planned = pa.plan_paged(s, kvh, w, ps, g, hd, hd, quant)
+    planned = pa.plan_paged(s, kvh, w, ps, g, hd, hd,
+                           "int8" if quant else "f32")
     row = dict(case=label, slots=s, hd=hd, group=g, window=window,
                int8=quant, planned=planned, ms={})
     for n in range(1, pa.MAX_SPLIT + 1):
